@@ -1,0 +1,155 @@
+"""Configuration dataclasses for the CAF engine (PyTorch port).
+
+Same grids, backend names and validation as ``caf_cookoff_tpu.config``;
+the platform rule becomes :func:`default_device` (``cuda`` when torch
+sees a card, ``cpu`` otherwise).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+DEFAULT_SAMPLE_RATE = 48_000.0  # Hz, the reference's fixture rate
+
+# Backend names accepted by CafConfig and the engines.  Every FFT tier
+# ('xla', 'matmul*') runs the full-precision complex torch.fft (cuFFT on
+# the card, pocketfft on the CPU), which is at least as exact as each
+# tier it names.  'pallas*' names the fused-filterbank kernels that are
+# not ported yet (the engines raise EligibilityError for them).
+FFT_BACKENDS = ("xla", "matmul", "matmul-highest", "matmul-high",
+                "matmul-bf16")
+BACKENDS = ("auto",) + FFT_BACKENDS + ("pallas", "pallas-refine",
+                                       "pallas-bf16", "stein", "stein-raw")
+
+
+@dataclasses.dataclass(frozen=True)
+class FreqGrid:
+    """A doppler search grid: ``[start, stop)`` in ``step`` increments.
+
+    The grid is generated by integer *milli-hertz* stepping so repeated
+    float addition never drifts; the stop value is exclusive.
+    """
+
+    start_hz: float
+    stop_hz: float
+    step_hz: float
+
+    def __post_init__(self) -> None:
+        if self.step_hz <= 0:
+            raise ValueError(f"step_hz must be positive, got {self.step_hz}")
+        if self.stop_hz <= self.start_hz:
+            raise ValueError("stop_hz must be greater than start_hz")
+
+    @property
+    def num_bins(self) -> int:
+        start_mhz = int(self.start_hz * 1000.0)
+        stop_mhz = int(self.stop_hz * 1000.0)
+        step_mhz = int(self.step_hz * 1000.0)
+        return max(0, -(-(stop_mhz - start_mhz) // step_mhz))
+
+    def frequencies(self, dtype=np.float64) -> np.ndarray:
+        """Materialize the grid as a host array (exact mHz lattice)."""
+        start_mhz = int(self.start_hz * 1000.0)
+        step_mhz = int(self.step_hz * 1000.0)
+        mhz = start_mhz + step_mhz * np.arange(self.num_bins, dtype=np.int64)
+        return (mhz.astype(np.float64) / 1e3).astype(dtype)
+
+
+# The benchmark grid: 400 bins, -100..+100 Hz step 0.5.
+BENCH_GRID = FreqGrid(-100.0, 100.0, 0.5)
+
+
+@dataclasses.dataclass(frozen=True)
+class CafConfig:
+    """Full configuration for one CAF computation."""
+
+    sample_rate: float = DEFAULT_SAMPLE_RATE
+    grid: FreqGrid = BENCH_GRID
+    # 'c64' (complex64 compute) or 'c128' (complex128 parity mode).
+    precision: str = "c64"
+    # One of BACKENDS; 'auto' resolves to 'xla'.
+    backend: str = "auto"
+
+    def __post_init__(self) -> None:
+        if self.precision not in ("c64", "c128"):
+            raise ValueError(f"unknown precision {self.precision!r}")
+        if self.backend not in BACKENDS:
+            raise ValueError(f"unknown backend {self.backend!r}")
+
+    @property
+    def complex_dtype(self):
+        return np.complex64 if self.precision == "c64" else np.complex128
+
+    @property
+    def real_dtype(self):
+        return np.float32 if self.precision == "c64" else np.float64
+
+
+def default_device() -> torch.device:
+    """``cuda`` when torch sees a card, ``cpu`` otherwise."""
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
+def resolve_backend(backend) -> str:
+    """Validate a backend name; ``None``/'auto' -> 'xla'.
+
+    The FFT tiers 'xla', 'matmul', 'matmul-highest', 'matmul-high' and
+    'matmul-bf16' are aliases here: all run the full-precision complex
+    ``torch.fft`` (complex64 or complex128), which is at least as exact
+    as each tier they name in the JAX package.
+    """
+    if backend in (None, "auto"):
+        return "xla"
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}")
+    return backend
+
+
+def as_grid(freqs_hz, dtype=np.float32) -> np.ndarray:
+    """Validated doppler search grid: non-empty 1-D finite array."""
+    if isinstance(freqs_hz, torch.Tensor):
+        freqs_hz = freqs_hz.detach().cpu().numpy()
+    g = np.asarray(freqs_hz, dtype=dtype)
+    if g.ndim != 1 or g.size == 0:
+        raise ValueError(
+            f"frequency grid must be a non-empty 1-D array, got shape "
+            f"{g.shape}")
+    if not np.all(np.isfinite(g)):
+        raise ValueError("frequency grid contains non-finite values")
+    return g
+
+
+def next_pow2(n: int) -> int:
+    """Smallest power of two >= n."""
+    if n <= 1:
+        return 1
+    return 1 << (n - 1).bit_length()
+
+
+def xcor_length(needle_len: int) -> int:
+    """Zero-padded cross-correlation length: 2N rounded up to a power
+    of two."""
+    return next_pow2(2 * needle_len)
+
+
+def is_pow2(n: int) -> bool:
+    return n > 0 and (n & (n - 1)) == 0
+
+
+def floor_pow2(n: int) -> int:
+    """Largest power of two <= n (0 for n <= 0)."""
+    if n <= 0:
+        return 0
+    while not is_pow2(n):
+        n &= n - 1
+    return n
+
+
+def log2_int(n: int) -> int:
+    if not is_pow2(n):
+        raise ValueError(f"{n} is not a power of two")
+    return int(math.log2(n) + 0.5)

@@ -1,0 +1,288 @@
+// Fused Stein coarse rank for Hopper (sm_90a): per (pair, doppler bin),
+// the max over lags of |R|^2 and the lowest lag that attains it.
+//
+// Replaces caf_cookoff_tpu/ops/pallas_stein.py::_fused_stein_kernel
+// (modes (a) and (b): any pair count, lags always computed).
+//
+//   G[p, r, tau] = sum_{e<D} lmat[p, r, e]     * h_ext[p, 0, (r mod B)*D + e + tau]
+//                          + lmat[p, r, D + e] * h_ext[p, 1, (r mod B)*D + e + tau]
+//   Rr = ws1 @ G[p],  Ri = ws2 @ G[p]                 (K, 2B) x (2B, lags)
+//   vals[k, p] = max_{tau < num_lags} Rr^2 + Ri^2,  lags[k, p] = lowest argmax
+//
+// Precision is the Pallas kernel's: ws1, ws2, lmat and h_ext rounded to
+// bf16, G rounded to bf16, every sum accumulated in f32.
+//
+// What bounds it on this card: arithmetic.  At the main path's shape
+// (K = 400 bins, 2B = 128 segment rows, 8192 lags, one pair) the
+// synthesis is 2 x 400 x 128 x 8192 = 0.84 G multiply-adds, stage A
+// 0.13 G, while the inputs are ~0.5 MB and G is 2 MB in bf16 (it stays
+// in the 50 MB L2 between launches).
+//
+// Design.  The TPU kernel walks its lag tiles in order inside one
+// program and carries a running max in VMEM; Hopper blocks run in no
+// order, so the work is three launches on one stream:
+//   1. stein_stage_a: one block per (pair, segment, 128-lag tile) stages
+//      the haystack window and the two needle-tap rows in shared memory
+//      and writes G (P, 2B, m_pad) in bf16.
+//   2. stein_stage_b: one block per (pair, 64-bin tile, 128-lag tile);
+//      the synthesis weights and a G tile are staged 32 rows at a time,
+//      each thread keeps 4 bins x 8 lags of Rr and Ri in registers
+//      (64 f32 FMA per 16 shared-memory reads), and the |R|^2 epilogue
+//      reduces each bin to (max, lowest lag) for the tile: in order
+//      within a thread, then by warp shuffles.
+//   3. stein_reduce_tiles: per (pair, bin), the tiles in ascending lag
+//      order with a strict '>', so the lowest lag survives exact ties.
+// Plain FMA loops, no tensor cores: wgmma/TMA and keeping G out of
+// device memory are later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstddef>
+
+namespace {
+
+constexpr int kLagTile = 128;   // lags per block in launches 1 and 2
+constexpr int kBinTile = 64;    // bins per stage-B block
+constexpr int kRowChunk = 32;   // synthesis rows staged per step
+constexpr int kThreadsB = 256;  // 16 (bin groups) x 16 (lag lanes)
+constexpr int kBinsPerThread = kBinTile / 16;   // 4
+constexpr int kLagsPerThread = kLagTile / 16;   // 8
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// Launch 1.  grid (m_pad / kLagTile, B, P), kLagTile threads; thread t
+// owns lag tau = tile * kLagTile + t of segment rows blk and B + blk.
+__global__ void __launch_bounds__(kLagTile) stein_stage_a(
+    const __nv_bfloat16* __restrict__ lmat, const float* __restrict__ h_ext,
+    __nv_bfloat16* __restrict__ g, int num_blocks, int sup, int h_len,
+    int m_pad) {
+  extern __shared__ float smem[];
+  const int tile = blockIdx.x, blk = blockIdx.y, p = blockIdx.z;
+  const int b2 = 2 * num_blocks;
+  const int win = kLagTile + sup - 1;
+  float* h0 = smem;            // haystack window, real plane
+  float* h1 = h0 + win;        // imaginary plane
+  float* top = h1 + win;       // taps of row blk (Re G)
+  float* bot = top + 2 * sup;  // taps of row B + blk (Im G)
+
+  const int start = blk * sup + tile * kLagTile;
+  const float* hp = h_ext + static_cast<size_t>(p) * 2 * h_len;
+  for (int i = threadIdx.x; i < win; i += blockDim.x) {
+    h0[i] = round_bf16(hp[start + i]);
+    h1[i] = round_bf16(hp[h_len + start + i]);
+  }
+  const __nv_bfloat16* lp = lmat + static_cast<size_t>(p) * b2 * 2 * sup;
+  for (int i = threadIdx.x; i < 2 * sup; i += blockDim.x) {
+    top[i] = __bfloat162float(lp[static_cast<size_t>(blk) * 2 * sup + i]);
+    bot[i] = __bfloat162float(
+        lp[static_cast<size_t>(num_blocks + blk) * 2 * sup + i]);
+  }
+  __syncthreads();
+
+  const int t = threadIdx.x;
+  float acc_top = 0.f, acc_bot = 0.f;
+  for (int e = 0; e < sup; ++e) {
+    const float a = h0[t + e], c = h1[t + e];
+    acc_top = fmaf(top[e], a, acc_top);
+    acc_top = fmaf(top[sup + e], c, acc_top);
+    acc_bot = fmaf(bot[e], a, acc_bot);
+    acc_bot = fmaf(bot[sup + e], c, acc_bot);
+  }
+  const int tau = tile * kLagTile + t;
+  __nv_bfloat16* gp = g + static_cast<size_t>(p) * b2 * m_pad;
+  gp[static_cast<size_t>(blk) * m_pad + tau] = __float2bfloat16_rn(acc_top);
+  gp[static_cast<size_t>(num_blocks + blk) * m_pad + tau] =
+      __float2bfloat16_rn(acc_bot);
+}
+
+// Launch 2.  grid (m_pad / kLagTile, ceil(K / kBinTile), P), kThreadsB
+// threads; thread (ty, tx) owns bins k0 + 4*ty + i (i < 4) and lags
+// tau0 + tx + 16*j (j < 8).  Writes part_val/part_lag[(p*K + k)*tiles + tile].
+__global__ void __launch_bounds__(kThreadsB) stein_stage_b(
+    const __nv_bfloat16* __restrict__ ws1,
+    const __nv_bfloat16* __restrict__ ws2,
+    const __nv_bfloat16* __restrict__ g, float* __restrict__ part_val,
+    int* __restrict__ part_lag, int num_bins, int b2, int m_pad,
+    int num_lags) {
+  // +1 column: the transposing stores below hit distinct banks.
+  __shared__ float s_w1[kRowChunk][kBinTile + 1];
+  __shared__ float s_w2[kRowChunk][kBinTile + 1];
+  __shared__ float s_g[kRowChunk][kLagTile];
+
+  const int tile = blockIdx.x, p = blockIdx.z;
+  const int k0 = blockIdx.y * kBinTile, tau0 = tile * kLagTile;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const __nv_bfloat16* gp = g + static_cast<size_t>(p) * b2 * m_pad;
+
+  float rr[kBinsPerThread][kLagsPerThread];
+  float ri[kBinsPerThread][kLagsPerThread];
+#pragma unroll
+  for (int i = 0; i < kBinsPerThread; ++i)
+#pragma unroll
+    for (int j = 0; j < kLagsPerThread; ++j) rr[i][j] = ri[i][j] = 0.f;
+
+  for (int r0 = 0; r0 < b2; r0 += kRowChunk) {
+    // Rows past b2 and bins past K stage as zeros.
+    for (int i = threadIdx.x; i < kRowChunk * kBinTile; i += kThreadsB) {
+      const int k = i / kRowChunk, r = i % kRowChunk;
+      float v1 = 0.f, v2 = 0.f;
+      if (k0 + k < num_bins && r0 + r < b2) {
+        const size_t o = static_cast<size_t>(k0 + k) * b2 + r0 + r;
+        v1 = __bfloat162float(ws1[o]);
+        v2 = __bfloat162float(ws2[o]);
+      }
+      s_w1[r][k] = v1;
+      s_w2[r][k] = v2;
+    }
+    for (int i = threadIdx.x; i < kRowChunk * kLagTile; i += kThreadsB) {
+      const int r = i / kLagTile, t = i % kLagTile;
+      s_g[r][t] = (r0 + r < b2)
+                      ? __bfloat162float(
+                            gp[static_cast<size_t>(r0 + r) * m_pad + tau0 + t])
+                      : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int r = 0; r < kRowChunk; ++r) {
+      float w1[kBinsPerThread], w2[kBinsPerThread], gv[kLagsPerThread];
+#pragma unroll
+      for (int i = 0; i < kBinsPerThread; ++i) {
+        w1[i] = s_w1[r][kBinsPerThread * ty + i];
+        w2[i] = s_w2[r][kBinsPerThread * ty + i];
+      }
+#pragma unroll
+      for (int j = 0; j < kLagsPerThread; ++j) gv[j] = s_g[r][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < kBinsPerThread; ++i)
+#pragma unroll
+        for (int j = 0; j < kLagsPerThread; ++j) {
+          rr[i][j] = fmaf(w1[i], gv[j], rr[i][j]);
+          ri[i][j] = fmaf(w2[i], gv[j], ri[i][j]);
+        }
+    }
+    __syncthreads();
+  }
+
+  const int n_tiles = m_pad / kLagTile;
+#pragma unroll
+  for (int i = 0; i < kBinsPerThread; ++i) {
+    float best = -1.f;
+    int arg = tau0 + tx;
+#pragma unroll
+    for (int j = 0; j < kLagsPerThread; ++j) {
+      const int tau = tau0 + tx + 16 * j;
+      // Lags past num_lags read -1.0, as in the TPU kernel.
+      const float v =
+          tau < num_lags ? rr[i][j] * rr[i][j] + ri[i][j] * ri[i][j] : -1.f;
+      if (j == 0 || v > best) {  // ascending tau: ties keep the lowest
+        best = v;
+        arg = tau;
+      }
+    }
+    // The 16 lanes with one ty hold one bin; xor offsets < 16 stay
+    // inside that half-warp.
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, best, off);
+      const int ol = __shfl_xor_sync(0xffffffffu, arg, off);
+      if (ov > best || (ov == best && ol < arg)) {
+        best = ov;
+        arg = ol;
+      }
+    }
+    const int k = k0 + kBinsPerThread * ty + i;
+    if (tx == 0 && k < num_bins) {
+      const size_t o =
+          (static_cast<size_t>(p) * num_bins + k) * n_tiles + tile;
+      part_val[o] = best;
+      part_lag[o] = arg;
+    }
+  }
+}
+
+// Launch 3.  One thread per (pair, bin): tiles in ascending lag order,
+// strict '>' keeps the earliest (lowest-lag) maximum.
+__global__ void stein_reduce_tiles(const float* __restrict__ part_val,
+                                   const int* __restrict__ part_lag,
+                                   float* __restrict__ vals,
+                                   int* __restrict__ lags, int num_pairs,
+                                   int num_bins, int n_tiles) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= num_pairs * num_bins) return;
+  const int p = idx / num_bins, k = idx % num_bins;
+  const float* pv = part_val + static_cast<size_t>(idx) * n_tiles;
+  const int* pl = part_lag + static_cast<size_t>(idx) * n_tiles;
+  float best = pv[0];
+  int arg = pl[0];
+  for (int t = 1; t < n_tiles; ++t) {
+    if (pv[t] > best) {
+      best = pv[t];
+      arg = pl[t];
+    }
+  }
+  vals[static_cast<size_t>(k) * num_pairs + p] = best;
+  lags[static_cast<size_t>(k) * num_pairs + p] = arg;
+}
+
+}  // namespace
+
+extern "C" {
+
+int caf_fused_stein_lag_tile() { return kLagTile; }
+
+const char* caf_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// Shapes (row-major, contiguous): ws1, ws2 (K, 2B) bf16; lmat (P, 2B, 2D)
+// bf16; h_ext (P, 2, h_len) f32; g (P, 2B, m_pad) bf16 scratch;
+// part_val/part_lag (P, K, m_pad / kLagTile) f32/int32 scratch;
+// vals/lags (K, P) f32/int32 out.  m_pad is a multiple of kLagTile and
+// h_len >= (B - 1) * D + m_pad + D - 1.  Enqueues three launches on
+// `stream`, on the calling thread's current device (the operands' card);
+// returns the first CUDA error (0 on success).
+int caf_fused_stein_rank(const void* ws1, const void* ws2, const void* lmat,
+                         const void* h_ext, void* g, void* part_val,
+                         void* part_lag, void* vals, void* lags,
+                         int num_pairs, int num_bins, int num_blocks, int sup,
+                         int h_len, int num_lags, int m_pad, void* stream) {
+  cudaError_t err = cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n_tiles = m_pad / kLagTile;
+  const int b2 = 2 * num_blocks;
+
+  const size_t smem_a = (2 * (kLagTile + sup - 1) + 4 * sup) * sizeof(float);
+  if (smem_a > 48 * 1024) {
+    err = cudaFuncSetAttribute(stein_stage_a,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem_a));
+    if (err != cudaSuccess) return err;
+  }
+  stein_stage_a<<<dim3(n_tiles, num_blocks, num_pairs), kLagTile, smem_a, s>>>(
+      static_cast<const __nv_bfloat16*>(lmat),
+      static_cast<const float*>(h_ext), static_cast<__nv_bfloat16*>(g),
+      num_blocks, sup, h_len, m_pad);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const int bin_tiles = (num_bins + kBinTile - 1) / kBinTile;
+  stein_stage_b<<<dim3(n_tiles, bin_tiles, num_pairs), kThreadsB, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(ws1),
+      static_cast<const __nv_bfloat16*>(ws2),
+      static_cast<const __nv_bfloat16*>(g), static_cast<float*>(part_val),
+      static_cast<int*>(part_lag), num_bins, b2, m_pad, num_lags);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const int total = num_pairs * num_bins;
+  stein_reduce_tiles<<<(total + 255) / 256, 256, 0, s>>>(
+      static_cast<const float*>(part_val),
+      static_cast<const int*>(part_lag), static_cast<float*>(vals),
+      static_cast<int*>(lags), num_pairs, num_bins, n_tiles);
+  return cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,150 @@
+"""The port on a CUDA card: the fused Stein kernel against its plain
+version, and the main path through the kernel.
+
+Every test here needs a card and skips without one.  The file imports
+neither JAX nor the conftest's fixtures, so on a machine with a card and
+no JAX it runs alone:
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -m cuda
+"""
+
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from caf_cookoff_tpu_torch import FreqGrid, caf_peak
+from caf_cookoff_tpu_torch.models.batched_stein import (_haystack_extension,
+                                                        _needle_operator)
+from caf_cookoff_tpu_torch.ops import fused_stein as fs
+from caf_cookoff_tpu_torch.utils.generate import ensure_fixtures
+from caf_cookoff_tpu_torch.utils.io import load_c64
+
+pytestmark = pytest.mark.cuda
+
+FS = 48_000.0
+# Kernel vs plain version with the same bf16 roundings: both sum the same
+# bf16-exact products in f32 and differ only in the order of the sums
+# (1.2e-7 measured on the H100).  A skipped rounding, a bf16 sum or a
+# dropped segment is off by 1e-3 or more.
+RTOL = 1e-5
+LAG_SHARE = 0.99   # least share of bins whose lag equals the plain argmax
+DATA = pathlib.Path(__file__).resolve().parents[1] / "data"
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _operands(needles, hays, freqs, m, d):
+    """Kernel operands on the card from (P, n) complex numpy pairs."""
+    n = torch.from_numpy(needles).cuda()
+    h = torch.from_numpy(hays).cuda()
+    b = needles.shape[-1] // d
+    lmat, sup = _needle_operator(n.real, n.imag, d)
+    h_ext = _haystack_extension(h.real, h.imag, m, fs.fused_span(b, sup, m))
+    ws1, ws2 = fs.stein_synthesis_weights(torch.from_numpy(freqs).cuda(),
+                                          FS, b, d)
+    return (ws1, ws2, lmat, h_ext), b, sup
+
+
+def _pairs(rng, p, n, hay_len=None):
+    shape = (p, hay_len or n)
+    needles = (rng.standard_normal((p, n))
+               + 1j * rng.standard_normal((p, n))).astype(np.complex64)
+    hays = (rng.standard_normal(shape)
+            + 1j * rng.standard_normal(shape)).astype(np.complex64)
+    return needles, hays
+
+
+@pytest.mark.parametrize("p,n,d,k,m", [(2, 1024, 32, 37, 2048),
+                                       (1, 4096, 64, 400, 8192),
+                                       (3, 128, 32, 9, 256),
+                                       (1, 1024, 8, 70, 2100),
+                                       (2, 1024, 128, 65, 2048)])
+def test_kernel_matches_plain_on_card(card, p, n, d, k, m):
+    """Kernel vs plain version with the same bf16 roundings: values
+    within RTOL of the bin's value, the plain surface at the kernel's
+    lag within RTOL of the bin maximum, and the lags the plain argmax
+    in all but near-tied bins."""
+    needles, hays = _pairs(np.random.default_rng(3), p, n)
+    freqs = np.linspace(-100, 100, k).astype(np.float32)
+    ops, b, sup = _operands(needles, hays, freqs, m, d)
+    before = fs.LAUNCHES
+    kv, ki = fs.fused_stein_rank(*ops, b, sup, m)
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES == before + 1
+    assert kv.shape == ki.shape == (k, p)
+    surf = fs.coarse_surface_plain(*ops, b, sup, m, emulate_bf16=True)
+    pv, pi = surf.max(-1)
+    pv, pi = pv.T, pi.T.to(torch.int32)
+    torch.testing.assert_close(kv, pv, rtol=RTOL, atol=0)
+    assert int(ki.max()) < m
+    at = torch.gather(surf, 2, ki.T.long()[..., None])[..., 0].T
+    assert bool((at >= (1 - RTOL) * pv).all())
+    assert (ki == pi).float().mean().item() >= LAG_SHARE
+
+
+def test_kernel_tie_break_on_card(card):
+    """Two bit-identical needle copies at lags 100 and 3172 (different
+    lag tiles and blocks) tie exactly; the lowest lag wins."""
+    rng = np.random.default_rng(11)
+    n, d, k, m = 512, 64, 17, 4096
+    needle = (rng.standard_normal(n)
+              + 1j * rng.standard_normal(n)).astype(np.complex64)
+    hay = np.zeros((1, 3172 + n), np.complex64)
+    hay[0, 100:100 + n] = needle
+    hay[0, 3172:3172 + n] = needle
+    freqs = np.linspace(-100, 100, k).astype(np.float32)
+    ops, b, sup = _operands(needle[None], hay, freqs, m, d)
+    _, ki = fs.fused_stein_rank(*ops, b, sup, m)
+    assert int(ki[k // 2, 0]) == 100
+
+
+def test_kernel_rejects_bad_operands_on_card(card):
+    needles, hays = _pairs(np.random.default_rng(4), 1, 256)
+    freqs = np.linspace(-50, 50, 8).astype(np.float32)
+    ops, b, sup = _operands(needles, hays, freqs, 512, 32)
+    with pytest.raises(TypeError):
+        fs.fused_stein_rank(ops[0].to(torch.int32), *ops[1:], b, sup, 512)
+    with pytest.raises(ValueError, match="several devices"):
+        fs.fused_stein_rank(ops[0].cpu(), *ops[1:], b, sup, 512)
+
+
+GOLDEN = [
+    (0, (-100.0, 100.0, 0.25), 69.25, 202),
+    (1, (-50.0, 50.0, 1.0), 36.0, 78),
+    (2, (30.0, 35.0, 0.05), 32.15, 169),
+    (3, (-100.0, 100.0, 0.25), -76.25, 151),
+    (4, (80.0, 100.0, 0.1), 82.9, 70),
+    (5, (-100.0, 100.0, 0.25), -92.75, 177),
+    (6, (-100.0, 100.0, 0.25), -49.75, 15),
+    (7, (-100.0, 100.0, 0.25), 68.25, 84),
+    (8, (-100.0, 100.0, 0.25), -46.25, 80),
+    (9, (-100.0, 100.0, 0.5), 61.5, 176),
+]
+
+
+@pytest.mark.parametrize("idx,grid,want_freq,want_lag", GOLDEN)
+def test_main_path_goldens_on_card(card, idx, grid, want_freq, want_lag):
+    """``caf_peak(backend="stein")`` on the card answers every golden
+    exactly and goes through the kernel; the cuFFT filterbank agrees."""
+    needle_path, hay_path = ensure_fixtures(DATA)[idx]
+    needle = load_c64(needle_path)
+    hay = load_c64(hay_path, count=len(needle))
+    freqs = FreqGrid(*grid).frequencies(np.float32)
+    before = fs.LAUNCHES
+    freq, lag, value = caf_peak(needle, hay, freqs, FS, backend="stein",
+                                device="cuda")
+    assert fs.LAUNCHES == before + 1
+    assert freq == pytest.approx(want_freq, abs=1e-4)
+    assert lag == want_lag
+    fb = caf_peak(needle, hay, freqs, FS, backend="xla", device="cuda")
+    assert fb[:2] == (freq, lag)
+    # Same exact re-score rows: f32 cuFFT, batched differently.
+    assert fb[2] == pytest.approx(value, rel=1e-4)

@@ -1,0 +1,197 @@
+"""Fused Stein coarse rank: the port's operand constructors and plain
+version against the JAX package.
+
+The JAX side runs as the JAX package's own tests run it on the CPU: the
+Pallas kernel in interpret mode and its XLA twin ``_coarse_rank_xla``.
+Operands built by the JAX package are carried into tensors with
+``utils/convert``.  The CUDA kernel itself is held against the plain
+version on the card (``tests/test_torch_cuda.py`` and ``chip_smoke.py``).
+"""
+
+import pathlib
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from caf_cookoff_tpu.models import batched_stein as jbs
+from caf_cookoff_tpu.ops import pallas_stein as jps
+from caf_cookoff_tpu.ops.splitfft import split_array
+from caf_cookoff_tpu_torch.models import batched_stein as tbs
+from caf_cookoff_tpu_torch.ops import fused_stein as tfs
+from caf_cookoff_tpu_torch.utils.convert import stein_operands_from_numpy
+
+torch.set_num_threads(1)
+
+FS = 48_000.0
+
+
+def _pairs(rng, p, n, hay_len=None):
+    shape = (p, hay_len or n)
+    needles = (rng.standard_normal((p, n))
+               + 1j * rng.standard_normal((p, n))).astype(np.complex64)
+    hays = (rng.standard_normal(shape)
+            + 1j * rng.standard_normal(shape)).astype(np.complex64)
+    return needles, hays
+
+
+def _jax_operands(needles, hays, freqs, m, d):
+    """(ws1, ws2, lmat, h_ext, b, sup) built by the JAX package."""
+    ns_re, ns_im = map(jnp.asarray, split_array(needles))
+    hs_re, hs_im = map(jnp.asarray, split_array(hays))
+    b = ns_re.shape[-1] // d
+    lmat, sup = jbs._needle_operator(ns_re, ns_im, d)
+    span = jps.fused_span(b, sup, m)
+    h_ext = jbs._haystack_extension(hs_re, hs_im, m, span)
+    ws1, ws2 = jps.stein_synthesis_weights(jnp.asarray(freqs), FS, b, d)
+    return ws1, ws2, lmat, h_ext, b, sup
+
+
+def _kernel_vs_plain(needles, hays, freqs, m, d):
+    """JAX's Pallas kernel (interpret mode) and the port's plain version
+    with the kernel's bf16 roundings, on the same operands:
+    numpy (kv, ki, pv, pi), each (K, P)."""
+    ws1, ws2, lmat, h_ext, b, sup = _jax_operands(needles, hays, freqs, m, d)
+    kv, ki = jps.fused_stein_rank(ws1, ws2, lmat, h_ext, b, sup, m,
+                                  interpret=True)
+    ops = stein_operands_from_numpy(ws1, ws2, lmat, h_ext, device="cpu")
+    pv, pi = tfs.coarse_rank_plain(*ops, b, sup, m, emulate_bf16=True)
+    return (np.asarray(kv), np.asarray(ki), pv.numpy(), pi.numpy())
+
+
+def test_needle_operator_and_extension_bit_exact():
+    rng = np.random.default_rng(0)
+    needles, hays = _pairs(rng, 2, 512, hay_len=500)
+    m, d = 1024, 64
+    ns_re, ns_im = split_array(needles)
+    hs_re, hs_im = split_array(hays)
+    jl, jsup = jbs._needle_operator(jnp.asarray(ns_re), jnp.asarray(ns_im), d)
+    tl, tsup = tbs._needle_operator(torch.from_numpy(ns_re),
+                                    torch.from_numpy(ns_im), d)
+    assert jsup == tsup == d
+    np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+    span = jps.fused_span(512 // d, d, m)
+    assert tfs.fused_span(512 // d, d, m) == span
+    jh = jbs._haystack_extension(jnp.asarray(hs_re), jnp.asarray(hs_im), m,
+                                 span)
+    th = tbs._haystack_extension(torch.from_numpy(hs_re),
+                                 torch.from_numpy(hs_im), m, span)
+    np.testing.assert_array_equal(th.numpy(), np.asarray(jh))
+
+
+def test_synthesis_weights_match_jax():
+    freqs = np.arange(-100.0, 100.0, 0.5, dtype=np.float32)
+    jw1, jw2 = jps.stein_synthesis_weights(jnp.asarray(freqs), FS, 64, 64)
+    tw1, tw2 = tfs.stein_synthesis_weights(torch.from_numpy(freqs), FS, 64,
+                                           64)
+    # Same f32 phases; the two CPU cos/sin implementations may differ
+    # in the last bit of the result.
+    np.testing.assert_allclose(tw1.numpy(), np.asarray(jw1), rtol=1e-6,
+                               atol=1e-7)
+    np.testing.assert_allclose(tw2.numpy(), np.asarray(jw2), rtol=1e-6,
+                               atol=1e-7)
+
+
+@pytest.mark.parametrize("p,n,d,k,m", [(2, 512, 64, 16, 1024),
+                                       (1, 1024, 32, 40, 2048)])
+def test_plain_matches_xla_twin_f32(p, n, d, k, m):
+    """The plain version in f32 against JAX's ``_coarse_rank_xla`` on
+    operands carried across: identical lags; values to 1e-4 (f32 sums
+    taken in another order)."""
+    rng = np.random.default_rng(1)
+    needles, hays = _pairs(rng, p, n)
+    freqs = np.linspace(-100, 100, k).astype(np.float32)
+    ws1, ws2, lmat, h_ext, b, sup = _jax_operands(needles, hays, freqs, m, d)
+    xv, xi = jbs._coarse_rank_xla(ws1, ws2, lmat, h_ext, b, sup, m)
+    ops = stein_operands_from_numpy(ws1, ws2, lmat, h_ext, device="cpu")
+    pv, pi = tfs.coarse_rank_plain(*ops, b, sup, m)
+    np.testing.assert_array_equal(pi.numpy(), np.asarray(xi))
+    np.testing.assert_allclose(pv.numpy(), np.asarray(xv), rtol=1e-4)
+
+
+@pytest.mark.parametrize("p,n,d,k,m", [(2, 512, 64, 16, 1024),
+                                       (2, 256, 64, 9, 512)])
+def test_plain_bf16_matches_pallas_kernel(p, n, d, k, m):
+    """The plain version with the kernel's bf16 roundings against the
+    Pallas kernel in interpret mode, at the shapes of the JAX package's
+    kernel tests: identical lags, values within the 2e-2 that the JAX
+    package's own kernel-vs-twin test allows (bf16 products summed in
+    another order)."""
+    rng = np.random.default_rng(6)
+    needles, hays = _pairs(rng, p, n)
+    freqs = np.linspace(-100, 100, k).astype(np.float32)
+    kv, ki, pv, pi = _kernel_vs_plain(needles, hays, freqs, m, d)
+    np.testing.assert_array_equal(pi, ki)
+    np.testing.assert_allclose(pv, kv, rtol=2e-2)
+
+
+def test_cross_tile_tie_break_lowest_lag():
+    """Two bit-identical copies of the needle at lags 100 and 3172 (lag
+    tiles 0 and 6 of the Pallas kernel) tie exactly; the lowest lag
+    wins, as in the kernel."""
+    rng = np.random.default_rng(11)
+    n, d, k, m = 512, 64, 17, 4096
+    lag_a, lag_b = 100, 6 * 512 + 100
+    needle = (rng.standard_normal(n)
+              + 1j * rng.standard_normal(n)).astype(np.complex64)
+    hay = np.zeros(lag_b + n, np.complex64)
+    hay[lag_a:lag_a + n] = needle
+    hay[lag_b:lag_b + n] = needle
+    freqs = np.linspace(-100, 100, k).astype(np.float32)
+    _, ki, _, pi = _kernel_vs_plain(needle[None], hay[None], freqs, m, d)
+    assert pi[k // 2, 0] == ki[k // 2, 0] == lag_a
+    np.testing.assert_array_equal(pi, ki)
+
+
+def test_static_tail_mask():
+    """num_lags below the 512 lag quantum (N=128 -> M=256): lags past
+    num_lags read -1.0 and never win."""
+    rng = np.random.default_rng(13)
+    p, n, d, k, m = 2, 128, 32, 9, 256
+    needles, hays = _pairs(rng, p, n)
+    freqs = np.linspace(-50, 50, k).astype(np.float32)
+    kv, ki, pv, pi = _kernel_vs_plain(needles, hays, freqs, m, d)
+    assert int(pi.max()) < m
+    np.testing.assert_array_equal(pi, ki)
+    np.testing.assert_allclose(pv, kv, rtol=2e-2)
+
+
+def test_wrapper_cpu_route_counts_no_launch():
+    """CPU tensors take the plain version (bf16 roundings), leave the
+    launch count alone, and zero the lags under ``want_idxs=False``."""
+    rng = np.random.default_rng(2)
+    needles, hays = _pairs(rng, 1, 512)
+    freqs = np.linspace(-100, 100, 16).astype(np.float32)
+    ws1, ws2, lmat, h_ext, b, sup = _jax_operands(needles, hays, freqs,
+                                                  1024, 64)
+    ops = stein_operands_from_numpy(ws1, ws2, lmat, h_ext, device="cpu")
+    before = tfs.LAUNCHES
+    v, i = tfs.fused_stein_rank(*ops, b, sup, 1024)
+    pv, pi = tfs.coarse_rank_plain(*ops, b, sup, 1024, emulate_bf16=True)
+    torch.testing.assert_close(v, pv, rtol=0, atol=0)
+    torch.testing.assert_close(i, pi, rtol=0, atol=0)
+    _, i0 = tfs.fused_stein_rank(*ops, b, sup, 1024, want_idxs=False)
+    assert int(i0.abs().sum()) == 0
+    assert tfs.LAUNCHES == before
+    with pytest.raises(NotImplementedError, match="K1"):
+        tfs.fused_stein_rank(*ops, b, sup, 1024, want_top2=True, sep=4)
+    with pytest.raises(ValueError, match="h_ext"):
+        tfs.fused_stein_rank(*ops[:3], ops[3][..., :-1], b, sup, 1024)
+
+
+def test_import_needs_no_toolchain():
+    """Importing the kernel module (and the package) builds nothing and
+    imports neither triton nor JAX."""
+    code = ("import sys; import caf_cookoff_tpu_torch.ops.fused_stein, "
+            "caf_cookoff_tpu_torch; "
+            "bad = [m for m in ('triton', 'jax', 'caf_cookoff_tpu') "
+            "if m in sys.modules]; "
+            "from caf_cookoff_tpu_torch.ops import _build; "
+            "assert _build._LIB is None; print(bad)")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True,
+                         cwd=pathlib.Path(__file__).resolve().parents[1])
+    assert out.stdout.strip() == "[]"
