@@ -1,15 +1,19 @@
 """caf_cookoff_tpu_torch — the PyTorch/CUDA port of the CAF engine.
 
 The port of ``caf_cookoff_tpu`` to PyTorch on an NVIDIA H100: plain
-tensor code in PyTorch (``torch.fft`` for every transform) and one
-hand-written Hopper kernel, the fused Stein coarse rank
-(``csrc/fused_stein.cu``).  Functions take numpy arrays or tensors and
-an explicit ``device=`` (default: ``cuda`` when torch sees a card).
+tensor code in PyTorch (``torch.fft`` for the FFT backends) and
+hand-written Hopper kernels built by nvcc at first use: the fused Stein
+coarse rank (``csrc/fused_stein.cu``, K1) and the fused filterbank peak
+rows and surface (``csrc/caf_filterbank.cu``, K2 and K3).  Functions
+take numpy arrays or tensors; they run on the CUDA card unless
+``device="cpu"`` asks for the CPU (without a card and without that
+request they raise).
 
-This slice covers the single-pair main path: ``caf_peak`` /
-``caf_surface`` with the filterbank (``xla`` / ``matmul*`` names) and
-the segmented engine (``stein``); ROADMAP.md lists what is still to be
-ported.
+This slice covers the single-pair paths: ``caf_peak`` / ``caf_surface``
+with the filterbank (``xla`` / ``matmul*``), the fused filterbank
+(``pallas``, ``pallas-refine``, ``pallas-bf16``) and the segmented engine
+(``stein``), and the CLI verbs ``generate``, ``run``, ``bench``,
+``selftest`` and ``info``; ROADMAP.md lists what is still to be ported.
 """
 
 from caf_cookoff_tpu_torch.config import (BENCH_GRID, CafConfig, FreqGrid,

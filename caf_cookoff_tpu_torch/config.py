@@ -1,8 +1,9 @@
 """Configuration dataclasses for the CAF engine (PyTorch port).
 
 Same grids, backend names and validation as ``caf_cookoff_tpu.config``;
-the platform rule becomes :func:`default_device` (``cuda`` when torch
-sees a card, ``cpu`` otherwise).
+the platform rule becomes :func:`default_device`: ``cuda`` when torch
+sees a card, an error otherwise (the CPU runs only when asked for with
+``device="cpu"``).
 """
 
 from __future__ import annotations
@@ -18,8 +19,12 @@ DEFAULT_SAMPLE_RATE = 48_000.0  # Hz, the reference's fixture rate
 # Backend names accepted by CafConfig and the engines.  Every FFT tier
 # ('xla', 'matmul*') runs the full-precision complex torch.fft (cuFFT on
 # the card, pocketfft on the CPU), which is at least as exact as each
-# tier it names.  'pallas*' names the fused-filterbank kernels that are
-# not ported yet (the engines raise EligibilityError for them).
+# tier it names.  'pallas', 'pallas-refine' and 'pallas-bf16' run the
+# fused filterbank kernels of ops/pallas_caf (csrc/caf_filterbank.cu):
+# every tier runs the kernel's f32 FFTs, at least as exact as the
+# 3-pass 'high' and single-pass 'bf16' products they name ('refine'
+# still re-scores its top bins with a second launch).  'stein*' run the
+# segmented engine.
 FFT_BACKENDS = ("xla", "matmul", "matmul-highest", "matmul-high",
                 "matmul-bf16")
 BACKENDS = ("auto",) + FFT_BACKENDS + ("pallas", "pallas-refine",
@@ -90,8 +95,14 @@ class CafConfig:
 
 
 def default_device() -> torch.device:
-    """``cuda`` when torch sees a card, ``cpu`` otherwise."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """``cuda`` when torch sees a card; raises ``RuntimeError`` otherwise.
+
+    The port never falls back to the CPU on its own: a caller that wants
+    the CPU passes ``device="cpu"``."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "torch sees no CUDA card; pass device=\"cpu\" to run on the CPU")
+    return torch.device("cuda")
 
 
 def resolve_backend(backend) -> str:

@@ -10,7 +10,10 @@ hoisted out of the bin loop (Rust reference semantics):
     surface[k, tau] = |r_k[tau]|^2
     peak = argmax_{k, tau} surface (lowest flat index on ties)
 
-Every FFT backend name runs ``torch.fft`` (cuFFT on the card).
+Every FFT backend name runs ``torch.fft`` (cuFFT on the card); the
+``pallas*`` names run the fused filterbank kernels K2/K3
+(``ops/pallas_caf``), whose peak value is unnormalised (M^2 times the
+``xla`` value), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -22,7 +25,8 @@ import torch
 
 from caf_cookoff_tpu_torch.config import (CafConfig, as_grid,
                                           resolve_backend, xcor_length)
-from caf_cookoff_tpu_torch.errors import EligibilityError
+from caf_cookoff_tpu_torch.ops.pallas_caf import (pallas_caf_peak,
+                                                  pallas_caf_surface)
 from caf_cookoff_tpu_torch.ops.peak import find_peak_2d
 from caf_cookoff_tpu_torch.ops.shift import phasor_bank, real_dtype_of
 from caf_cookoff_tpu_torch.ops.xcor import pad_to
@@ -49,12 +53,6 @@ def _surface_rows(needle: torch.Tensor, haystack: torch.Tensor, freqs_hz,
     return torch.fft.ifft(h_spec[None, :] * torch.conj(s_spec), dim=-1)
 
 
-def _not_ported(backend: str) -> EligibilityError:
-    return EligibilityError(
-        f"backend {backend!r} runs the fused filterbank kernels K2/K3, "
-        "which are not ported yet (ROADMAP Queue 2); use 'xla' or 'stein'")
-
-
 def _pair(needle, haystack, freqs_hz, device):
     n = as_signal(needle, device)
     h = as_signal(haystack, n.device).to(n.dtype)
@@ -76,9 +74,12 @@ def caf_surface(needle, haystack, freqs_hz, sample_rate, *,
 
         return stein_caf_surface(needle, haystack, freqs_hz, sample_rate,
                                  device=device)
-    if backend.startswith("pallas"):
-        raise _not_ported(backend)
     n, h, freqs = _pair(needle, haystack, freqs_hz, device)
+    if backend.startswith("pallas"):
+        _, _, tier = backend.partition("-")
+        return pallas_caf_surface(
+            n, h, freqs, float(sample_rate), xcor_length(n.shape[-1]),
+            precision="bf16" if tier == "bf16" else "high")
     return mag2(_surface_rows(n, h, freqs, float(sample_rate),
                               xcor_length(n.shape[-1])))
 
@@ -96,8 +97,9 @@ def caf_peak(needle, haystack, freqs_hz, sample_rate, *,
     """(freq_hz, lag_idx, peak_value) of one (needle, haystack) pair.
 
     ``backend='stein'`` (the main path) runs the segmented engine with
-    the fused coarse-rank kernel and an exact re-score; the FFT
-    backends run the filterbank.
+    the fused coarse-rank kernel and an exact re-score; ``pallas*`` run
+    the fused filterbank kernel (tier after the dash, default ``high``);
+    the FFT backends run the filterbank on ``torch.fft``.
     """
     backend = resolve_backend(backend)
     if backend.startswith("stein"):
@@ -106,11 +108,15 @@ def caf_peak(needle, haystack, freqs_hz, sample_rate, *,
         return stein_caf_peak(needle, haystack, freqs_hz, sample_rate,
                               refine=not backend.endswith("-raw"),
                               device=device)
-    if backend.startswith("pallas"):
-        raise _not_ported(backend)
     n, h, freqs = _pair(needle, haystack, freqs_hz, device)
-    peak = find_peak_2d(mag2(_surface_rows(
-        n, h, freqs, float(sample_rate), xcor_length(n.shape[-1]))))
+    if backend.startswith("pallas"):
+        _, _, tier = backend.partition("-")
+        peak = pallas_caf_peak(n, h, freqs, float(sample_rate),
+                               xcor_length(n.shape[-1]),
+                               precision=tier or "high")
+    else:
+        peak = find_peak_2d(mag2(_surface_rows(
+            n, h, freqs, float(sample_rate), xcor_length(n.shape[-1]))))
     return (float(freqs[int(peak.freq_idx)]), int(peak.lag_idx),
             float(peak.value))
 

@@ -1,11 +1,11 @@
 """Build and load the package's CUDA kernels (nvcc + ctypes).
 
 The kernels live in ``caf_cookoff_tpu_torch/csrc/*.cu`` behind a plain
-C interface, so nvcc compiles them in seconds (no PyTorch headers).  The
-shared library is built at first use into ``build/torch_kernels/`` under
-the checkout, named by a hash of the sources and flags so an edited
-source rebuilds.  Nothing here runs at import time: the CPU tests import
-every module on machines without nvcc.
+C interface, so nvcc compiles them in seconds (no PyTorch headers); one
+nvcc call builds every source into one shared library, at first use,
+into ``build/torch_kernels/`` under the checkout, named by a hash of the
+sources and flags so an edited source rebuilds.  Nothing here runs at
+import time: the CPU tests import every module on machines without nvcc.
 """
 
 from __future__ import annotations
@@ -21,7 +21,8 @@ from pathlib import Path
 from typing import Optional
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
-SOURCES = (PACKAGE_DIR / "csrc" / "fused_stein.cu",)
+SOURCES = (PACKAGE_DIR / "csrc" / "fused_stein.cu",
+           PACKAGE_DIR / "csrc" / "caf_filterbank.cu")
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -90,6 +91,13 @@ def load_library() -> ctypes.CDLL:
     lib.caf_fused_stein_rank.restype = ci
     lib.caf_fused_stein_lag_tile.argtypes = []
     lib.caf_fused_stein_lag_tile.restype = ci
+    # needle, n, h_br, tw, rates, k, m, outputs..., stream
+    lib.caf_filterbank_peak.argtypes = [vp, ci, vp, vp, vp, ci, ci, vp, vp,
+                                        vp]
+    lib.caf_filterbank_peak.restype = ci
+    lib.caf_filterbank_surface.argtypes = [vp, ci, vp, vp, vp, ci, ci, vp,
+                                           vp]
+    lib.caf_filterbank_surface.restype = ci
     lib.caf_cuda_error_string.argtypes = [ci]
     lib.caf_cuda_error_string.restype = ctypes.c_char_p
     _LIB = lib

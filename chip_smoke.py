@@ -7,30 +7,38 @@ Phases, each reported on its own line:
 
 1. device — fails unless torch sees a CUDA card; prints the card and
    ``nvidia-smi``'s name and power limit; TF32 off for matmuls and cuDNN.
-2. build  — compiles ``csrc/fused_stein.cu`` with nvcc from this checkout.
-3. kernel — the fused Stein rank kernel against its plain PyTorch version
-   (same bf16 roundings) on the card: chirp_0's operands at the main
-   path's shape (400 bins, N = 4096, M = 8192, D = 64), a random two-pair
-   shape, and the cross-tile tie case (lowest lag wins).
-4. main   — the ten golden fixtures through ``caf_peak(backend="stein",
-   device="cuda")``; every answer must be exact and the kernel's launch
-   count must show the path went through it; chirp_0 also through the
-   cuFFT filterbank (``backend="xla"``) and against the CPU route.
-5. times  — CUDA-event medians, after warm-up, of the kernel's wrapper
-   and of its plain version at the main path's shape, and of whole
-   ``caf_peak`` calls (host included), each printed beside the card's
-   name and power limit.
+2. build  — compiles every ``csrc/*.cu`` with one nvcc call from this
+   checkout, printing ``-Xptxas -v`` (registers, shared memory, spills).
+3. kernel — each kernel against its plain PyTorch version on the card:
+   K1, the fused Stein rank (same bf16 roundings), at chirp_0's main-path
+   shape (400 bins, N = 4096, M = 8192, D = 64), a random two-pair shape
+   and the cross-tile tie case (lowest lag wins); K2, the fused
+   filterbank peak rows, at chirp_0's 400 x 8192, a random K = 37,
+   M = 2048 shape, N = 5000 (M = 16384) and an all-zero input (every lag
+   ties: lag 0 wins); K3, the fused filterbank surface, at 400 x 8192.
+4. main   — the ten golden fixtures through ``caf_peak(device="cuda")``
+   with ``backend="stein"`` (K1) and ``pallas``, ``pallas-bf16``,
+   ``pallas-refine`` (K2): every answer exact, and each kernel's launch
+   count, set to 0 just before and read just after, shows the path went
+   through it; chirp_0 also through the cuFFT filterbank
+   (``backend="xla"``) and the CPU route, and chirp_0's
+   ``caf_surface(backend="pallas")`` (K3) against ``backend="xla"``.
+5. times  — CUDA-event medians, after warm-up, of each kernel's wrapper,
+   its plain version and its library yardstick at the main path's
+   shape, and of whole ``caf_peak`` calls (host included), each printed
+   beside the card's name and power limit.
 
-Then a JSON line describing each kernel, and as the last line
-``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
-without that line.  Fixtures are generated into ``data/`` when missing.
+Then a JSON line describing each kernel (with its bound from this run's
+shapes), and as the last line ``{"ok": true, "device": {...}}``.  Any
+failed check exits non-zero without that line.  Fixtures are generated
+into ``data/`` when missing.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -40,12 +48,20 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 DEVICE = "cuda"
 FS = 48_000.0
-# Kernel vs plain version with the same bf16 roundings: both sum the same
+# K1 vs plain version with the same bf16 roundings: both sum the same
 # bf16-exact products in f32 and differ only in the order of the sums
 # (1.2e-7 measured on the H100).  A kernel that skips a rounding, sums in
 # bf16 or drops a segment is off by 1e-3 or more.
 RTOL = 1e-5
 LAG_SHARE = 0.99    # least share of bins whose lag equals the plain argmax
+# K2/K3 vs plain versions: two f32 FFT algorithms (the kernel's radix-2,
+# cuFFT) that differ in the order of their sums (5.3e-7 rel and 3.4e-7 x
+# max measured on the H100).
+FB_RTOL = 1e-5      # per-bin peak values; the plain value at the kernel's lag
+FB_SURF_TOL = 1e-5  # surface max abs error, as a share of the surface max
+# H100 SXM peaks at 700 W (NVIDIA's data sheet): dense bf16 tensor cores,
+# f32 outside the tensor cores, HBM3.
+BF16_FLOPS, F32_FLOPS, HBM_BYTES = 989e12, 67e12, 3.35e12
 GOLDEN = [          # (chirp index, (start, stop, step) Hz, freq, lag)
     (0, (-100.0, 100.0, 0.25), 69.25, 202),
     (1, (-50.0, 50.0, 1.0), 36.0, 78),
@@ -58,6 +74,8 @@ GOLDEN = [          # (chirp index, (start, stop, step) Hz, freq, lag)
     (8, (-100.0, 100.0, 0.25), -46.25, 80),
     (9, (-100.0, 100.0, 0.5), 61.5, 176),
 ]
+# Launches of the pallas* filterbank kernel per caf_peak call.
+PALLAS_LAUNCHES = {"pallas": 1, "pallas-bf16": 1, "pallas-refine": 2}
 
 
 def check(cond: bool, what: str) -> None:
@@ -71,11 +89,11 @@ def phase_device():
     check(torch.cuda.is_available(), "torch sees no CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from caf_cookoff_tpu_torch.utils.bench import nvidia_smi_card
+
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    smi = nvidia_smi_card()
+    check(smi is not None, "nvidia-smi gave no name and power limit")
     print(f"[device] {name}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}; {torch.cuda.device_count()} card(s)")
     print(smi)
@@ -102,7 +120,8 @@ def phase_build() -> float:
     _build.load_library()
     seconds = time.perf_counter() - t0
     how = "found in the build cache" if cached else "built with nvcc"
-    print(f"[build] fused_stein.cu {how} and loaded in {seconds:.1f} s")
+    names = ", ".join(src.name for src in _build.SOURCES)
+    print(f"[build] {names} {how} and loaded in {seconds:.1f} s")
     return seconds
 
 
@@ -149,8 +168,8 @@ def random_operands(rng, p, n, k, m, d, device):
 
 
 def compare(label, ops, b, sup, m):
-    """Kernel vs plain version on one operand set; returns the max
-    absolute value error."""
+    """K1 vs plain version on one operand set; returns the max absolute
+    value error."""
     import torch
 
     from caf_cookoff_tpu_torch.ops import fused_stein as fs
@@ -176,17 +195,17 @@ def compare(label, ops, b, sup, m):
     return err
 
 
-def phase_kernel(pairs):
+def phase_kernel_stein(pairs):
     import torch
 
     from caf_cookoff_tpu_torch.ops import fused_stein as fs
 
     n0, h0 = load_pair(pairs, 0)
     head = headline_operands(n0, h0, DEVICE)
-    err = compare("chirp_0 headline", *head)
+    err = compare("K1 chirp_0 headline", *head)
     rng = np.random.default_rng(0)
-    compare("random P=2", *random_operands(rng, 2, 2048, 97, 4096, 32,
-                                           DEVICE))
+    compare("K1 random P=2", *random_operands(rng, 2, 2048, 97, 4096, 32,
+                                              DEVICE))
     # Two bit-identical needle copies at lags 100 and 3172 tie exactly.
     n, d, k, m = 512, 64, 17, 4096
     needle = (rng.standard_normal(n)
@@ -206,30 +225,123 @@ def phase_kernel(pairs):
         torch.linspace(-100.0, 100.0, k, device=DEVICE), FS, n // d, d)
     _, ki = fs.fused_stein_rank(ws1, ws2, lmat, h_ext, n // d, sup, m)
     tie_lag = int(ki[k // 2, 0])
-    print(f"[kernel] tie case: zero-doppler bin lag {tie_lag} (want 100)")
+    print(f"[kernel] K1 tie case: zero-doppler bin lag {tie_lag} (want 100)")
     check(tie_lag == 100, "cross-tile tie did not resolve to the lowest lag")
     return head, err
 
 
-def phase_main(pairs):
-    from caf_cookoff_tpu_torch import FreqGrid, caf_peak
-    from caf_cookoff_tpu_torch.ops import fused_stein as fs
+def compare_peak_rows(label, needle, hay, freqs, m):
+    """K2 vs its plain version on the card; returns the max absolute
+    value error."""
+    import torch
+
+    from caf_cookoff_tpu_torch.ops import pallas_caf as pc
+
+    kv, ki = pc.pallas_peak_rows(needle, hay, freqs, FS, m)
+    rows = pc._mag2(pc._rows_plain(needle, hay, freqs, FS, m))
+    torch.cuda.synchronize()
+    pv, pi = rows.max(dim=-1)
+    check(bool(torch.isfinite(kv).all()) and int(ki.min()) >= 0
+          and int(ki.max()) < m, f"{label}: values or lags out of range")
+    rel = ((kv - pv).abs() / pv).max().item()
+    at = torch.gather(rows, 1, ki.long()[:, None])[:, 0]
+    lag_ok = bool((at >= (1 - FB_RTOL) * pv).all())
+    share = (ki == pi).float().mean().item()
+    err = (kv - pv).abs().max().item()
+    print(f"[kernel] {label}: K={kv.shape[0]} N={needle.shape[-1]} M={m}: "
+          f"max rel err {rel:.3e} (tol {FB_RTOL}), max abs err {err:.4g}, "
+          f"plain value at kernel lag >= (1-{FB_RTOL}) x max: {lag_ok}, "
+          f"exact lag matches {share:.4f} (least {LAG_SHARE})")
+    check(rel <= FB_RTOL, f"{label}: kernel values off the plain version")
+    check(lag_ok, f"{label}: kernel lag not a (near-)maximum")
+    check(share >= LAG_SHARE, f"{label}: kernel lags off the plain argmax")
+    return err
+
+
+def random_pair(rng, n, lag, device):
+    import torch
+
+    needle = (rng.standard_normal(n)
+              + 1j * rng.standard_normal(n)).astype(np.complex64)
+    hay = np.roll(needle, lag) + 0.1 * (
+        rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    return (torch.from_numpy(needle).to(device),
+            torch.from_numpy(hay.astype(np.complex64)).to(device))
+
+
+def phase_kernel_filterbank(pairs):
+    import torch
+
+    from caf_cookoff_tpu_torch.config import BENCH_GRID, xcor_length
+    from caf_cookoff_tpu_torch.ops import pallas_caf as pc
+
+    n0, h0 = load_pair(pairs, 0)
+    needle = torch.from_numpy(n0).to(DEVICE)
+    hay = torch.from_numpy(h0).to(DEVICE)
+    freqs = torch.from_numpy(BENCH_GRID.frequencies(np.float32)).to(DEVICE)
+    m = xcor_length(len(n0))
+    head = (needle, hay, freqs, m)
+    err_peak = compare_peak_rows("K2 chirp_0 headline", *head)
+    rng = np.random.default_rng(1)
+    compare_peak_rows("K2 random K=37", *random_pair(rng, 1000, 321, DEVICE),
+                      torch.linspace(-900.0, 900.0, 37, device=DEVICE), 2048)
+    compare_peak_rows("K2 N=5000", *random_pair(rng, 5000, 123, DEVICE),
+                      torch.linspace(-100.0, 100.0, 20, device=DEVICE),
+                      xcor_length(5000))
+    # All-zero input: every lag of every bin ties at 0; the lowest wins.
+    zero = torch.zeros(512, dtype=torch.complex64, device=DEVICE)
+    _, zi = pc.pallas_peak_rows(zero, zero, freqs[:9], FS, 1024)
+    print(f"[kernel] K2 all-lags tie: lags {sorted(set(zi.tolist()))} "
+          f"(want [0])")
+    check(zi.tolist() == [0] * 9, "K2 tie did not resolve to the lowest lag")
+
+    ks = pc.pallas_surface(needle, hay, freqs, FS, m)
+    ps = pc.caf_surface_plain(needle, hay, freqs, FS, m)
+    torch.cuda.synchronize()
+    err_surf = (ks - ps).abs().max().item()
+    share = err_surf / ps.max().item()
+    print(f"[kernel] K3 chirp_0 headline: K={ks.shape[0]} M={ks.shape[1]}: "
+          f"max abs err {err_surf:.4g} = {share:.3e} x surface max "
+          f"(tol {FB_SURF_TOL})")
+    check(ks.shape == ps.shape and bool(torch.isfinite(ks).all()),
+          "K3 surface shape or values")
+    check(share <= FB_SURF_TOL, "K3 surface off the plain version")
+    return head, err_peak, err_surf
+
+
+def golden_inputs(pairs):
+    from caf_cookoff_tpu_torch import FreqGrid
 
     inputs = []
     for idx, grid, want_f, want_l in GOLDEN:
         needle, hay = load_pair(pairs, idx)
         inputs.append((needle, hay, FreqGrid(*grid).frequencies(np.float32),
                        want_f, want_l))
-    fs.LAUNCHES = 0
-    answers = [caf_peak(n, h, f, FS, backend="stein", device=DEVICE)
+    return inputs
+
+
+def run_goldens(inputs, backend):
+    from caf_cookoff_tpu_torch import caf_peak
+
+    answers = [caf_peak(n, h, f, FS, backend=backend, device=DEVICE)
                for n, h, f, _, _ in inputs]
-    launches = fs.LAUNCHES
     for (idx, *_), (_, _, _, want_f, want_l), (freq, lag, val) in zip(
             GOLDEN, inputs, answers):
-        print(f"[main] chirp_{idx}: {freq:+.3f} Hz, lag {lag}, "
+        print(f"[main] {backend} chirp_{idx}: {freq:+.3f} Hz, lag {lag}, "
               f"value {val:.6g} (want {want_f:+.3f} Hz, lag {want_l})")
         check(abs(freq - want_f) <= 1e-4 and lag == want_l
-              and np.isfinite(val) and val > 0, f"chirp_{idx} answer")
+              and np.isfinite(val) and val > 0,
+              f"{backend} chirp_{idx} answer")
+    return answers
+
+
+def phase_main_stein(inputs):
+    from caf_cookoff_tpu_torch import caf_peak
+    from caf_cookoff_tpu_torch.ops import fused_stein as fs
+
+    fs.LAUNCHES = 0
+    answers = run_goldens(inputs, "stein")
+    launches = fs.LAUNCHES
     print(f"[main] fused_stein_rank launches over the 10 goldens: "
           f"{launches}")
     check(launches >= len(GOLDEN), "main path did not launch the kernel")
@@ -246,7 +358,43 @@ def phase_main(pairs):
     check(abs(fb[2] - stein0[2]) <= 1e-4 * fb[2]
           and abs(cpu[2] - stein0[2]) <= 1e-4 * cpu[2],
           "chirp_0 values disagree between routes")
-    return launches, inputs
+    return launches, fb
+
+
+def phase_main_pallas(inputs, fb):
+    from caf_cookoff_tpu_torch import caf_surface
+    from caf_cookoff_tpu_torch.ops import pallas_caf as pc
+
+    peak_launches = 0
+    m = 8192
+    for backend, per_call in PALLAS_LAUNCHES.items():
+        pc.PEAK_LAUNCHES = 0
+        answers = run_goldens(inputs, backend)
+        launches = pc.PEAK_LAUNCHES
+        print(f"[main] {backend}: caf_peak_rows launches over the 10 "
+              f"goldens: {launches} (want {per_call * len(GOLDEN)})")
+        check(launches == per_call * len(GOLDEN),
+              f"{backend} did not launch the filterbank kernel per call")
+        peak_launches += launches
+        # The pallas* value is unnormalised: M^2 times the xla value.
+        ratio = answers[0][2] / (fb[2] * m * m)
+        print(f"[main] {backend} chirp_0 value / (M^2 x xla value) = "
+              f"{ratio:.7f}")
+        check(abs(ratio - 1.0) <= 1e-4, f"{backend} chirp_0 value scale")
+    n0, h0, f0, _, _ = inputs[0]
+    pc.SURFACE_LAUNCHES = 0
+    got = caf_surface(n0, h0, f0, FS, backend="pallas", device=DEVICE)
+    surface_launches = pc.SURFACE_LAUNCHES
+    want = caf_surface(n0, h0, f0, FS, backend="xla", device=DEVICE)
+    # The JAX package's bound for its pallas surface against its XLA one.
+    bad = ((got - want).abs() > 1e-3 * want.abs()
+           + 1e-4 * want.max()).sum().item()
+    print(f"[main] chirp_0 caf_surface pallas vs xla: {got.shape[0]}x"
+          f"{got.shape[1]}, cells off rtol 1e-3 + atol 1e-4 x max: {bad}; "
+          f"caf_surface launches: {surface_launches}")
+    check(surface_launches == 1, "caf_surface did not launch the kernel")
+    check(bad == 0, "pallas surface disagrees with xla")
+    return peak_launches, surface_launches
 
 
 def cuda_median_ms(fn, runs: int, warmup: int = 10) -> float:
@@ -269,29 +417,111 @@ def cuda_median_ms(fn, runs: int, warmup: int = 10) -> float:
     return statistics.median(times)
 
 
-def phase_times(head, inputs, card):
+def stein_bound_ms(ops, m):
+    """K1: stage A 2*(2B)*(2D)*span and stage B 2*2*K*2B*m_pad FLOP on
+    bf16-exact operands at the bf16 tensor-core peak, against its
+    operands read and (K, P) outputs written once at the HBM rate."""
+    ws1, _, lmat, h_ext = ops
+    p, b2, d2 = lmat.shape
+    k = ws1.shape[0]
+    span = h_ext.shape[-1] - 127
+    m_pad = -(-m // 128) * 128
+    flops = p * (2.0 * b2 * d2 * span + 2.0 * 2 * k * b2 * m_pad)
+    nbytes = sum(t.numel() * 4 for t in ops) + k * p * 8
+    return max(flops / BF16_FLOPS, nbytes / HBM_BYTES) * 1e3, "operations"
+
+
+def filterbank_bound_ms(k, n, m, surface: bool):
+    """K2/K3: per bin the shifted needle (sincos ~8 + 6 FLOP a sample),
+    two 5*M*log2(M) f32 FFTs, the product (6M) and |.|^2 (3M; K3 scales,
+    +M), plus H's transform, at the f32 peak; against needle, haystack
+    and grid read once and the outputs written once at the HBM rate."""
+    flops = (k * (14.0 * n + 2 * 5.0 * m * math.log2(m) + 9.0 * m
+                  + (m if surface else 0)) + 5.0 * m * math.log2(m))
+    nbytes = 16.0 * n + 4 * k + (4.0 * k * m if surface else 8.0 * k)
+    t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, (
+        "operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_times(head, fb_head, inputs, card):
+    import torch
+
     from caf_cookoff_tpu_torch import BENCH_GRID, caf_peak
+    from caf_cookoff_tpu_torch.models.filterbank import _surface_rows, mag2
     from caf_cookoff_tpu_torch.ops import fused_stein as fs
+    from caf_cookoff_tpu_torch.ops import pallas_caf as pc
 
     ops, b, sup, m = head
     n0, h0 = inputs[0][0], inputs[0][1]
     bench = BENCH_GRID.frequencies(np.float32)
     shape = "K=400 M=8192 D=64 P=1"
-    kernel_ms = cuda_median_ms(
+    t = {}
+    t["k1"] = cuda_median_ms(
         lambda: fs.fused_stein_rank(*ops, b, sup, m, want_idxs=False), 100)
-    plain_ms = cuda_median_ms(
+    t["k1_plain"] = cuda_median_ms(
         lambda: fs.coarse_rank_plain(*ops, b, sup, m, emulate_bf16=True), 50)
-    main_ms = cuda_median_ms(
+    # Stage B's product alone, [ws1; ws2] (2K, 2B) @ G (2B, m_pad), bf16.
+    ws = torch.cat([ops[0], ops[1]]).to(torch.bfloat16)
+    g = torch.randn(ops[2].shape[1], -(-m // 128) * 128, device=DEVICE
+                    ).to(torch.bfloat16)
+    t["k1_matmul"] = cuda_median_ms(lambda: torch.matmul(ws, g), 100)
+    t["stein_main"] = cuda_median_ms(
         lambda: caf_peak(n0, h0, bench, FS, backend="stein", device=DEVICE),
         50)
+    needle, hay, freqs, mf = fb_head
+    t["k2"] = cuda_median_ms(
+        lambda: pc.pallas_peak_rows(needle, hay, freqs, FS, mf), 100)
+    t["k2_plain"] = cuda_median_ms(
+        lambda: pc.caf_peak_rows_plain(needle, hay, freqs, FS, mf), 50)
+    t["k2_library"] = cuda_median_ms(
+        lambda: mag2(_surface_rows(needle, hay, freqs, FS, mf)).max(dim=-1),
+        50)
+    # The launches alone, ten back to back on prepared operands.
+    kops = pc._kernel_operands(needle, hay, freqs, FS, mf)
+    t["k2_alone"] = cuda_median_ms(
+        lambda: [pc._run_kernel("peak", *kops, mf) for _ in range(10)],
+        20) / 10
+    t["k3_alone"] = cuda_median_ms(
+        lambda: [pc._run_kernel("surface", *kops, mf) for _ in range(10)],
+        20) / 10
+    t["k3"] = cuda_median_ms(
+        lambda: pc.pallas_surface(needle, hay, freqs, FS, mf), 100)
+    t["k3_plain"] = cuda_median_ms(
+        lambda: pc.caf_surface_plain(needle, hay, freqs, FS, mf), 50)
+    t["k3_library"] = cuda_median_ms(
+        lambda: mag2(_surface_rows(needle, hay, freqs, FS, mf)), 50)
+    t["refine_main"] = cuda_median_ms(
+        lambda: caf_peak(n0, h0, bench, FS, backend="pallas-refine",
+                         device=DEVICE), 50)
+    fb = "400x8192"
     for what, ms in (
-            (f"fused_stein_rank kernel wrapper (bf16 casts + 3 launches), "
-             f"{shape}", kernel_ms),
-            (f"coarse_rank_plain (same roundings), {shape}", plain_ms),
+            (f"K1 fused_stein_rank wrapper (bf16 casts + 3 launches), "
+             f"{shape}", t["k1"]),
+            (f"K1 coarse_rank_plain (same roundings), {shape}",
+             t["k1_plain"]),
+            (f"K1 reference: stage B's product alone, bf16 torch.matmul "
+             f"(800x128 @ 128x8192)", t["k1_matmul"]),
             ("caf_peak stein main path, 400x8192, per surface incl. host",
-             main_ms)):
+             t["stein_main"]),
+            (f"K2 pallas_peak_rows wrapper (H by cuFFT + 1 launch), {fb}",
+             t["k2"]),
+            (f"K2 launch alone (prepared operands, 10 back to back), {fb}",
+             t["k2_alone"]),
+            (f"K2 caf_peak_rows_plain (torch.fft), {fb}", t["k2_plain"]),
+            (f"K2 library: cuFFT filterbank rows + |.|^2 + per-bin max "
+             f"(several PyTorch calls), {fb}", t["k2_library"]),
+            (f"K3 pallas_surface wrapper (H by cuFFT + 1 launch), {fb}",
+             t["k3"]),
+            (f"K3 launch alone (prepared operands, 10 back to back), {fb}",
+             t["k3_alone"]),
+            (f"K3 caf_surface_plain (torch.fft), {fb}", t["k3_plain"]),
+            (f"K3 library: cuFFT filterbank rows + |.|^2 (several PyTorch "
+             f"calls), {fb}", t["k3_library"]),
+            ("caf_peak pallas-refine, 400x8192, per surface incl. host",
+             t["refine_main"])):
         print(f"[times] {what}: {ms:.4f} ms  [{card}]")
-    return kernel_ms, plain_ms
+    return t
 
 
 def main() -> int:
@@ -301,20 +531,45 @@ def main() -> int:
 
     pairs = ensure_fixtures(ROOT / "data")
     phase_build()
-    head, err = phase_kernel(pairs)
-    launches, inputs = phase_main(pairs)
-    kernel_ms, plain_ms = phase_times(head, inputs, card)
+    head, err1 = phase_kernel_stein(pairs)
+    fb_head, err2, err3 = phase_kernel_filterbank(pairs)
+    inputs = golden_inputs(pairs)
+    launches1, fb = phase_main_stein(inputs)
+    launches2, launches3 = phase_main_pallas(inputs, fb)
+    t = phase_times(head, fb_head, inputs, card)
     import torch
 
+    k, n = fb_head[2].shape[0], len(inputs[0][0])
+    bound1, by1 = stein_bound_ms(head[0], head[3])
+    bound2, by2 = filterbank_bound_ms(k, n, fb_head[3], surface=False)
+    bound3, by3 = filterbank_bound_ms(k, n, fb_head[3], surface=True)
+    src = "caf_cookoff_tpu_torch/csrc/"
     print(json.dumps({"kernels": [{
-        "name": "fused_stein_rank",
-        "route": "cuda",
-        "source": "caf_cookoff_tpu_torch/csrc/fused_stein.cu",
+        "name": "fused_stein_rank", "route": "cuda",
+        "source": src + "fused_stein.cu",
         "replaces": "caf_cookoff_tpu/ops/pallas_stein.py:71",
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
+        "launches": launches1, "max_abs_err": err1,
+        "ms": t["k1"], "plain_ms": t["k1_plain"],
+        "bound_ms": bound1, "bound_by": by1, "library_ms": None,
+        "stage_b_bf16_matmul_ms": t["k1_matmul"],
+    }, {
+        "name": "caf_peak_rows", "route": "cuda",
+        "source": src + "caf_filterbank.cu",
+        "replaces": "caf_cookoff_tpu/ops/pallas_caf.py:162",
+        "launches": launches2, "max_abs_err": err2,
+        "ms": t["k2"], "plain_ms": t["k2_plain"],
+        "bound_ms": bound2, "bound_by": by2, "library_ms": t["k2_library"],
+        "library": "cuFFT filterbank rows + |.|^2 + per-bin max",
+        "launch_alone_ms": t["k2_alone"],
+    }, {
+        "name": "caf_surface", "route": "cuda",
+        "source": src + "caf_filterbank.cu",
+        "replaces": "caf_cookoff_tpu/ops/pallas_caf.py:260",
+        "launches": launches3, "max_abs_err": err3,
+        "ms": t["k3"], "plain_ms": t["k3_plain"],
+        "bound_ms": bound3, "bound_by": by3, "library_ms": t["k3_library"],
+        "library": "cuFFT filterbank rows + |.|^2",
+        "launch_alone_ms": t["k3_alone"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

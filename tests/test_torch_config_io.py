@@ -14,6 +14,8 @@ from caf_cookoff_tpu.utils import generate as jgen
 from caf_cookoff_tpu.utils import io as jio
 import caf_cookoff_tpu_torch.config as tcfg
 import caf_cookoff_tpu_torch.errors as terr
+from caf_cookoff_tpu_torch.models.filterbank import (FilterbankCAF, caf_peak,
+                                                     caf_surface)
 from caf_cookoff_tpu_torch.utils import generate as tgen
 from caf_cookoff_tpu_torch.utils import io as tio
 from caf_cookoff_tpu_torch.utils.convert import (as_signal,
@@ -55,7 +57,7 @@ def test_length_helpers_match_jax(n):
             tcfg.log2_int(n)
 
 
-def test_config_validation_matches_jax():
+def test_config_validation_matches_jax(monkeypatch):
     for bad in [dict(precision="c32"), dict(backend="cufft")]:
         with pytest.raises(ValueError):
             jcfg.CafConfig(**bad)
@@ -78,8 +80,23 @@ def test_config_validation_matches_jax():
             jcfg.as_grid(bad)
         with pytest.raises(ValueError):
             tcfg.as_grid(bad)
-    assert tcfg.default_device().type == ("cuda" if torch.cuda.is_available()
-                                          else "cpu")
+    # The card by default; without one, an error that names device="cpu"
+    # (never a silent CPU run); device="cpu" on request.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tcfg.default_device()
+    needle = np.exp(0.3j * np.arange(16)).astype(np.complex64)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        caf_peak(needle, needle, [0.0, 10.0], 48e3)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        caf_surface(needle, needle, [0.0, 10.0], 48e3, backend="pallas")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        FilterbankCAF(tcfg.CafConfig(grid=tcfg.FreqGrid(-10.0, 10.0, 5.0))
+                      ).peak(needle, needle)
+    assert caf_peak(needle, needle, [0.0, 10.0], 48e3,
+                    device="cpu")[:2] == (0.0, 0)
+    assert FilterbankCAF(tcfg.CafConfig(grid=tcfg.FreqGrid(-10.0, 10.0, 5.0)),
+                         device="cpu").peak(needle, needle) == (0.0, 0)
 
 
 def test_error_hierarchy_matches_jax():

@@ -1,5 +1,6 @@
-"""The port on a CUDA card: the fused Stein kernel against its plain
-version, and the main path through the kernel.
+"""The port on a CUDA card: the fused Stein kernel (K1) and the fused
+filterbank kernels (K2 peak rows, K3 surface) against their plain
+versions, the main paths through them, and the bench harness.
 
 Every test here needs a card and skips without one.  The file imports
 neither JAX nor the conftest's fixtures, so on a machine with a card and
@@ -14,10 +15,12 @@ import numpy as np
 import pytest
 import torch
 
-from caf_cookoff_tpu_torch import FreqGrid, caf_peak
+from caf_cookoff_tpu_torch import FreqGrid, VmemBudgetError, caf_peak
 from caf_cookoff_tpu_torch.models.batched_stein import (_haystack_extension,
                                                         _needle_operator)
 from caf_cookoff_tpu_torch.ops import fused_stein as fs
+from caf_cookoff_tpu_torch.ops import pallas_caf as pc
+from caf_cookoff_tpu_torch.utils.bench import run_benchmarks
 from caf_cookoff_tpu_torch.utils.generate import ensure_fixtures
 from caf_cookoff_tpu_torch.utils.io import load_c64
 
@@ -30,6 +33,11 @@ FS = 48_000.0
 # dropped segment is off by 1e-3 or more.
 RTOL = 1e-5
 LAG_SHARE = 0.99   # least share of bins whose lag equals the plain argmax
+# K2/K3 vs plain versions: two f32 FFT algorithms (the kernel's radix-2,
+# cuFFT) that differ in the order of their sums (5.3e-7 and 3.4e-7 x max
+# measured on the H100).
+FB_RTOL = 1e-5
+FB_SURF_TOL = 1e-5
 DATA = pathlib.Path(__file__).resolve().parents[1] / "data"
 
 
@@ -148,3 +156,102 @@ def test_main_path_goldens_on_card(card, idx, grid, want_freq, want_lag):
     assert fb[:2] == (freq, lag)
     # Same exact re-score rows: f32 cuFFT, batched differently.
     assert fb[2] == pytest.approx(value, rel=1e-4)
+
+
+def _signal_pair(rng, n, lag):
+    needle = (rng.standard_normal(n)
+              + 1j * rng.standard_normal(n)).astype(np.complex64)
+    hay = (np.roll(needle, lag) + 0.1 * (
+        rng.standard_normal(n) + 1j * rng.standard_normal(n))
+           ).astype(np.complex64)
+    return torch.from_numpy(needle).cuda(), torch.from_numpy(hay).cuda()
+
+
+@pytest.mark.parametrize("m", [1024, 8192, 16384])
+@pytest.mark.parametrize("k", [1, 5, 400])
+def test_filterbank_kernels_match_plain_on_card(card, m, k):
+    """K2: values within FB_RTOL, the plain value at the kernel's lag
+    within FB_RTOL of the bin maximum, lags the plain argmax in all but
+    near-tied bins; K3: max abs error within FB_SURF_TOL x max."""
+    needle, hay = _signal_pair(np.random.default_rng(m + k), m // 2, 37)
+    freqs = torch.linspace(-300.0, 300.0, k, device="cuda")
+    before = (pc.PEAK_LAUNCHES, pc.SURFACE_LAUNCHES)
+    kv, ki = pc.pallas_peak_rows(needle, hay, freqs, FS, m)
+    ks = pc.pallas_surface(needle, hay, freqs, FS, m)
+    torch.cuda.synchronize()
+    assert (pc.PEAK_LAUNCHES, pc.SURFACE_LAUNCHES) == (before[0] + 1,
+                                                        before[1] + 1)
+    rows = pc._mag2(pc._rows_plain(needle, hay, freqs, FS, m))
+    pv, pi = rows.max(-1)
+    assert kv.shape == ki.shape == (k,)
+    torch.testing.assert_close(kv, pv, rtol=FB_RTOL, atol=0)
+    at = torch.gather(rows, 1, ki.long()[:, None])[:, 0]
+    assert bool((at >= (1 - FB_RTOL) * pv).all())
+    assert (ki == pi.to(torch.int32)).float().mean().item() >= LAG_SHARE
+    ps = pc.caf_surface_plain(needle, hay, freqs, FS, m)
+    assert ks.shape == (k, m)
+    assert (ks - ps).abs().max().item() <= FB_SURF_TOL * ps.max().item()
+
+
+def test_filterbank_tie_break_on_card(card):
+    """An FFT gives no bit-identical values at two different lags of
+    nonzero data, so the exact tie is the all-zero input: every lag of
+    every bin ties and the lowest lag, 0, wins.  Two needle copies give
+    a near-tie: the kernel's lag is one of them, within FB_RTOL of the
+    plain maximum."""
+    zero = torch.zeros(1024, dtype=torch.complex64, device="cuda")
+    freqs = torch.linspace(-100.0, 100.0, 17, device="cuda")
+    _, lags = pc.pallas_peak_rows(zero, zero, freqs, FS, 2048)
+    assert lags.tolist() == [0] * 17
+    rng = np.random.default_rng(11)
+    n, m = 512, 4096
+    needle = (rng.standard_normal(n)
+              + 1j * rng.standard_normal(n)).astype(np.complex64)
+    hay = np.zeros(3172 + n, np.complex64)
+    hay[100:100 + n] = needle
+    hay[3172:3172 + n] = needle
+    nt, ht = torch.from_numpy(needle).cuda(), torch.from_numpy(hay).cuda()
+    vals, lags = pc.pallas_peak_rows(nt, ht, freqs, FS, m)
+    assert int(lags[8]) in (100, 3172)
+    rows = pc._mag2(pc._rows_plain(nt, ht, freqs, FS, m))
+    assert float(rows[8, lags[8]]) >= (1 - FB_RTOL) * float(rows[8].max())
+
+
+def test_filterbank_refuses_rows_past_shared_memory_on_card(card):
+    needle = torch.ones(16384, dtype=torch.complex64, device="cuda")
+    with pytest.raises(VmemBudgetError, match="16384"):
+        pc.pallas_peak_rows(needle, needle, [0.0], FS, 32768)
+    with pytest.raises(VmemBudgetError, match="shared memory"):
+        caf_peak(needle, needle, [0.0, 1.0], FS, backend="pallas",
+                 device="cuda")
+
+
+@pytest.mark.parametrize("idx,grid,want_freq,want_lag", GOLDEN)
+def test_pallas_refine_goldens_on_card(card, idx, grid, want_freq, want_lag):
+    """``caf_peak(backend="pallas-refine")`` answers every golden
+    exactly with two K2 launches, at M^2 times the cuFFT filterbank's
+    value."""
+    needle_path, hay_path = ensure_fixtures(DATA)[idx]
+    needle = load_c64(needle_path)
+    hay = load_c64(hay_path, count=len(needle))
+    freqs = FreqGrid(*grid).frequencies(np.float32)
+    before = pc.PEAK_LAUNCHES
+    freq, lag, value = caf_peak(needle, hay, freqs, FS,
+                                backend="pallas-refine", device="cuda")
+    assert pc.PEAK_LAUNCHES == before + 2
+    assert freq == pytest.approx(want_freq, abs=1e-4)
+    assert lag == want_lag
+    fb = caf_peak(needle, hay, freqs, FS, backend="xla", device="cuda")
+    assert value == pytest.approx(fb[2] * 8192.0 ** 2, rel=1e-4)
+
+
+def test_run_benchmarks_on_card(card):
+    rows = run_benchmarks(backends=("xla", "pallas-refine", "stein"),
+                          data_dir=str(DATA), rounds=2, iters=5)
+    assert [r["strategy"] for r in rows] == ["xla+cuda", "pallas-refine+cuda",
+                                             "stein+cuda"]
+    for row in rows:
+        assert "error" not in row, row
+        assert row["golden"] == "exact"
+        assert row["ms"] > 0
+        assert row["device"] == torch.cuda.get_device_name(0)

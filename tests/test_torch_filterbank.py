@@ -10,7 +10,6 @@ from caf_cookoff_tpu.config import CafConfig as JCafConfig
 from caf_cookoff_tpu.config import FreqGrid as JFreqGrid
 from caf_cookoff_tpu.models import filterbank as jfb
 from caf_cookoff_tpu_torch.config import CafConfig, FreqGrid
-from caf_cookoff_tpu_torch.errors import EligibilityError
 from caf_cookoff_tpu_torch.models import filterbank as tfb
 from caf_cookoff_tpu_torch.utils.convert import caf_config_from_jax
 
@@ -79,15 +78,33 @@ def test_fft_backend_aliases_run_full_precision(chirp, backend):
 
 @pytest.mark.parametrize("backend", ["pallas", "pallas-refine",
                                      "pallas-bf16"])
-def test_pallas_backends_not_ported(chirp, backend):
-    needle, haystack, _ = chirp(0)
-    freqs = FreqGrid(60.0, 80.0, 0.25).frequencies(np.float32)
-    with pytest.raises(EligibilityError, match="K2/K3"):
-        tfb.caf_peak(needle, haystack, freqs, FS, backend=backend,
-                     device="cpu")
-    with pytest.raises(EligibilityError, match="K2/K3"):
-        tfb.caf_surface(needle, haystack, freqs, FS, backend=backend,
-                        device="cpu")
+def test_pallas_backends_not_ported(backend):
+    """The pallas* backends, once refused as not ported, now run the
+    fused filterbank (its plain version on the CPU) and agree with the
+    JAX package's Pallas kernel in interpret mode: identical (freq,
+    lag), the unnormalised value within rtol 1e-4 (1e-2 against the
+    single-pass bf16 tier), and the surface within rtol 1e-3 + atol
+    1e-4 x max (rtol 1e-2 + atol 1e-3 x max against bf16, whose
+    rounding error is absolute, ~2^-9 of the row's energy)."""
+    rng = np.random.default_rng(11)
+    needle = (rng.standard_normal(256)
+              + 1j * rng.standard_normal(256)).astype(np.complex64)
+    haystack = (np.roll(needle, 21) * np.exp(
+        2j * np.pi * 500.0 * np.arange(256) / FS)).astype(np.complex64)
+    freqs = np.arange(-1000.0, 1000.0, 250.0, dtype=np.float32)
+    bf16 = backend.endswith("bf16")
+    rtol = 1e-2 if bf16 else 1e-4
+    got = tfb.caf_peak(needle, haystack, freqs, FS, backend=backend,
+                       device="cpu")
+    want = jfb.caf_peak(needle, haystack, freqs, FS, backend=backend)
+    assert got[:2] == want[:2] == (500.0, 21)
+    assert got[2] == pytest.approx(want[2], rel=rtol)
+    surf = tfb.caf_surface(needle, haystack, freqs, FS, backend=backend,
+                           device="cpu")
+    jsurf = np.asarray(jfb.caf_surface(needle, haystack, freqs, FS,
+                                       backend=backend))
+    np.testing.assert_allclose(surf.numpy(), jsurf, rtol=max(rtol, 1e-3),
+                               atol=(1e-3 if bf16 else 1e-4) * jsurf.max())
 
 
 def test_amb_surf_matches_jax(chirp):

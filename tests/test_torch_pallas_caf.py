@@ -1,0 +1,227 @@
+"""The port's fused filterbank (``pallas*`` backends, kernels K2/K3)
+against the JAX package's Pallas kernels, run in interpret mode on the
+CPU.  On the CPU the port's wrappers run their plain PyTorch versions;
+the kernels themselves are held against those on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from caf_cookoff_tpu.config import CafConfig as JCafConfig
+from caf_cookoff_tpu.config import FreqGrid as JFreqGrid
+from caf_cookoff_tpu.models import filterbank as jfb
+from caf_cookoff_tpu.ops import pallas_caf as jpc
+from caf_cookoff_tpu_torch.config import CafConfig, FreqGrid
+from caf_cookoff_tpu_torch.errors import EligibilityError
+from caf_cookoff_tpu_torch.models import filterbank as tfb
+from caf_cookoff_tpu_torch.ops import pallas_caf as tpc
+
+torch.set_num_threads(1)
+
+FS = 48_000.0
+# chirp_0's 24-bin grid of tests/test_pallas.py (fast to interpret).
+CHIRP0_FREQS = (68.0 + 0.25 * np.arange(24)).astype(np.float32)
+
+
+def _pair(seed, n, lag):
+    rng = np.random.default_rng(seed)
+    needle = (rng.standard_normal(n)
+              + 1j * rng.standard_normal(n)).astype(np.complex64)
+    hay = (np.roll(needle, lag) * np.exp(
+        2j * np.pi * 1000.0 * np.arange(n) / FS)).astype(np.complex64)
+    return needle, hay
+
+
+def _jax_peak_rows(needle, hay, freqs, m, precision):
+    rates = (2.0 * jnp.pi) * jnp.asarray(freqs, jnp.float32) / FS
+    vals, idxs = jpc._pallas_peak_rows(
+        jnp.asarray(needle.real), jnp.asarray(needle.imag),
+        jnp.asarray(hay.real), jnp.asarray(hay.imag), rates, len(needle), m,
+        interpret=True, precision=precision)
+    return np.asarray(vals), np.asarray(idxs)
+
+
+@pytest.fixture(scope="module")
+def synthetic_rows():
+    """N = 512, M = 1024, 16 bins: JAX's K2 in interpret mode at both
+    tiers, and the port's plain version."""
+    needle, hay = _pair(11, 512, 40)
+    freqs = np.arange(-2000.0, 2000.0, 250.0, dtype=np.float32)
+    got = tpc.caf_peak_rows_plain(torch.from_numpy(needle),
+                                  torch.from_numpy(hay), freqs, FS, 1024)
+    want = {p: _jax_peak_rows(needle, hay, freqs, 1024, p)
+            for p in ("high", "bf16")}
+    return got, want
+
+
+def test_peak_rows_plain_matches_interpret_kernel_high(synthetic_rows):
+    """Plain f32 rows vs the 3-pass tier: rtol 1e-4, identical lags."""
+    (vals, idxs), want = synthetic_rows
+    assert vals.dtype == torch.float32 and idxs.dtype == torch.int32
+    np.testing.assert_allclose(vals.numpy(), want["high"][0], rtol=1e-4)
+    np.testing.assert_array_equal(idxs.numpy(), want["high"][1])
+
+
+def test_peak_rows_plain_matches_interpret_kernel_bf16(synthetic_rows):
+    """Plain f32 rows vs the single-pass bf16 tier: rtol 1e-2 (0.2%
+    between the JAX tiers here), identical lags where the bf16 tier
+    agrees with its own 3-pass tier."""
+    (vals, idxs), want = synthetic_rows
+    np.testing.assert_allclose(vals.numpy(), want["bf16"][0], rtol=1e-2)
+    exact = want["bf16"][1] == want["high"][1]
+    assert exact.mean() >= 0.5
+    np.testing.assert_array_equal(idxs.numpy()[exact],
+                                  want["bf16"][1][exact])
+
+
+@pytest.fixture(scope="module")
+def chirp0(fixture_pairs):
+    from caf_cookoff_tpu_torch.utils.io import load_c64
+
+    needle = load_c64(fixture_pairs[0][0])
+    return needle, load_c64(fixture_pairs[0][1], count=len(needle))
+
+
+@pytest.fixture(scope="module")
+def jax_chirp0_peaks(chirp0):
+    needle, hay = chirp0
+    return {b: jfb.caf_peak(needle, hay, CHIRP0_FREQS, FS, backend=b)
+            for b in ("pallas", "pallas-refine", "pallas-bf16")}
+
+
+@pytest.mark.parametrize("backend", ["pallas", "pallas-refine",
+                                     "pallas-bf16"])
+def test_chirp0_golden_matches_jax(chirp0, jax_chirp0_peaks, backend):
+    """(freq, lag) identical to the JAX package's tier and to the
+    golden; the unnormalised value within rtol 1e-4 of JAX's 3-pass
+    'pallas' and 1e-2 of its single-pass 'pallas-bf16'."""
+    needle, hay = chirp0
+    got = tfb.caf_peak(needle, hay, CHIRP0_FREQS, FS, backend=backend,
+                       device="cpu")
+    assert got[:2] == jax_chirp0_peaks[backend][:2] == (69.25, 202)
+    assert got[2] == pytest.approx(jax_chirp0_peaks["pallas"][2], rel=1e-4)
+    assert got[2] == pytest.approx(jax_chirp0_peaks["pallas-bf16"][2],
+                                   rel=1e-2)
+    xla = tfb.caf_peak(needle, hay, CHIRP0_FREQS, FS, backend="xla",
+                       device="cpu")
+    assert got[2] == pytest.approx(xla[2] * 8192.0 ** 2, rel=1e-4)
+
+
+@pytest.mark.parametrize("backend,rtol", [("pallas", 1e-3),
+                                          ("pallas-bf16", 1e-2)])
+def test_surface_matches_jax(backend, rtol):
+    """K3's surface (1/M^2 scale, natural lag order) against the JAX
+    package's at rtol 1e-3 + atol 1e-4 x max (its own bound against
+    the XLA surface); against its single-pass bf16 tier at rtol 1e-2
+    (0.2% measured here)."""
+    needle, hay = _pair(5, 512, 40)
+    freqs = np.arange(-2000.0, 2000.0, 250.0, dtype=np.float32)
+    want = np.asarray(jfb.caf_surface(needle, hay, freqs, FS,
+                                      backend=backend))
+    got = tfb.caf_surface(needle, hay, freqs, FS, backend=backend,
+                          device="cpu")
+    assert got.shape == want.shape == (16, 1024)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=rtol,
+                               atol=1e-4 * want.max())
+    xla = tfb.caf_surface(needle, hay, freqs, FS, backend="xla",
+                          device="cpu")
+    np.testing.assert_allclose(got.numpy(), xla.numpy(), rtol=1e-4,
+                               atol=1e-6 * want.max())
+
+
+def test_bin_count_not_a_tile_multiple():
+    """K = 5: the JAX package pads to its 8-bin tile; the port needs no
+    padding and gives the same answer."""
+    rng = np.random.default_rng(13)
+    needle = (rng.standard_normal(256)
+              + 1j * rng.standard_normal(256)).astype(np.complex64)
+    hay = np.roll(needle, 7)
+    freqs = np.arange(-500.0, 750.0, 250.0, dtype=np.float32)
+    assert len(freqs) % tpc.TILE_BINS
+    for backend in ("pallas", "pallas-refine"):
+        want = jfb.caf_peak(needle, hay, freqs, FS, backend=backend)
+        got = tfb.caf_peak(needle, hay, freqs, FS, backend=backend,
+                           device="cpu")
+        assert got[:2] == want[:2] == (0.0, 7)
+        assert got[2] == pytest.approx(want[2], rel=1e-4)
+
+
+def test_needle_not_a_column_multiple():
+    """N = 5000 (M = 16384): the JAX package zero-pads the needle to its
+    DFT column factor; the port needs no padding."""
+    rng = np.random.default_rng(0)
+    needle = (rng.standard_normal(5000)
+              + 1j * rng.standard_normal(5000)).astype(np.complex64)
+    hay = np.roll(needle, 123)
+    freqs = np.arange(-100.0, 100.0, 10.0, dtype=np.float32)
+    got = tfb.caf_peak(needle, hay, freqs, FS, backend="pallas",
+                       device="cpu")
+    assert got[:2] == (0.0, 123)
+    xla = tfb.caf_peak(needle, hay, freqs, FS, backend="xla", device="cpu")
+    assert got[2] == pytest.approx(xla[2] * 16384.0 ** 2, rel=1e-4)
+    surf = tfb.caf_surface(needle, hay, freqs, FS, backend="pallas",
+                           device="cpu")
+    assert surf.shape == (20, 16384)
+
+
+def test_refine_exact_tie_goes_to_lowest_bin():
+    """Repeated frequencies give bit-identical rows: among the tied
+    candidates the lowest bin wins, as in the JAX package."""
+    rng = np.random.default_rng(2)
+    needle = (rng.standard_normal(256)
+              + 1j * rng.standard_normal(256)).astype(np.complex64)
+    hay = np.roll(needle, 9)
+    freqs = np.array([50.0, 0.0, -50.0, 0.0, 0.0, 25.0], np.float32)
+    want = jpc.pallas_caf_peak(
+        jnp.asarray(needle.real), jnp.asarray(needle.imag),
+        jnp.asarray(hay.real), jnp.asarray(hay.imag), freqs, FS, 512,
+        precision="refine")
+    for precision in ("refine", "high"):
+        got = tpc.pallas_caf_peak(torch.from_numpy(needle),
+                                  torch.from_numpy(hay), freqs, FS, 512,
+                                  precision=precision)
+        assert (int(got.freq_idx), int(got.lag_idx)) == (
+            int(want.freq_idx), int(want.lag_idx)) == (1, 9)
+
+
+def test_filterbank_engine_object_runs_pallas(chirp0):
+    needle, hay = chirp0
+    grid = (68.0, 74.0, 0.25)
+    want = jfb.FilterbankCAF(JCafConfig(grid=JFreqGrid(*grid),
+                                        backend="pallas")).peak(needle, hay)
+    got = tfb.FilterbankCAF(CafConfig(grid=FreqGrid(*grid),
+                                      backend="pallas"),
+                            device="cpu").peak(needle, hay)
+    assert got == want == (69.25, 202)
+
+
+def test_cpu_wrappers_run_plain_versions_without_launching():
+    needle, hay = _pair(3, 64, 5)
+    n, h = torch.from_numpy(needle), torch.from_numpy(hay)
+    freqs = torch.tensor([0.0, 1000.0])
+    before = (tpc.PEAK_LAUNCHES, tpc.SURFACE_LAUNCHES)
+    vals, idxs = tpc.pallas_peak_rows(n, h, freqs, FS, 128)
+    pv, pi = tpc.caf_peak_rows_plain(n, h, freqs, FS, 128)
+    assert torch.equal(vals, pv) and torch.equal(idxs, pi)
+    surf = tpc.pallas_surface(n, h, freqs, FS, 128)
+    assert torch.equal(surf, tpc.caf_surface_plain(n, h, freqs, FS, 128))
+    assert (tpc.PEAK_LAUNCHES, tpc.SURFACE_LAUNCHES) == before
+    assert int(idxs[1]) == 5
+
+
+def test_wrappers_reject_bad_inputs():
+    needle, hay = _pair(3, 64, 5)
+    n, h = torch.from_numpy(needle), torch.from_numpy(hay)
+    with pytest.raises(EligibilityError, match="power-of-two"):
+        tpc.pallas_peak_rows(n, h, [0.0], FS, 192)
+    with pytest.raises(ValueError, match="too long"):
+        tpc.pallas_surface(n, h, [0.0], FS, 64)
+    with pytest.raises(TypeError):
+        tpc.pallas_peak_rows(n.real, h, [0.0], FS, 128)
+    with pytest.raises(ValueError, match="precision"):
+        tpc.pallas_caf_peak(n, h, [0.0], FS, 128, precision="highest")
+    with pytest.raises(ValueError, match="precision"):
+        tpc.pallas_caf_surface(n, h, [0.0], FS, 128, precision="refine")
