@@ -9,11 +9,16 @@ take numpy arrays or tensors; they run on the CUDA card unless
 ``device="cpu"`` asks for the CPU (without a card and without that
 request they raise).
 
-This slice covers the single-pair paths: ``caf_peak`` / ``caf_surface``
-with the filterbank (``xla`` / ``matmul*``), the fused filterbank
-(``pallas``, ``pallas-refine``, ``pallas-bf16``) and the segmented engine
-(``stein``), and the CLI verbs ``generate``, ``run``, ``bench``,
-``selftest`` and ``info``; ROADMAP.md lists what is still to be ported.
+Ported so far: the single-pair paths ``caf_peak`` / ``caf_surface`` with
+the filterbank (``xla`` / ``matmul*``), the fused filterbank (``pallas``,
+``pallas-refine``, ``pallas-bf16``) and the segmented engine (``stein``,
+banded for wide spans); the batch engines (``batched_caf_peak`` /
+``batched_caf_surface``, ``batched_stein_peak``); the long-capture
+engines (``overlap_save_peak`` / ``overlap_save_surface``,
+``stein_overlap_save_peak``, ``batched_stein_os_peak``); and the CLI
+verbs ``generate``, ``run`` (with ``--full-haystack``), ``batch``,
+``bench``, ``selftest`` and ``info``.  ROADMAP.md lists what is still to
+be ported.
 """
 
 from caf_cookoff_tpu_torch.config import (BENCH_GRID, CafConfig, FreqGrid,
@@ -24,6 +29,12 @@ from caf_cookoff_tpu_torch.errors import (
     SpanError,
     VmemBudgetError,
 )
+from caf_cookoff_tpu_torch.models.batched import (batched_caf_peak,
+                                                  batched_caf_surface)
+from caf_cookoff_tpu_torch.models.batched_stein import (
+    batched_stein_os_peak,
+    batched_stein_peak,
+)
 from caf_cookoff_tpu_torch.models.filterbank import (
     FilterbankCAF,
     amb_surf,
@@ -31,8 +42,11 @@ from caf_cookoff_tpu_torch.models.filterbank import (
     caf_surface,
     find_peak,
 )
+from caf_cookoff_tpu_torch.models.overlap_save import (overlap_save_peak,
+                                                       overlap_save_surface)
 from caf_cookoff_tpu_torch.models.stein import (stein_caf_peak,
-                                                stein_caf_surface)
+                                                stein_caf_surface,
+                                                stein_overlap_save_peak)
 from caf_cookoff_tpu_torch.ops.shift import apply_fdoa, freq_shift, phasor_bank
 from caf_cookoff_tpu_torch.ops.xcor import xcor, xcor_pair
 
@@ -49,14 +63,21 @@ __all__ = [
     "VmemBudgetError",
     "amb_surf",
     "apply_fdoa",
+    "batched_caf_peak",
+    "batched_caf_surface",
+    "batched_stein_os_peak",
+    "batched_stein_peak",
     "caf_peak",
     "caf_surface",
     "default_device",
     "find_peak",
     "freq_shift",
+    "overlap_save_peak",
+    "overlap_save_surface",
     "phasor_bank",
     "stein_caf_peak",
     "stein_caf_surface",
+    "stein_overlap_save_peak",
     "xcor",
     "xcor_pair",
     "__version__",

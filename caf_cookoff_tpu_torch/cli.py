@@ -1,28 +1,35 @@
-"""Command-line interface (``generate``, ``run``, ``bench``, ``selftest``,
-``info``).
+"""Command-line interface (``generate``, ``run``, ``batch``, ``bench``,
+``selftest``, ``info``).
 
   python -m caf_cookoff_tpu_torch generate --out DIR
   python -m caf_cookoff_tpu_torch run NEEDLE.c64 HAYSTACK.c64 [--backend stein]
+  python -m caf_cookoff_tpu_torch run NEEDLE.c64 CAPTURE.c64 --full-haystack
+  python -m caf_cookoff_tpu_torch batch N1.c64:C1.c64 N2.c64:C2.c64 [--full-haystack]
   python -m caf_cookoff_tpu_torch bench [--backends xla,pallas-refine,stein]
   python -m caf_cookoff_tpu_torch selftest [--backend pallas-refine]
   python -m caf_cookoff_tpu_torch info
 
 ``run`` truncates the haystack to the needle length, as the reference
-does, and prints the reference's two result lines.  Every verb that
-computes runs on the CUDA card unless ``--device cpu`` asks for the CPU;
-``bench`` times the card only.
+does, and prints the reference's two result lines; ``--full-haystack``
+searches the whole capture (the segmented long-capture engine, or the
+overlap-save scan where that engine is ineligible) and names the engine
+that answered.  ``batch`` runs many pairs through the batched Stein
+engines.  Every verb that computes runs on the CUDA card unless
+``--device cpu`` asks for the CPU; ``bench`` times the card only.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import sys
 from typing import Optional
 
 import numpy as np
 
 from caf_cookoff_tpu_torch.config import (BACKENDS, BENCH_GRID,
                                           DEFAULT_SAMPLE_RATE, FreqGrid)
+from caf_cookoff_tpu_torch.errors import EngineError
 
 _DEVICE_HELP = ("torch device (default: the CUDA card; without one the "
                 "command fails unless --device cpu asks for the CPU)")
@@ -56,18 +63,146 @@ def cmd_generate(args) -> int:
     return 0
 
 
+def _not_ported(args) -> Optional[str]:
+    """The options whose engines are not ported yet, as an error line."""
+    if getattr(args, "num_peaks", 1) > 1:
+        return ("--num-peaks > 1 (the multi-emitter lattices) is not "
+                "ported yet: ROADMAP Queue 1 item 9")
+    if getattr(args, "rate_grid", None):
+        return ("--rate-grid (the rate engines) is not ported yet: "
+                "ROADMAP Queue 1 item 12")
+    return None
+
+
 def cmd_run(args) -> int:
     from caf_cookoff_tpu_torch.models.filterbank import caf_peak
     from caf_cookoff_tpu_torch.utils.io import load_c64
 
+    missing = _not_ported(args)
+    if missing:
+        print(f"error: {missing}", file=sys.stderr)
+        return 2
     needle = load_c64(args.needle)
-    haystack = load_c64(args.haystack, count=len(needle))
+    haystack = load_c64(args.haystack)
     freqs = _grid(args).frequencies(np.float32)
-    freq, lag, value = caf_peak(needle, haystack, freqs, args.fs,
-                                backend=args.backend, device=args.device)
+    engine, snr_db = None, None
+    if args.full_haystack and len(haystack) > len(needle):
+        freq, lag, value, engine, snr_db = _full_haystack_peak(
+            needle, haystack, freqs, args)
+    else:
+        freq, lag, value = caf_peak(needle, haystack[:len(needle)], freqs,
+                                    args.fs, backend=args.backend,
+                                    device=args.device)
     print(f"Frequency offset: {freq:.3f} Hz")
     print(f"Time offset: {lag} samples ({lag / args.fs * 1e3:.4f} ms)")
+    if snr_db is not None:
+        print(f"[peak/floor {snr_db:.1f} dB]")
     print(f"Peak value: {value:.6g}")
+    if engine is not None:
+        print(f"Engine: {engine}")
+    return 0
+
+
+def _full_haystack_peak(needle, haystack, freqs, args):
+    """The whole capture, as the JAX CLI searches it: the segmented
+    long-capture engine for ``auto``/``stein*``, the overlap-save scan
+    (with its peak-to-floor SNR) otherwise or when that engine raises an
+    ``EngineError``.  Returns ``(freq, lag, value, engine, snr_db)``."""
+    from caf_cookoff_tpu_torch.models.overlap_save import overlap_save_peak
+    from caf_cookoff_tpu_torch.models.stein import stein_overlap_save_peak
+
+    if args.backend == "auto" or args.backend.startswith("stein"):
+        try:
+            out = stein_overlap_save_peak(
+                needle, haystack, freqs, args.fs,
+                refine=not args.backend.endswith("raw"), device=args.device)
+            return out + ("stein-os (segmented long-capture)", None)
+        except EngineError as exc:
+            # Only the typed envelope conditions reroute.
+            print(f"note: segmented engine ineligible ({exc}); using the "
+                  f"overlap-save scan", file=sys.stderr)
+    freq, lag, value, snr_db = overlap_save_peak(
+        needle, haystack, freqs, args.fs, with_snr=True, device=args.device)
+    return freq, lag, value, "overlap-save scan", snr_db
+
+
+def cmd_batch(args) -> int:
+    """Many (needle, capture) pairs through the batched Stein engines:
+    equal-length pairs (captures cut to the needle length) or, with
+    ``--full-haystack``, whole captures through the windowed engine.  A
+    batch outside the engines' envelope (an ``EngineError``) falls back
+    to per-pair runs."""
+    from caf_cookoff_tpu_torch.models.batched_stein import (
+        batched_stein_os_peak, batched_stein_peak)
+    from caf_cookoff_tpu_torch.models.filterbank import caf_peak
+    from caf_cookoff_tpu_torch.models.overlap_save import overlap_save_peak
+    from caf_cookoff_tpu_torch.utils.io import load_c64
+
+    missing = _not_ported(args)
+    if missing:
+        print(f"error: {missing}", file=sys.stderr)
+        return 2
+    parsed = []
+    for spec in args.pairs:
+        if ":" not in spec:
+            print(f"error: pair {spec!r} is not needle:capture",
+                  file=sys.stderr)
+            return 2
+        parsed.append(spec.split(":", 1))
+    needles = [load_c64(n_path) for n_path, _ in parsed]
+    captures = [load_c64(c_path) for _, c_path in parsed]
+    n_lens = {len(nd) for nd in needles}
+    if len(n_lens) != 1:
+        print(f"error: needles must share one length, got {n_lens}",
+              file=sys.stderr)
+        return 2
+    n = n_lens.pop()
+    if any(len(c) < n for c in captures):
+        print("error: capture shorter than needle", file=sys.stderr)
+        return 2
+    fs = args.fs
+    freqs = _grid(args).frequencies(np.float32)
+    longest = max(len(c) for c in captures)
+    full = args.full_haystack and longest > n
+    if full:
+        if any(len(c) <= n for c in captures):
+            print("error: --full-haystack needs every capture longer than "
+                  "the needle", file=sys.stderr)
+            return 2
+        captures = [np.pad(c, (0, longest - len(c))) for c in captures]
+    else:
+        captures = [c[:n] for c in captures]
+    try:
+        engine = batched_stein_os_peak if full else batched_stein_peak
+        fr, lg, vv = engine(np.stack(needles), np.stack(captures), freqs, fs,
+                            device=args.device)
+    except EngineError as exc:
+        # Shapes outside the fused engine's envelope (very wide spans,
+        # tiny needles): per-pair engines.  Only the typed envelope
+        # conditions reroute.
+        print(f"note: batch shape outside the fused engine's envelope "
+              f"({exc}); falling back to per-pair runs", file=sys.stderr)
+        if full:
+            results = [overlap_save_peak(nd, cp, freqs, fs,
+                                         device=args.device)
+                       for nd, cp in zip(needles, captures)]
+        else:
+            results = [caf_peak(nd, cp, freqs, fs, backend=args.backend,
+                                device=args.device)
+                       for nd, cp in zip(needles, captures)]
+        fr, lg, vv = (np.array(col) for col in zip(*results))
+    records = [{"needle": n_path, "capture": c_path,
+                "freq_hz": float(fr[i]), "lag_samples": int(lg[i]),
+                "lag_ms": int(lg[i]) / fs * 1e3,
+                "peak_value": float(vv[i])}
+               for i, (n_path, c_path) in enumerate(parsed)]
+    if args.json:
+        print(json.dumps(records, indent=2))
+        return 0
+    for r in records:
+        print(f"{r['needle']} x {r['capture']}: "
+              f"{r['freq_hz']:+9.3f} Hz @ lag {r['lag_samples']:>7d} "
+              f"({r['lag_ms']:.4f} ms)  peak {r['peak_value']:.5g}")
     return 0
 
 
@@ -186,14 +321,37 @@ def build_parser() -> argparse.ArgumentParser:
     g.set_defaults(fn=cmd_generate)
 
     r = sub.add_parser("run", help="CAF one (needle, haystack) .c64 pair "
-                       "(haystack truncated to the needle length)")
+                       "(haystack truncated to the needle length unless "
+                       "--full-haystack)")
     r.add_argument("needle", help=".c64 needle (signal of interest)")
     r.add_argument("haystack", help=".c64 haystack (capture)")
     _add_grid_args(r)
     r.add_argument("--backend", choices=BACKENDS, default="auto",
                    help=_BACKEND_HELP)
+    r.add_argument("--full-haystack", action="store_true",
+                   help="search the whole capture (segmented long-capture "
+                   "engine, overlap-save scan as its fallback)")
+    r.add_argument("--num-peaks", type=int, default=1,
+                   help="multi-emitter listing: not ported yet")
+    r.add_argument("--rate-grid", metavar="START:STOP:STEP",
+                   help="rate search: not ported yet")
     r.add_argument("--device", default=None, help=_DEVICE_HELP)
     r.set_defaults(fn=cmd_run)
+
+    bt = sub.add_parser("batch", help="CAF many needle:capture .c64 pairs "
+                        "through the batched Stein engines")
+    bt.add_argument("pairs", nargs="+", metavar="NEEDLE:CAPTURE",
+                    help="colon-separated .c64 path pairs")
+    _add_grid_args(bt)
+    bt.add_argument("--backend", choices=BACKENDS, default="auto",
+                    help="backend of the per-pair fallback runs")
+    bt.add_argument("--full-haystack", action="store_true",
+                    help="search whole captures (windowed engine)")
+    bt.add_argument("--json", action="store_true")
+    bt.add_argument("--num-peaks", type=int, default=1,
+                    help="multi-emitter lattices: not ported yet")
+    bt.add_argument("--device", default=None, help=_DEVICE_HELP)
+    bt.set_defaults(fn=cmd_batch)
 
     b = sub.add_parser("bench", help="README-style strategy table, timed "
                        "on the CUDA card")

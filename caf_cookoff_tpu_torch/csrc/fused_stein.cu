@@ -2,12 +2,22 @@
 // the max over lags of |R|^2 and the lowest lag that attains it.
 //
 // Replaces caf_cookoff_tpu/ops/pallas_stein.py::_fused_stein_kernel
-// (modes (a) and (b): any pair count, lags always computed).
+// in modes (a) one pair, (b) many pairs, (c) share_h bands, (d) windows
+// with a per-program lag bound, and (c) with (d); lags always computed.
 //
-//   G[p, r, tau] = sum_{e<D} lmat[p, r, e]     * h_ext[p, 0, (r mod B)*D + e + tau]
-//                          + lmat[p, r, D + e] * h_ext[p, 1, (r mod B)*D + e + tau]
-//   Rr = ws1 @ G[p],  Ri = ws2 @ G[p]                 (K, 2B) x (2B, lags)
-//   vals[k, p] = max_{tau < num_lags} Rr^2 + Ri^2,  lags[k, p] = lowest argmax
+// Program i of P_eff = P * S * W runs band-major, i = (pair*S + band)*W
+// + w (S = share_h, W = windows); it reads the needle operator
+// lmat[i / W] and the haystack slice h_ext[(i / (S*W))*W + i % W]:
+//
+//   G[i, r, tau] = sum_{e<D} lmat[i/W, r, e]     * h[0, (r mod B)*D + e + tau]
+//                          + lmat[i/W, r, D + e] * h[1, (r mod B)*D + e + tau]
+//   Rr = ws1 @ G[i],  Ri = ws2 @ G[i]                 (K, 2B) x (2B, lags)
+//   vals[k, i] = max_{tau < bound_i} Rr^2 + Ri^2,  lags[k, i] = lowest argmax
+//
+// with bound_i = min(num_valid[i], num_lags) when num_valid is given,
+// else num_lags.  Lags at or past the bound read -1.0 inside the max (a
+// program with bound 0 returns -1.0 at lag 0), so a strong correlation
+// past a window's range cannot shadow the bin's in-range peak.
 //
 // Precision is the Pallas kernel's: ws1, ws2, lmat and h_ext rounded to
 // bf16, G rounded to bf16, every sum accumulated in f32.
@@ -21,23 +31,27 @@
 // Design.  The TPU kernel walks its lag tiles in order inside one
 // program and carries a running max in VMEM; Hopper blocks run in no
 // order, so the work is three launches on one stream:
-//   1. stein_stage_a: one block per (pair, segment, 128-lag tile) stages
+//   1. stein_stage_a: one block per (program, segment, 128-lag tile) stages
 //      the haystack window and the two needle-tap rows in shared memory
 //      and writes G (P, 2B, m_pad) in bf16.
-//   2. stein_stage_b: one block per (pair, 64-bin tile, 128-lag tile);
+//   2. stein_stage_b: one block per (program, 64-bin tile, 128-lag tile);
 //      the synthesis weights and a G tile are staged 32 rows at a time,
 //      each thread keeps 4 bins x 8 lags of Rr and Ri in registers
 //      (64 f32 FMA per 16 shared-memory reads), and the |R|^2 epilogue
 //      reduces each bin to (max, lowest lag) for the tile: in order
 //      within a thread, then by warp shuffles.
-//   3. stein_reduce_tiles: per (pair, bin), the tiles in ascending lag
+//   3. stein_reduce_tiles: per (program, bin), the tiles in ascending lag
 //      order with a strict '>', so the lowest lag survives exact ties.
+// The program axis is the grid's z, capped at 65535 by the hardware:
+// launches 1 and 2 go out in chunks of at most that many programs.
 // Plain FMA loops, no tensor cores: wgmma/TMA and keeping G out of
-// device memory are later work.
+// device memory are later work (G is (P_eff, 2B, m_pad) bf16 in device
+// memory: 134 MB at 64 pairs x 128 rows x 8192 lags).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstddef>
 
 namespace {
@@ -48,19 +62,24 @@ constexpr int kRowChunk = 32;   // synthesis rows staged per step
 constexpr int kThreadsB = 256;  // 16 (bin groups) x 16 (lag lanes)
 constexpr int kBinsPerThread = kBinTile / 16;   // 4
 constexpr int kLagsPerThread = kLagTile / 16;   // 8
+constexpr int kGridZMax = 65535;                // programs per launch
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// Launch 1.  grid (m_pad / kLagTile, B, P), kLagTile threads; thread t
-// owns lag tau = tile * kLagTile + t of segment rows blk and B + blk.
+// Launch 1.  grid (m_pad / kLagTile, B, programs in this chunk),
+// kLagTile threads; program p = p_base + blockIdx.z; thread t owns lag
+// tau = tile * kLagTile + t of segment rows blk and B + blk.
 __global__ void __launch_bounds__(kLagTile) stein_stage_a(
     const __nv_bfloat16* __restrict__ lmat, const float* __restrict__ h_ext,
     __nv_bfloat16* __restrict__ g, int num_blocks, int sup, int h_len,
-    int m_pad) {
+    int m_pad, int windows, int share_h, int p_base) {
   extern __shared__ float smem[];
-  const int tile = blockIdx.x, blk = blockIdx.y, p = blockIdx.z;
+  const int tile = blockIdx.x, blk = blockIdx.y, p = p_base + blockIdx.z;
+  // The TPU kernel's BlockSpec index maps.
+  const int op = p / windows;
+  const int slice = (p / (share_h * windows)) * windows + p % windows;
   const int b2 = 2 * num_blocks;
   const int win = kLagTile + sup - 1;
   float* h0 = smem;            // haystack window, real plane
@@ -69,12 +88,12 @@ __global__ void __launch_bounds__(kLagTile) stein_stage_a(
   float* bot = top + 2 * sup;  // taps of row B + blk (Im G)
 
   const int start = blk * sup + tile * kLagTile;
-  const float* hp = h_ext + static_cast<size_t>(p) * 2 * h_len;
+  const float* hp = h_ext + static_cast<size_t>(slice) * 2 * h_len;
   for (int i = threadIdx.x; i < win; i += blockDim.x) {
     h0[i] = round_bf16(hp[start + i]);
     h1[i] = round_bf16(hp[h_len + start + i]);
   }
-  const __nv_bfloat16* lp = lmat + static_cast<size_t>(p) * b2 * 2 * sup;
+  const __nv_bfloat16* lp = lmat + static_cast<size_t>(op) * b2 * 2 * sup;
   for (int i = threadIdx.x; i < 2 * sup; i += blockDim.x) {
     top[i] = __bfloat162float(lp[static_cast<size_t>(blk) * 2 * sup + i]);
     bot[i] = __bfloat162float(
@@ -98,22 +117,25 @@ __global__ void __launch_bounds__(kLagTile) stein_stage_a(
       __float2bfloat16_rn(acc_bot);
 }
 
-// Launch 2.  grid (m_pad / kLagTile, ceil(K / kBinTile), P), kThreadsB
-// threads; thread (ty, tx) owns bins k0 + 4*ty + i (i < 4) and lags
+// Launch 2.  grid (m_pad / kLagTile, ceil(K / kBinTile), programs in
+// this chunk), kThreadsB threads; program p = p_base + blockIdx.z;
+// thread (ty, tx) owns bins k0 + 4*ty + i (i < 4) and lags
 // tau0 + tx + 16*j (j < 8).  Writes part_val/part_lag[(p*K + k)*tiles + tile].
+// num_valid may be null (every program bounded by num_lags).
 __global__ void __launch_bounds__(kThreadsB) stein_stage_b(
     const __nv_bfloat16* __restrict__ ws1,
     const __nv_bfloat16* __restrict__ ws2,
-    const __nv_bfloat16* __restrict__ g, float* __restrict__ part_val,
-    int* __restrict__ part_lag, int num_bins, int b2, int m_pad,
-    int num_lags) {
+    const __nv_bfloat16* __restrict__ g, const int* __restrict__ num_valid,
+    float* __restrict__ part_val, int* __restrict__ part_lag, int num_bins,
+    int b2, int m_pad, int num_lags, int p_base) {
   // +1 column: the transposing stores below hit distinct banks.
   __shared__ float s_w1[kRowChunk][kBinTile + 1];
   __shared__ float s_w2[kRowChunk][kBinTile + 1];
   __shared__ float s_g[kRowChunk][kLagTile];
 
-  const int tile = blockIdx.x, p = blockIdx.z;
+  const int tile = blockIdx.x, p = p_base + blockIdx.z;
   const int k0 = blockIdx.y * kBinTile, tau0 = tile * kLagTile;
+  const int bound = num_valid ? min(num_valid[p], num_lags) : num_lags;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const __nv_bfloat16* gp = g + static_cast<size_t>(p) * b2 * m_pad;
 
@@ -174,9 +196,9 @@ __global__ void __launch_bounds__(kThreadsB) stein_stage_b(
 #pragma unroll
     for (int j = 0; j < kLagsPerThread; ++j) {
       const int tau = tau0 + tx + 16 * j;
-      // Lags past num_lags read -1.0, as in the TPU kernel.
+      // Lags past the bound read -1.0, as in the TPU kernel.
       const float v =
-          tau < num_lags ? rr[i][j] * rr[i][j] + ri[i][j] * ri[i][j] : -1.f;
+          tau < bound ? rr[i][j] * rr[i][j] + ri[i][j] * ri[i][j] : -1.f;
       if (j == 0 || v > best) {  // ascending tau: ties keep the lowest
         best = v;
         arg = tau;
@@ -203,15 +225,15 @@ __global__ void __launch_bounds__(kThreadsB) stein_stage_b(
   }
 }
 
-// Launch 3.  One thread per (pair, bin): tiles in ascending lag order,
+// Launch 3.  One thread per (program, bin): tiles in ascending lag order,
 // strict '>' keeps the earliest (lowest-lag) maximum.
 __global__ void stein_reduce_tiles(const float* __restrict__ part_val,
                                    const int* __restrict__ part_lag,
                                    float* __restrict__ vals,
-                                   int* __restrict__ lags, int num_pairs,
+                                   int* __restrict__ lags, int num_programs,
                                    int num_bins, int n_tiles) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= num_pairs * num_bins) return;
+  if (idx >= num_programs * num_bins) return;
   const int p = idx / num_bins, k = idx % num_bins;
   const float* pv = part_val + static_cast<size_t>(idx) * n_tiles;
   const int* pl = part_lag + static_cast<size_t>(idx) * n_tiles;
@@ -223,8 +245,8 @@ __global__ void stein_reduce_tiles(const float* __restrict__ part_val,
       arg = pl[t];
     }
   }
-  vals[static_cast<size_t>(k) * num_pairs + p] = best;
-  lags[static_cast<size_t>(k) * num_pairs + p] = arg;
+  vals[static_cast<size_t>(k) * num_programs + p] = best;
+  lags[static_cast<size_t>(k) * num_programs + p] = arg;
 }
 
 }  // namespace
@@ -237,22 +259,25 @@ const char* caf_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Shapes (row-major, contiguous): ws1, ws2 (K, 2B) bf16; lmat (P, 2B, 2D)
-// bf16; h_ext (P, 2, h_len) f32; g (P, 2B, m_pad) bf16 scratch;
-// part_val/part_lag (P, K, m_pad / kLagTile) f32/int32 scratch;
-// vals/lags (K, P) f32/int32 out.  m_pad is a multiple of kLagTile and
-// h_len >= (B - 1) * D + m_pad + D - 1.  Enqueues three launches on
+// Shapes (row-major, contiguous): ws1, ws2 (K, 2B) bf16; lmat
+// (P_eff / W, 2B, 2D) bf16; h_ext (P_eff / S, 2, h_len) f32; num_valid
+// (P_eff,) int32 or null; g (P_eff, 2B, m_pad) bf16 scratch;
+// part_val/part_lag (P_eff, K, m_pad / kLagTile) f32/int32 scratch;
+// vals/lags (K, P_eff) f32/int32 out.  m_pad is a multiple of kLagTile
+// and h_len >= (B - 1) * D + m_pad + D - 1.  Enqueues the launches on
 // `stream`, on the calling thread's current device (the operands' card);
 // returns the first CUDA error (0 on success).
 int caf_fused_stein_rank(const void* ws1, const void* ws2, const void* lmat,
-                         const void* h_ext, void* g, void* part_val,
-                         void* part_lag, void* vals, void* lags,
-                         int num_pairs, int num_bins, int num_blocks, int sup,
-                         int h_len, int num_lags, int m_pad, void* stream) {
+                         const void* h_ext, const void* num_valid, void* g,
+                         void* part_val, void* part_lag, void* vals,
+                         void* lags, int num_programs, int num_bins,
+                         int num_blocks, int sup, int h_len, int num_lags,
+                         int m_pad, int windows, int share_h, void* stream) {
   cudaError_t err = cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_tiles = m_pad / kLagTile;
   const int b2 = 2 * num_blocks;
+  const int bin_tiles = (num_bins + kBinTile - 1) / kBinTile;
 
   const size_t smem_a = (2 * (kLagTile + sup - 1) + 4 * sup) * sizeof(float);
   if (smem_a > 48 * 1024) {
@@ -261,27 +286,29 @@ int caf_fused_stein_rank(const void* ws1, const void* ws2, const void* lmat,
                                static_cast<int>(smem_a));
     if (err != cudaSuccess) return err;
   }
-  stein_stage_a<<<dim3(n_tiles, num_blocks, num_pairs), kLagTile, smem_a, s>>>(
-      static_cast<const __nv_bfloat16*>(lmat),
-      static_cast<const float*>(h_ext), static_cast<__nv_bfloat16*>(g),
-      num_blocks, sup, h_len, m_pad);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  for (int p0 = 0; p0 < num_programs; p0 += kGridZMax) {
+    const int chunk = std::min(kGridZMax, num_programs - p0);
+    stein_stage_a<<<dim3(n_tiles, num_blocks, chunk), kLagTile, smem_a, s>>>(
+        static_cast<const __nv_bfloat16*>(lmat),
+        static_cast<const float*>(h_ext), static_cast<__nv_bfloat16*>(g),
+        num_blocks, sup, h_len, m_pad, windows, share_h, p0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    stein_stage_b<<<dim3(n_tiles, bin_tiles, chunk), kThreadsB, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(ws1),
+        static_cast<const __nv_bfloat16*>(ws2),
+        static_cast<const __nv_bfloat16*>(g),
+        static_cast<const int*>(num_valid), static_cast<float*>(part_val),
+        static_cast<int*>(part_lag), num_bins, b2, m_pad, num_lags, p0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
 
-  const int bin_tiles = (num_bins + kBinTile - 1) / kBinTile;
-  stein_stage_b<<<dim3(n_tiles, bin_tiles, num_pairs), kThreadsB, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(ws1),
-      static_cast<const __nv_bfloat16*>(ws2),
-      static_cast<const __nv_bfloat16*>(g), static_cast<float*>(part_val),
-      static_cast<int*>(part_lag), num_bins, b2, m_pad, num_lags);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  const int total = num_pairs * num_bins;
+  const int total = num_programs * num_bins;
   stein_reduce_tiles<<<(total + 255) / 256, 256, 0, s>>>(
       static_cast<const float*>(part_val),
       static_cast<const int*>(part_lag), static_cast<float*>(vals),
-      static_cast<int*>(lags), num_pairs, num_bins, n_tiles);
+      static_cast<int*>(lags), num_programs, num_bins, n_tiles);
   return cudaGetLastError();
 }
 

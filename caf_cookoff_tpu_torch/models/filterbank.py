@@ -40,17 +40,19 @@ def mag2(rows: torch.Tensor) -> torch.Tensor:
 
 def _surface_rows(needle: torch.Tensor, haystack: torch.Tensor, freqs_hz,
                   sample_rate, xcor_len: int) -> torch.Tensor:
-    """Complex correlation rows (K, M) for one signal pair; also the
-    exact re-score rows of the Stein engine.  The phasor is evaluated
-    over the N needle samples only (the padding is zeros)."""
+    """Complex correlation rows (..., K, M) of needles (..., N) against
+    haystacks (..., L <= M) at frequencies (..., K) — one pair, or a
+    batch of pairs each with its own bins; also the exact re-score rows
+    of the Stein engines.  The phasor is evaluated over the N needle
+    samples only (the padding is zeros)."""
     m = xcor_len
     rdtype = real_dtype_of(needle.dtype)
     h_spec = torch.fft.fft(pad_to(haystack, m))
-    shifted = needle[None, :] * phasor_bank(
+    shifted = needle[..., None, :] * phasor_bank(
         torch.as_tensor(freqs_hz, dtype=rdtype, device=needle.device),
         needle.shape[-1], sample_rate, rdtype, needle.device)
     s_spec = torch.fft.fft(pad_to(shifted, m), dim=-1)
-    return torch.fft.ifft(h_spec[None, :] * torch.conj(s_spec), dim=-1)
+    return torch.fft.ifft(h_spec[..., None, :] * torch.conj(s_spec), dim=-1)
 
 
 def _pair(needle, haystack, freqs_hz, device):

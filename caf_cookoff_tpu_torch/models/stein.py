@@ -12,7 +12,11 @@ The main path (:func:`stein_caf_peak`, ``fused`` on wherever eligible)
 runs both stages and the per-bin rank in the fused kernel
 (``ops/fused_stein``), then re-scores the top candidate bins with exact
 filterbank rows, which restores bin-exact answers.  ``fused=False``
-runs the FFT stage A and a matmul synthesis instead.
+runs the FFT stage A and a matmul synthesis instead.  Spans past the
+single-segment envelope are banded (:func:`_plan_bands`): one kernel
+program per band.  Long captures (:func:`stein_overlap_save_peak`) run
+the windowed engine of ``models/batched_stein`` on the card, or a
+block-loop overlap-save scan with Stein synthesis.
 
 The block-constant phase approximation attenuates doppler responses by
 ``sinc(w_k D / 2)``; :func:`_auto_block_len` keeps ``D <= fs/(4 f_max)``.
@@ -28,7 +32,8 @@ import torch
 
 from caf_cookoff_tpu_torch.config import (as_grid, floor_pow2,
                                           resolve_backend, xcor_length)
-from caf_cookoff_tpu_torch.errors import EligibilityError, SpanError
+from caf_cookoff_tpu_torch.errors import (EligibilityError, EngineError,
+                                          SpanError)
 from caf_cookoff_tpu_torch.models.batched_stein import (_haystack_extension,
                                                         _needle_operator)
 from caf_cookoff_tpu_torch.models.filterbank import _surface_rows, mag2
@@ -141,25 +146,29 @@ def _stein_peak(needle, haystack, freqs_hz, sample_rate, xcor_len: int,
 
 
 def _refine_candidates(rowmax_coarse: torch.Tensor, freqs_all: torch.Tensor,
-                       needle_len: int, sample_rate) -> torch.Tensor:
-    """Candidate bins of the exact re-score for a (K,) ranking: the plain
-    top-k (equal values lowest bin first, as ``jax.lax.top_k``) followed
-    by a mainlobe-separated top-k.  Duplicates are harmless."""
-    k = min(_REFINE_BINS, int(rowmax_coarse.shape[-1]))
-    cand = torch.sort(rowmax_coarse, descending=True,
-                      stable=True).indices[:k].to(torch.int32)
+                       needle_len: int, sample_rate,
+                       num_valid: Optional[int] = None) -> torch.Tensor:
+    """Candidate bins of the exact re-score for a (K,) ranking, or each
+    row of a (P, K) one: the plain top-k (equal values lowest bin first,
+    as ``jax.lax.top_k``) followed by a mainlobe-separated top-k.
+    ``num_valid`` caps the plain picks when the ranking carries -inf
+    padded bins (banded grids).  Duplicates are harmless."""
+    k = min(_REFINE_BINS, int(rowmax_coarse.shape[-1]),
+            num_valid or _REFINE_BINS)
+    cand = torch.sort(rowmax_coarse, dim=-1, descending=True,
+                      stable=True).indices[..., :k].to(torch.int32)
     ksep = min(_REFINE_SEP_BINS, k)
     sep = doppler_cell_bins(freqs_all, needle_len, sample_rate)
     cand_sep = topk_separated(rowmax_coarse, ksep, sep)
-    return torch.cat([cand, cand_sep])
+    return torch.cat([cand, cand_sep], dim=-1)
 
 
 def _refine_topk(needle, haystack, freqs_all, rowmax_coarse, sample_rate,
-                 xcor_len: int) -> CafPeak:
+                 xcor_len: int, num_valid: Optional[int] = None) -> CafPeak:
     """Exact re-score of the coarse ranking: highest exact value wins,
     exact ties break toward the lowest bin."""
     cand = _refine_candidates(rowmax_coarse, freqs_all, needle.shape[-1],
-                              sample_rate)
+                              sample_rate, num_valid)
     exact = mag2(_surface_rows(needle, haystack, freqs_all[cand.long()],
                                sample_rate, xcor_len))       # (k, M)
     rowmax = torch.amax(exact, dim=-1)
@@ -168,6 +177,87 @@ def _refine_topk(needle, haystack, freqs_all, rowmax_coarse, sample_rate,
     best = torch.argmax((top & (cand == winner)).to(torch.int8))
     return CafPeak(value=rowmax[best], freq_idx=cand[best],
                    lag_idx=torch.argmax(exact[best]).to(torch.int32))
+
+
+def _plan_bands(sample_rate: float, freqs_hz: np.ndarray):
+    """Band partition for wide-span grids, or ``None`` if infeasible.
+
+    Only uniform grids band cleanly: every band then shares one relative
+    grid, so the sweep is one kernel call with the bands on the program
+    axis.  Bands are sized so the relative |f| stays within the
+    block-constant phase envelope.  Per lag column stage A costs ~4N MACs per
+    band and the synthesis ~4*kb*N/D, so ``s*(1 + kb/D)`` (units of 4N)
+    is evaluated at every pow2 block length and the cheapest wins.
+    """
+    k = len(freqs_hz)
+    if k < 2:
+        return None
+    diffs = np.diff(np.asarray(freqs_hz, np.float64))
+    g = float(diffs[0])
+    if g <= 0 or not np.allclose(diffs, g, rtol=1e-5, atol=1e-9):
+        return None
+    best = None
+    for cand in (8, 16, 32, 64, 128):
+        # Widest band the phase-error envelope allows at this D:
+        # rel_max <= fs/(4D)  =>  kb <= 2*(fs/(4D))/g.
+        kb_c = max(1, int(2.0 * (sample_rate / (4.0 * cand)) / g))
+        s_c = -(-k // kb_c)
+        cost = s_c * (1.0 + kb_c / cand)
+        if best is None or cost < best[0]:
+            best = (cost, cand, kb_c)
+    _, d, kb = best
+    s = -(-k // kb)
+    f0 = float(freqs_hz[0])
+    freqs_pad = (f0 + g * np.arange(s * kb)).astype(np.float32)
+    centers = (f0 + g * (np.arange(s) * kb + (kb - 1) / 2.0)).astype(
+        np.float32)
+    rel = (g * (np.arange(kb) - (kb - 1) / 2.0)).astype(np.float32)
+    return {"block_len": d, "kb": kb, "bands": s, "freqs_pad": freqs_pad,
+            "centers": centers, "rel": rel}
+
+
+def _band_routing(sample_rate, freqs_np, d: Optional[int]):
+    """Banded-vs-plain routing of the windowed engines.
+
+    ``d`` is the plain-envelope block length (``None`` when the plain
+    path is ineligible).  Returns ``(use_banded, d_eff, freqs_pad,
+    centers, rel)``: the one-band values (``centers=[0]``,
+    ``rel=freqs_pad=freqs``) for the plain route, the band plan's arrays
+    otherwise; ``d_eff`` is ``None`` when neither route is eligible.
+    The banded route wins when the cost model (``s*(1 + kb/D)`` vs
+    ``1 + K/D``) says it is at least ~10% cheaper.
+    """
+    plan = _plan_bands(float(sample_rate), freqs_np)
+    use_banded = False
+    if plan is not None:
+        if d is None:
+            use_banded = True
+        else:
+            cost_plain = 1.0 + len(freqs_np) / d
+            cost_band = (plan["bands"]
+                         + plan["bands"] * plan["kb"] / plan["block_len"])
+            use_banded = cost_band < 0.9 * cost_plain
+    if use_banded:
+        return (True, plan["block_len"], np.asarray(plan["freqs_pad"]),
+                np.asarray(plan["centers"]), np.asarray(plan["rel"]))
+    return (False, d, np.asarray(freqs_np), np.zeros(1, np.float32),
+            np.asarray(freqs_np))
+
+
+def _banded_stein_peak(needle, haystack, plan, sample_rate, xcor_len: int,
+                       num_bins: int) -> CafPeak:
+    """Wide-span Stein for one pair: the P=1 case of the banded batch
+    engine (the band centres become the kernel's programs through
+    ``share_h``)."""
+    from caf_cookoff_tpu_torch.models.batched_stein import (_as_tensor,
+                                                            _banded_batched)
+
+    dev = needle.device
+    peak = _banded_batched(
+        needle[None], haystack[None], _as_tensor(plan["freqs_pad"], dev),
+        _as_tensor(plan["centers"], dev), _as_tensor(plan["rel"], dev),
+        sample_rate, xcor_len, plan["block_len"], num_bins)
+    return CafPeak(peak.value[0], peak.freq_idx[0], peak.lag_idx[0])
 
 
 def _auto_block_len(sample_rate: float, freqs_hz: np.ndarray,
@@ -203,15 +293,6 @@ def _prep(needle, haystack, freqs_hz, device):
     return n, h, freqs, torch.from_numpy(freqs).to(n.device)
 
 
-def _block_len_or_raise(sample_rate, freqs, block_len: int) -> int:
-    try:
-        return _auto_block_len(sample_rate, freqs, block_len)
-    except SpanError as exc:
-        raise SpanError(
-            f"{exc}; the banded Stein engine that covers wider spans is "
-            "not ported yet (ROADMAP Queue 1 item 4)") from exc
-
-
 def stein_caf_surface(needle, haystack, freqs_hz, sample_rate, *,
                       block_len: int = 64, backend: Optional[str] = None,
                       device=None) -> torch.Tensor:
@@ -237,11 +318,27 @@ def stein_caf_peak(needle, haystack, freqs_hz, sample_rate, *,
     a 512-multiple correlation length), on every device: on CUDA
     tensors it launches the kernel, on CPU tensors its plain version.
     Every FFT ``backend`` name runs ``torch.fft``.
+
+    Doppler spans past the single-segment envelope run the banded path
+    (``refine=True``, ``fused=None``, a uniform grid): the grid splits
+    into bands, the needle is shifted to each band centre (exact: shifts
+    compose), and the bands are the programs of one kernel call.
     """
     resolve_backend(backend)
     n, h, freqs, freqs_t = _prep(needle, haystack, freqs_hz, device)
     xl = xcor_length(n.shape[-1])
-    block_len = _block_len_or_raise(sample_rate, freqs, block_len)
+    fs = float(sample_rate)
+    try:
+        block_len = _auto_block_len(fs, freqs, block_len)
+    except SpanError:
+        # An explicit fused flag pins the single-band engines, which
+        # cannot take the span.
+        plan = _plan_bands(fs, freqs) if refine and fused is None else None
+        if plan is None or xl % 512:
+            raise
+        peak = _banded_stein_peak(n, h, plan, fs, xl, len(freqs))
+        return (float(plan["freqs_pad"][int(peak.freq_idx)]),
+                int(peak.lag_idx), float(peak.value))
     d_fused = floor_pow2(min(block_len, SUPER))
     eligible = refine and d_fused >= 8 and xl % 512 == 0
     if fused is None:
@@ -253,7 +350,147 @@ def stein_caf_peak(needle, haystack, freqs_hz, sample_rate, *,
                 f">= 8 (got {block_len} -> {d_fused}) and a 512-multiple "
                 f"correlation length (got {xl}); use fused=False")
         block_len = d_fused
-    peak = _stein_peak(n, h, freqs_t, float(sample_rate), xl, block_len,
-                       refine, fused)
+    peak = _stein_peak(n, h, freqs_t, fs, xl, block_len, refine, fused)
     return (float(freqs[int(peak.freq_idx)]), int(peak.lag_idx),
             float(peak.value))
+
+
+def _segment_spectra_conj(needle: torch.Tensor, fft_len: int,
+                          block_len: int) -> torch.Tensor:
+    """(B, M) conj spectra of the needle's D-blocks at their true
+    offsets (doppler-independent, computed once per needle)."""
+    n = needle.shape[-1]
+    d = block_len
+    b = -(-n // d)
+    m = fft_len
+    rdtype = real_dtype_of(needle.dtype)
+    np_rdtype = np.float64 if rdtype == torch.float64 else np.float32
+    s0 = torch.fft.fft(pad_to(pad_to(needle, b * d).reshape(b, d), m),
+                       dim=-1)
+    ang = (-2.0 * np.pi / m) * (np.arange(b)[:, None] * d
+                                * np.arange(m)[None, :])
+    twist = torch.complex(
+        torch.from_numpy(np.cos(ang).astype(np_rdtype)),
+        torch.from_numpy(np.sin(ang).astype(np_rdtype))).to(needle.device)
+    return torch.conj_physical(s0 * twist)
+
+
+def _stein_os_scan(needle, haystack, freqs_t, sample_rate, num_lags: int,
+                   block_len: int) -> CafPeak:
+    """Block-loop overlap-save peak with Stein doppler synthesis: per
+    haystack block one FFT, B_seg = N/D inverse FFTs (the segment
+    correlations) and one (2K, 2B_seg) x (2B_seg, V) synthesis product.
+    The peak carry stays on the device; the strict ``>`` keeps the
+    earliest block on ties."""
+    from caf_cookoff_tpu_torch.models.overlap_save import plan_blocks
+
+    needle_len = needle.shape[-1]
+    m, v, nblocks = plan_blocks(needle_len, num_lags)
+    d_read = v + needle_len - 1
+    sc = _segment_spectra_conj(needle, m, block_len)
+    target = nblocks * v + needle_len - 1
+    hay = (haystack[:target] if haystack.shape[-1] >= target
+           else pad_to(haystack, target))
+    dev = needle.device
+    best = CafPeak(value=torch.tensor(-math.inf, dtype=freqs_t.dtype,
+                                      device=dev),
+                   freq_idx=torch.zeros((), dtype=torch.int32, device=dev),
+                   lag_idx=torch.zeros((), dtype=torch.int32, device=dev))
+    local = torch.arange(v, device=dev)
+    for blk in range(nblocks):
+        spec = torch.fft.fft(pad_to(hay[blk * v:blk * v + d_read], m))
+        g = torch.fft.ifft(spec[None, :] * sc, dim=-1)[:, :v]
+        rr, ri = _doppler_synthesis(g, freqs_t, sample_rate, block_len)
+        surface = torch.where(local + blk * v < num_lags,
+                              rr * rr + ri * ri, -1.0)
+        cand = find_peak_2d(surface)
+        take = cand.value > best.value    # strict: earlier block wins ties
+        best = CafPeak(
+            value=torch.where(take, cand.value, best.value),
+            freq_idx=torch.where(take, cand.freq_idx, best.freq_idx),
+            lag_idx=torch.where(take, cand.lag_idx + blk * v,
+                                best.lag_idx))
+    return best
+
+
+def _use_windowed_engine(scan_block, device: torch.device) -> bool:
+    """Gate for the batched windowed engine inside the long-capture
+    path: mandatory when the scan cannot take the span (banded only),
+    otherwise taken on the card and skipped on the CPU, as the JAX
+    package prefers it on its accelerator and not on the CPU."""
+    return scan_block is None or device.type != "cpu"
+
+
+def _prep_long(needle, haystack, freqs_hz, device):
+    n = as_signal(needle, device)
+    h = as_signal(haystack, n.device).to(n.dtype)
+    if h.shape[-1] < n.shape[-1]:
+        raise ValueError(f"haystack ({h.shape[-1]}) shorter than needle "
+                         f"({n.shape[-1]})")
+    rdtype = np.float64 if n.dtype == torch.complex128 else np.float32
+    freqs = as_grid(freqs_hz, dtype=rdtype)
+    return n, h, freqs, torch.from_numpy(freqs).to(n.device)
+
+
+def stein_overlap_save_peak(needle, haystack, freqs_hz, sample_rate, *,
+                            block_len: int = 64,
+                            num_lags: Optional[int] = None,
+                            refine: bool = True,
+                            backend: Optional[str] = None,
+                            device=None) -> Tuple[float, int, float]:
+    """Long-haystack (freq, lag, value) via segmented doppler synthesis.
+
+    On the card (and for spans only the banded engine takes) with
+    ``refine=True`` the coarse pass is the windowed fused engine
+    (:func:`~caf_cookoff_tpu_torch.models.batched_stein.
+    batched_stein_os_peak` at P=1): every overlap-save lag window, and
+    every band where the band planner favours it, is one program of the
+    kernel.  Shapes outside its envelope fall back to the block-loop
+    scan.  The scan ranks all lags (lag exact, frequency within a bin),
+    then a guard-extended capture window at the found lag is re-scored
+    by :func:`stein_caf_peak`'s exact path, restoring the bin-exact
+    frequency.  Every FFT ``backend`` name runs ``torch.fft``.
+    """
+    from caf_cookoff_tpu_torch.models.batched_stein import (
+        batched_stein_os_peak)
+
+    resolve_backend(backend)
+    n, h, freqs, freqs_t = _prep_long(needle, haystack, freqs_hz, device)
+    fs = float(sample_rate)
+    try:
+        scan_block = _auto_block_len(fs, freqs, block_len)
+        span_err = None
+    except SpanError as e:
+        scan_block, span_err = None, e  # past the single-segment envelope
+    if (refine and h.shape[-1] > n.shape[-1]
+            and _use_windowed_engine(scan_block, n.device)):
+        try:
+            fr, lg, vv = batched_stein_os_peak(
+                n[None], h[None], freqs, fs, num_lags=num_lags,
+                block_len=block_len, device=n.device)
+            return float(fr[0]), int(lg[0]), float(vv[0])
+        except EngineError:
+            # Only the typed envelope conditions reroute, to the scan on
+            # the same device; anything else propagates.
+            if scan_block is None:
+                raise    # the scan cannot take the span either
+    if scan_block is None:
+        raise span_err
+    nl = n.shape[-1]
+    lags = num_lags or h.shape[-1] - nl + 1
+    peak = _stein_os_scan(n, h, freqs_t, fs, lags, scan_block)
+    lag = int(peak.lag_idx)
+    if not refine:
+        return float(freqs[int(peak.freq_idx)]), lag, float(peak.value)
+    # Exact re-score of a guard-extended window starting slightly before
+    # the coarse lag: ``n + 2*guard`` samples, so the winning local lag
+    # (~guard) correlates every needle sample against real data.
+    guard = min(lag, 64, nl // 4)
+    start = lag - guard
+    win_len = min(nl + 2 * guard, xcor_length(nl))
+    avail = min(win_len, h.shape[-1] - start)
+    window = pad_to(h[start:start + avail], win_len)
+    freq, delta, value = stein_caf_peak(n, window, freqs, fs,
+                                        block_len=scan_block,
+                                        device=n.device)
+    return freq, start + int(delta), value

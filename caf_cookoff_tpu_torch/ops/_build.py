@@ -87,7 +87,10 @@ def load_library() -> ctypes.CDLL:
         return _LIB
     lib = ctypes.CDLL(str(build_library()))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.caf_fused_stein_rank.argtypes = [vp] * 9 + [ci] * 7 + [vp]
+    # ws1, ws2, lmat, h_ext, num_valid (may be null), g, part_val,
+    # part_lag, vals, lags; programs, K, B, D, h_len, num_lags, m_pad,
+    # windows, share_h; stream
+    lib.caf_fused_stein_rank.argtypes = [vp] * 10 + [ci] * 9 + [vp]
     lib.caf_fused_stein_rank.restype = ci
     lib.caf_fused_stein_lag_tile.argtypes = []
     lib.caf_fused_stein_lag_tile.restype = ci

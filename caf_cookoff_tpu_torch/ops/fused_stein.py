@@ -1,17 +1,25 @@
 """Fused Stein coarse rank: the CUDA kernel's wrapper and its plain
 PyTorch version.
 
-Per (pair, doppler bin) the rank is the max over lags of
+Per (program, doppler bin) the rank is the max over lags of
 ``|ws1 @ G|^2 + |ws2 @ G|^2`` and the lowest lag attaining it, where
 ``G`` are the needle's segment correlations built from a Hankel view of
-the haystack extension (stage A) — the contract of the JAX package's
+a haystack extension (stage A) — the contract of the JAX package's
 ``fused_stein_rank`` and its XLA twin ``_coarse_rank_xla``.  Operand
 shapes are the JAX package's, so the same numpy operands feed both.
+
+Programs: ``P_eff = P * share_h * windows``, band-major
+(``i = (pair*S + band)*W + w``).  Program ``i`` reads the needle
+operator ``lmat[i // W]`` and the haystack slice
+``h_ext[(i // (S*W))*W + i % W]`` — bands share a pair's haystack,
+windows share a pair's needle (:func:`program_maps`).  ``num_valid``
+bounds each program's lags.
 
 * :func:`fused_stein_rank` launches ``csrc/fused_stein.cu`` for CUDA
   tensors (or raises) and runs the plain version for CPU tensors.
 * :func:`coarse_rank_plain` is that plain version; ``emulate_bf16=True``
-  applies the kernel's roundings (inputs and G to bf16, f32 sums).
+  applies the kernel's roundings (inputs and G to bf16, f32 sums, stage
+  A summed in the kernel's order so that G is the kernel's bit for bit).
 * ``LAUNCHES`` counts kernel launches, so a run can show that its main
   path went through the kernel.
 """
@@ -32,6 +40,9 @@ SPAN_QUANTUM = 4 * SUPER  # quantum of fused_span's staircase span (operand
 LAG_TILE = 128    # the CUDA kernel's lag tile (csrc kLagTile)
 _SMEM_PER_BLOCK = 232_448  # bytes of shared memory one Hopper block may use
 _GRID_YZ_MAX = 65_535
+# Programs per step of the plain version: bounds its (programs, K, lags)
+# intermediates.
+_PLAIN_CHUNK = 8
 
 LAUNCHES = 0
 
@@ -67,45 +78,106 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
-def coarse_surface_plain(ws1, ws2, lmat, h_ext, b: int, sup: int,
-                         num_lags: int, emulate_bf16: bool = False):
-    """(P, K, m_pad) masked ``|R|^2`` of the coarse rank (lags at or past
-    ``num_lags`` read -1.0), in plain PyTorch."""
+def program_maps(progs: torch.Tensor, windows: int = 1, share_h: int = 1):
+    """The kernel's operand index maps for program ids ``progs``:
+    ``i // W`` (into ``lmat``) and ``(i // (S*W))*W + i % W`` (into
+    ``h_ext``)."""
+    return progs // windows, (progs // (share_h * windows)) * windows \
+        + progs % windows
+
+
+def _stage_a_in_kernel_order(lm, h, sup: int, span: int):
+    """(n, 2B, span) f32 staircase ``co`` summed tap by tap in the
+    kernel's order (tap e of the real plane, then of the imaginary
+    plane).  The operands are bf16-exact, so each product is exact in
+    f32 and every partial sum rounds as the kernel's ``fmaf`` chain
+    does: the f32 sums, and so their bf16 roundings (G), are the
+    kernel's bit for bit.  (Summed in another order, a few G entries
+    land one bf16 ulp apart, which moves |R|^2 by up to ~1e-3.)"""
+    co = lm.new_zeros(lm.shape[0], lm.shape[1], span)
+    for e in range(sup):
+        for plane in (0, 1):
+            col = plane * sup + e
+            co.addcmul_(lm[:, :, col, None], h[:, plane, None, e:e + span])
+    return co
+
+
+def _surface_chunk(ws1, ws2, lmat, h_ext, b: int, sup: int, num_lags: int,
+                   progs, windows: int, share_h: int, num_valid,
+                   emulate_bf16: bool):
+    """(n, K, m_pad) masked ``|R|^2`` of the programs ``progs``."""
+    li, hi = program_maps(progs, windows, share_h)
+    lm, h = lmat[li], h_ext[hi]
+    n = len(progs)
+    span = h.shape[-1] - (SUPER - 1)
     if emulate_bf16:
-        ws1, ws2, lmat, h_ext = map(_bf16, (ws1, ws2, lmat, h_ext))
-    p = h_ext.shape[0]
-    span = h_ext.shape[-1] - (SUPER - 1)
-    # Hankel rows: hank[p, plane*sup + e, s] = h_ext[p, plane, e + s].
-    hank = h_ext.unfold(2, span, 1)[:, :, :sup, :].reshape(p, 2 * sup, span)
-    co = torch.einsum("pbe,pes->pbs", lmat, hank)       # (P, 2B, span)
-    if emulate_bf16:
-        co = _bf16(co)
+        co = _bf16(_stage_a_in_kernel_order(lm, h, sup, span))
+    else:
+        # Hankel rows: hank[i, plane*sup + e, s] = h[i, plane, e + s].
+        hank = h.unfold(2, span, 1)[:, :, :sup, :].reshape(n, 2 * sup, span)
+        co = torch.einsum("pbe,pes->pbs", lm, hank)     # (n, 2B, span)
     m_pad = -(-num_lags // FUSED_TILE) * FUSED_TILE
-    # Staircase un-shear: G[p, r, tau] = co[p, r, (r mod b)*sup + tau].
+    # Staircase un-shear: G[i, r, tau] = co[i, r, (r mod b)*sup + tau].
     cols = ((torch.arange(2 * b, device=co.device) % b) * sup)[:, None] \
         + torch.arange(m_pad, device=co.device)[None, :]
-    g = torch.gather(co, 2, cols.expand(p, -1, -1))     # (P, 2B, m_pad)
+    g = torch.gather(co, 2, cols.expand(n, -1, -1))     # (n, 2B, m_pad)
     rr = torch.einsum("kb,pbm->pkm", ws1, g)
     ri = torch.einsum("kb,pbm->pkm", ws2, g)
     mag2 = rr * rr + ri * ri
-    valid = torch.arange(m_pad, device=mag2.device) < num_lags
+    if num_valid is None:
+        bound = torch.full((n, 1, 1), num_lags, device=mag2.device)
+    else:
+        nv = torch.as_tensor(num_valid, device=mag2.device).to(torch.int64)
+        bound = torch.clamp(nv[progs], max=num_lags)[:, None, None]
+    valid = torch.arange(m_pad, device=mag2.device)[None, None, :] < bound
     return torch.where(valid, mag2, torch.full_like(mag2, -1.0))
 
 
+def coarse_surface_plain(ws1, ws2, lmat, h_ext, b: int, sup: int,
+                         num_lags: int, emulate_bf16: bool = False,
+                         windows: int = 1, share_h: int = 1,
+                         num_valid=None):
+    """(P_eff, K, m_pad) masked ``|R|^2`` of the coarse rank, in plain
+    PyTorch: lags at or past ``num_lags`` (or past ``num_valid[i]`` when
+    given, capped at ``num_lags``) read -1.0."""
+    if emulate_bf16:
+        ws1, ws2, lmat, h_ext = map(_bf16, (ws1, ws2, lmat, h_ext))
+    progs = torch.arange(lmat.shape[0] * windows, device=lmat.device)
+    return _surface_chunk(ws1, ws2, lmat, h_ext, b, sup, num_lags, progs,
+                          windows, share_h, num_valid, emulate_bf16)
+
+
 def coarse_rank_plain(ws1, ws2, lmat, h_ext, b: int, sup: int,
-                      num_lags: int, emulate_bf16: bool = False):
-    """Plain PyTorch version of the kernel (port of ``_coarse_rank_xla``):
-    ((K, P) f32 values, (K, P) int32 lowest-argmax lags)."""
-    mag2 = coarse_surface_plain(ws1, ws2, lmat, h_ext, b, sup, num_lags,
-                                emulate_bf16)
-    vals, idxs = torch.max(mag2, dim=-1)   # first maximum on ties
-    return vals.T.contiguous(), idxs.to(torch.int32).T.contiguous()
+                      num_lags: int, emulate_bf16: bool = False,
+                      windows: int = 1, share_h: int = 1, num_valid=None):
+    """Plain PyTorch version of the kernel (port of ``_coarse_rank_xla``
+    with the kernel's index maps): ((K, P_eff) f32 values, (K, P_eff)
+    int32 lowest-argmax lags), ``_PLAIN_CHUNK`` programs at a time."""
+    if emulate_bf16:
+        ws1, ws2, lmat, h_ext = map(_bf16, (ws1, ws2, lmat, h_ext))
+    p_eff = lmat.shape[0] * windows
+    vals, idxs = [], []
+    for p0 in range(0, p_eff, _PLAIN_CHUNK):
+        progs = torch.arange(p0, min(p0 + _PLAIN_CHUNK, p_eff),
+                             device=lmat.device)
+        mag2 = _surface_chunk(ws1, ws2, lmat, h_ext, b, sup, num_lags,
+                              progs, windows, share_h, num_valid,
+                              emulate_bf16)
+        v, i = torch.max(mag2, dim=-1)      # first maximum on ties
+        vals.append(v)
+        idxs.append(i)
+    return (torch.cat(vals).T.contiguous(),
+            torch.cat(idxs).to(torch.int32).T.contiguous())
 
 
-def _check_operands(ws1, ws2, lmat, h_ext, num_blocks, sup, num_lags):
+def _check_operands(ws1, ws2, lmat, h_ext, num_blocks, sup, num_lags,
+                    windows, share_h, num_valid):
     if not all(t.is_floating_point() for t in (ws1, ws2, lmat, h_ext)):
         raise TypeError("fused_stein_rank takes real floating operands "
                         "(split-complex planes)")
+    if windows < 1 or share_h < 1:
+        raise ValueError(f"windows ({windows}) and share_h ({share_h}) "
+                         "must be at least 1")
     k, b2 = ws1.shape
     if ws2.shape != ws1.shape:
         raise ValueError(f"ws2 shape {tuple(ws2.shape)} != ws1 "
@@ -116,43 +188,60 @@ def _check_operands(ws1, ws2, lmat, h_ext, num_blocks, sup, num_lags):
     if lmat.shape[2] != 2 * sup:
         raise ValueError(
             f"operator width {lmat.shape[2]} != 2*block_len {2 * sup}")
+    if lmat.shape[0] * windows != h_ext.shape[0] * share_h:
+        raise ValueError(
+            f"{lmat.shape[0]} operators x {windows} windows != "
+            f"{h_ext.shape[0]} h_ext slices x {share_h} bands")
     span = fused_span(num_blocks, sup, num_lags)
-    if h_ext.shape[0] != lmat.shape[0] or \
-            tuple(h_ext.shape[1:]) != (2, span + SUPER - 1):
+    if tuple(h_ext.shape[1:]) != (2, span + SUPER - 1):
         raise ValueError(f"h_ext shape {tuple(h_ext.shape)} != "
-                         f"({lmat.shape[0]}, 2, {span + SUPER - 1})")
+                         f"(*, 2, {span + SUPER - 1})")
+    p_eff = lmat.shape[0] * windows
+    if num_valid is not None and tuple(num_valid.shape) != (p_eff,):
+        raise ValueError(f"num_valid shape {tuple(num_valid.shape)} != "
+                         f"({p_eff},)")
 
 
 def fused_stein_rank(ws1, ws2, lmat, h_ext, num_blocks: int, sup: int,
                      num_lags: int, want_idxs: bool = True,
                      windows: int = 1, share_h: int = 1, num_valid=None,
                      want_top2: bool = False, sep: int = 0):
-    """Per-(bin, pair) (max |R|^2, lowest arg lag) of the Stein coarse rank.
+    """Per-(bin, program) (max |R|^2, lowest arg lag) of the Stein
+    coarse rank.
 
-    ``ws1``/``ws2``: (K, 2B) synthesis weights; ``lmat``: (P, 2B, 2*sup)
-    needle-tap operator; ``h_ext``: (P, 2, span+127) haystack extensions
-    (see ``models/batched_stein``).  Returns ((K, P) f32, (K, P) int32);
-    the lags are zeros when ``want_idxs=False``.
+    ``ws1``/``ws2``: (K, 2B) synthesis weights; ``lmat``: (P*S, 2B,
+    2*sup) needle-tap operators, one per (pair, band); ``h_ext``:
+    (P*W, 2, span+127) haystack extensions, one per (pair, window) (see
+    ``models/batched_stein``); ``num_valid``: optional (P_eff,) integer
+    per-program lag bound (numpy or a tensor).  Returns ((K, P_eff) f32,
+    (K, P_eff) int32) with window-local lags; the lags are zeros when
+    ``want_idxs=False``.
 
     CUDA tensors launch the kernel (a failed build or launch raises);
     CPU tensors run :func:`coarse_rank_plain` with the kernel's bf16
     roundings.
     """
-    if windows != 1 or share_h != 1 or num_valid is not None or want_top2:
+    if want_top2:
         raise NotImplementedError(
-            "fused_stein_rank: windows/num_valid (ROADMAP Queue 2 K1(d)), "
-            "share_h bands (K1(c)) and want_top2 (K1(e)) are not ported yet")
-    _check_operands(ws1, ws2, lmat, h_ext, num_blocks, sup, num_lags)
+            "fused_stein_rank: want_top2 (K1(e), ROADMAP Queue 2) is not "
+            "ported yet")
     devices = {t.device for t in (ws1, ws2, lmat, h_ext)}
     if len(devices) != 1:
         raise ValueError(f"operands on several devices: {devices}")
     device = devices.pop()
+    if num_valid is not None:
+        num_valid = torch.as_tensor(num_valid, dtype=torch.int32,
+                                    device=device)
+    _check_operands(ws1, ws2, lmat, h_ext, num_blocks, sup, num_lags,
+                    windows, share_h, num_valid)
     if device.type == "cuda":
         vals, idxs = _launch(ws1, ws2, lmat, h_ext, num_blocks, sup,
-                             num_lags)
+                             num_lags, windows, share_h, num_valid)
     elif device.type == "cpu":
         vals, idxs = coarse_rank_plain(ws1, ws2, lmat, h_ext, num_blocks,
-                                       sup, num_lags, emulate_bf16=True)
+                                       sup, num_lags, emulate_bf16=True,
+                                       windows=windows, share_h=share_h,
+                                       num_valid=num_valid)
     else:
         raise ValueError(f"fused_stein_rank: unsupported device {device}")
     if not want_idxs:
@@ -167,20 +256,23 @@ def _stage_a_smem_bytes(sup: int) -> int:
     return (2 * (LAG_TILE + sup - 1) + 4 * sup) * 4
 
 
-def _launch(ws1, ws2, lmat, h_ext, num_blocks, sup, num_lags):
+def _launch(ws1, ws2, lmat, h_ext, num_blocks, sup, num_lags, windows,
+            share_h, num_valid):
     global LAUNCHES
     from caf_cookoff_tpu_torch.ops import _build
 
-    p, b2, _ = lmat.shape
+    b2 = lmat.shape[1]
+    p_eff = lmat.shape[0] * windows
     k = ws1.shape[0]
     if _stage_a_smem_bytes(sup) > _SMEM_PER_BLOCK:
         raise VmemBudgetError(
             f"fused Stein kernel: block_len {sup} needs "
             f"{_stage_a_smem_bytes(sup)} B of shared memory per block, "
             f"past the card's {_SMEM_PER_BLOCK} B; use the unfused path")
-    if max(p, num_blocks, -(-k // 64)) > _GRID_YZ_MAX:
+    # The library tiles the program axis (grid z) across launches.
+    if max(num_blocks, -(-k // 64)) > _GRID_YZ_MAX:
         raise ValueError(f"fused Stein kernel: grid too large "
-                         f"(P={p}, B={num_blocks}, K={k})")
+                         f"(B={num_blocks}, K={k})")
     m_pad = -(-num_lags // LAG_TILE) * LAG_TILE
     h_len = h_ext.shape[-1]
     if h_len < (num_blocks - 1) * sup + m_pad + sup - 1:
@@ -195,19 +287,23 @@ def _launch(ws1, ws2, lmat, h_ext, num_blocks, sup, num_lags):
     lmatb = lmat.to(bf16).contiguous()
     h = h_ext.to(torch.float32).contiguous()
     n_tiles = m_pad // LAG_TILE
-    g = torch.empty((p, b2, m_pad), dtype=bf16, device=dev)
-    part_val = torch.empty((p, k, n_tiles), dtype=torch.float32, device=dev)
-    part_lag = torch.empty((p, k, n_tiles), dtype=torch.int32, device=dev)
-    vals = torch.empty((k, p), dtype=torch.float32, device=dev)
-    lags = torch.empty((k, p), dtype=torch.int32, device=dev)
+    g = torch.empty((p_eff, b2, m_pad), dtype=bf16, device=dev)
+    part_val = torch.empty((p_eff, k, n_tiles), dtype=torch.float32,
+                           device=dev)
+    part_lag = torch.empty((p_eff, k, n_tiles), dtype=torch.int32,
+                           device=dev)
+    vals = torch.empty((k, p_eff), dtype=torch.float32, device=dev)
+    lags = torch.empty((k, p_eff), dtype=torch.int32, device=dev)
     # The launches go to the operands' card; the caller's current card
     # is restored afterwards.
     with torch.cuda.device(dev):
         rc = lib.caf_fused_stein_rank(
             ws1b.data_ptr(), ws2b.data_ptr(), lmatb.data_ptr(), h.data_ptr(),
+            None if num_valid is None else num_valid.contiguous().data_ptr(),
             g.data_ptr(), part_val.data_ptr(), part_lag.data_ptr(),
-            vals.data_ptr(), lags.data_ptr(), p, k, num_blocks, sup, h_len,
-            num_lags, m_pad, torch.cuda.current_stream(dev).cuda_stream)
+            vals.data_ptr(), lags.data_ptr(), p_eff, k, num_blocks, sup,
+            h_len, num_lags, m_pad, windows, share_h,
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused Stein kernel launch failed: "
                            f"{lib.caf_cuda_error_string(rc).decode()}")

@@ -53,19 +53,20 @@ def unwrap_lag(raw_lag: int, xcor_len: int, needle_len: int) -> int:
 
 
 def topk_separated(values: torch.Tensor, k: int, sep) -> torch.Tensor:
-    """Indices of the top-``k`` entries of a 1-D score vector with a
-    minimum index separation ``sep`` between picks (greedy 1-D NMS).
-    If fewer than ``k`` separated entries exist above ``-inf``, the
-    surplus slots repeat the argmax of an all-``-inf`` vector (0)."""
+    """Indices of the top-``k`` entries of a score vector (or of each row
+    of a (..., K) batch) with a minimum index separation ``sep`` between
+    picks (greedy 1-D NMS).  If fewer than ``k`` separated entries exist
+    above ``-inf``, the surplus slots repeat the argmax of an all-``-inf``
+    vector (0)."""
     idxs = torch.arange(values.shape[-1], device=values.device)
     vals = values
     picks = []
     for _ in range(k):
-        i = torch.argmax(vals)
-        picks.append(i)
+        i = torch.argmax(vals, dim=-1, keepdim=True)
+        picks.append(i[..., 0])
         vals = torch.where((idxs - i).abs() <= sep,
                            torch.full_like(vals, -float("inf")), vals)
-    return torch.stack(picks).to(torch.int32)
+    return torch.stack(picks, dim=-1).to(torch.int32)
 
 
 def doppler_cell_bins(freqs_hz: torch.Tensor, needle_len: int,

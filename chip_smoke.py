@@ -23,10 +23,24 @@ Phases, each reported on its own line:
    through it; chirp_0 also through the cuFFT filterbank
    (``backend="xla"``) and the CPU route, and chirp_0's
    ``caf_surface(backend="pallas")`` (K3) against ``backend="xla"``.
-5. times  — CUDA-event medians, after warm-up, of each kernel's wrapper,
+5. modes  — K1 in modes (c) ``share_h`` (6 bands), (d) ``windows`` +
+   ``num_valid`` (8 windows, the last one cut to half its lags) and (c+d)
+   (48 programs) against its plain version, at config 3's full shape as
+   its engine builds the operands.
+6. configs — ``bench_configs.py`` configs 2-4 at full size through the
+   public engines on the card, each gated as that script gates it:
+   config 2 (64 pairs x 400 bins x 8192 lags, ``batched_stein_peak``)
+   must equal single-pair ``stein_caf_peak`` for pairs 0, 13, 26, 39, 52;
+   configs 3 (2000 bins x 65536 lags, 6 bands x 8 windows) and 4 (16
+   pairs x 1024 bins x 32768 lags, 6 bands x 4 windows) through
+   ``batched_stein_os_peak`` must recover every injected (freq, lag).
+   K1's launch count, set to 0 before each config, must rise.
+7. times  — CUDA-event medians, after warm-up, of each kernel's wrapper,
    its plain version and its library yardstick at the main path's
-   shape, and of whole ``caf_peak`` calls (host included), each printed
-   beside the card's name and power limit.
+   shape, of K1 at each config's shape (where it is first held against
+   its plain version as in phase 3), and of whole ``caf_peak`` and
+   config calls (host included), each printed beside the card's name
+   and power limit.
 
 Then a JSON line describing each kernel (with its bound from this run's
 shapes), and as the last line ``{"ok": true, "device": {...}}``.  Any
@@ -167,15 +181,16 @@ def random_operands(rng, p, n, k, m, d, device):
     return (ws1, ws2, lmat, h_ext), n // d, sup, m
 
 
-def compare(label, ops, b, sup, m):
-    """K1 vs plain version on one operand set; returns the max absolute
-    value error."""
+def compare(label, ops, b, sup, m, **modes):
+    """K1 vs plain version on one operand set (``modes``: windows,
+    share_h, num_valid); returns the max absolute value error."""
     import torch
 
     from caf_cookoff_tpu_torch.ops import fused_stein as fs
 
-    kv, ki = fs.fused_stein_rank(*ops, b, sup, m)
-    surf = fs.coarse_surface_plain(*ops, b, sup, m, emulate_bf16=True)
+    kv, ki = fs.fused_stein_rank(*ops, b, sup, m, **modes)
+    surf = fs.coarse_surface_plain(*ops, b, sup, m, emulate_bf16=True,
+                                   **modes)
     torch.cuda.synchronize()
     pv, pi = surf.max(dim=-1)
     pv, pi = pv.T, pi.T
@@ -397,6 +412,163 @@ def phase_main_pallas(inputs, fb):
     return peak_launches, surface_launches
 
 
+def rand_pair(n, lag, f_hz, seed):
+    """``bench_configs.py``'s config-2 pair: noise needle, the haystack
+    its copy delayed by ``lag`` and shifted by ``f_hz``."""
+    rng = np.random.default_rng(seed)
+    needle = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(
+        np.complex64)
+    hay = np.zeros(n, dtype=np.complex64)
+    hay[lag:] = needle[: n - lag]
+    hay *= np.exp(2j * np.pi * f_hz * np.arange(n) / FS).astype(np.complex64)
+    return needle, hay
+
+
+def config_inputs():
+    """Configs 2-4 of ``bench_configs.py`` (its recipes, copied): name ->
+    (needles, haystacks, freqs, num_lags or None, truths or None)."""
+    from caf_cookoff_tpu_torch import BENCH_GRID
+
+    # Config 2: 64 pairs x 4096, the 400-bin bench grid.
+    pairs = [rand_pair(4096, 50 + i, 10.0 * i - 300, i) for i in range(64)]
+    cfg = {"config2": (np.stack([p[0] for p in pairs]),
+                       np.stack([p[1] for p in pairs]),
+                       BENCH_GRID.frequencies(np.float32), None, None)}
+    # Config 3: one 4096 needle, 65536 lags, 2000 bins over +-500 Hz.
+    n, lags, k = 4096, 65536, 2000
+    needle, _ = rand_pair(n, 7, 0.0, 0)
+    rng = np.random.default_rng(1)
+    hay = (rng.standard_normal(lags + n)
+           + 1j * rng.standard_normal(lags + n)).astype(np.complex64)
+    freqs = np.linspace(-500, 500, k, endpoint=False).astype(np.float32)
+    true_f, true_lag = float(freqs[1234]), 30_000
+    hay[true_lag:true_lag + n] += 3 * (needle * np.exp(
+        2j * np.pi * true_f * np.arange(n) / FS)).astype(np.complex64)
+    cfg["config3"] = (needle[None], hay[None], freqs, lags,
+                      [(true_f, true_lag)])
+    # Config 4: 16 pairs x 4096, 32768 lags, 1024 bins over +-500 Hz.
+    pairs, n, lags, k = 16, 4096, 32768, 1024
+    rng = np.random.default_rng(2)
+    needles = (rng.standard_normal((pairs, n))
+               + 1j * rng.standard_normal((pairs, n))).astype(np.complex64)
+    hays = (1e-4 * (rng.standard_normal((pairs, lags + n))
+                    + 1j * rng.standard_normal((pairs, lags + n)))
+            ).astype(np.complex64)
+    freqs = np.linspace(-500, 500, k, endpoint=False).astype(np.float32)
+    t = np.arange(n)
+    truths = []
+    for b in range(pairs):
+        lag, f_hz = 777 + b * 2011, float(freqs[61 * (b + 1)])
+        hays[b, lag:lag + n] += (needles[b] * np.exp(
+            2j * np.pi * f_hz * t / FS)).astype(np.complex64)[: lags + n - lag]
+        truths.append((f_hz, lag))
+    cfg["config4"] = (needles, hays, freqs, lags, truths)
+    return cfg
+
+
+def config_operands(cfg):
+    """K1's operands as the config's engine builds them on the card:
+    (ops, b, sup, num_lags, modes, shape label)."""
+    import torch
+
+    from caf_cookoff_tpu_torch.config import xcor_length
+    from caf_cookoff_tpu_torch.models import batched_stein as bs
+    from caf_cookoff_tpu_torch.models.stein import _plan_bands
+    from caf_cookoff_tpu_torch.ops.xcor import pad_to
+
+    needles, hays, freqs, lags, _ = cfg
+    ns = torch.from_numpy(needles).to(DEVICE)
+    hs = torch.from_numpy(hays).to(DEVICE)
+    n = ns.shape[-1]
+    m = xcor_length(n)
+    if lags is None:
+        ft = torch.from_numpy(freqs).to(DEVICE)
+        d = bs._pow2_block_len(FS, freqs, 64)
+        ops, b, sup, modes = bs._batch_operands(pad_to(ns, n + (-n) % 128),
+                                                hs, ft, FS, m, d)
+        return ops, b, sup, m, modes, (f"K={len(freqs)} P={ns.shape[0]} "
+                                       f"M={m} D={d}")
+    plan = _plan_bands(FS, freqs)
+    windows = -(-lags // m)
+    ops, b, sup, modes = bs._os_operands(
+        ns, hs, torch.from_numpy(plan["centers"]).to(DEVICE),
+        torch.from_numpy(plan["rel"]).to(DEVICE), FS, m, plan["block_len"],
+        windows, lags)
+    p_eff = ns.shape[0] * plan["bands"] * windows
+    return ops, b, sup, m, modes, (
+        f"Kb={plan['kb']} P={ns.shape[0]} S={plan['bands']} W={windows} "
+        f"P_eff={p_eff} M={m} D={plan['block_len']}")
+
+
+def phase_kernel_modes(cfg3):
+    """K1 in modes (c), (d) and (c+d) at config 3's full shape."""
+    from caf_cookoff_tpu_torch.ops import fused_stein as fs
+
+    ops, b, sup, m, modes, shape = config_operands(cfg3)
+    ws1, ws2, lmat, h_ext = ops
+    s, w, nv = modes["share_h"], modes["windows"], modes["num_valid"]
+    print(f"[modes] config 3 operands: {shape}; window lag bounds "
+          f"{nv[:w].tolist()}")
+    fs.LAUNCHES = 0
+    compare(f"K1 (c) share_h={s}, config 3", (ws1, ws2, lmat, h_ext[:1]),
+            b, sup, m, share_h=s)
+    # (d) with the last window cut to half its lags, so the bound masks
+    # inside the kernel's per-bin max.
+    cut = nv[:w].clone()
+    cut[-1] //= 2
+    compare(f"K1 (d) windows={w} + num_valid {cut[-1].item()} in the last "
+            f"window, config 3", (ws1, ws2, lmat[:1], h_ext), b, sup, m,
+            windows=w, num_valid=cut)
+    err = compare(f"K1 (c+d) share_h={s} x windows={w}, config 3", ops, b,
+                  sup, m, **modes)
+    print(f"[modes] K1 launches in this phase: {fs.LAUNCHES}")
+    check(fs.LAUNCHES == 3, "K1 modes phase did not launch the kernel")
+    return err
+
+
+def run_config(name, cfg):
+    """One config through its public engine on the card, gated; returns
+    (launches, answers)."""
+    from caf_cookoff_tpu_torch import (batched_stein_os_peak,
+                                       batched_stein_peak, stein_caf_peak)
+    from caf_cookoff_tpu_torch.ops import fused_stein as fs
+
+    needles, hays, freqs, lags, truths = cfg
+    fs.LAUNCHES = 0
+    t0 = time.perf_counter()
+    if lags is None:
+        fr, lg, vv = batched_stein_peak(needles, hays, freqs, FS,
+                                        device=DEVICE)
+    else:
+        fr, lg, vv = batched_stein_os_peak(needles, hays, freqs, FS,
+                                           num_lags=lags, device=DEVICE)
+    seconds = time.perf_counter() - t0
+    launches = fs.LAUNCHES
+    got = [(float(f), int(l)) for f, l in zip(fr, lg)]
+    print(f"[configs] {name}: {len(got)} pairs in {seconds:.2f} s (first "
+          f"call), K1 launches {launches}; values finite and > 0: "
+          f"{bool(np.all(np.isfinite(vv)) and np.all(vv > 0))}")
+    check(launches > 0, f"{name} did not launch K1")
+    check(bool(np.all(np.isfinite(vv)) and np.all(vv > 0)),
+          f"{name} values")
+    if truths is None:
+        for i in range(0, len(got), 13):
+            want = stein_caf_peak(needles[i], hays[i], freqs, FS,
+                                  device=DEVICE)[:2]
+            print(f"[configs] {name} pair {i}: batch {got[i]}, "
+                  f"stein_caf_peak {want}")
+            check(got[i] == want, f"{name} pair {i} off its single-pair "
+                                  f"answer")
+    else:
+        misses = [(i, g, t) for i, (g, t) in enumerate(zip(got, truths))
+                  if g != t]
+        print(f"[configs] {name}: {len(truths) - len(misses)}/"
+              f"{len(truths)} injected (freq, lag) recovered; first "
+              f"{got[0]} (want {truths[0]})")
+        check(not misses, f"{name} missed emitters {misses}")
+    return launches
+
+
 def cuda_median_ms(fn, runs: int, warmup: int = 10) -> float:
     """Median of ``runs`` calls of ``fn``, each between two CUDA events;
     a call that waits on the host (``caf_peak`` reads its answer) counts
@@ -417,18 +589,29 @@ def cuda_median_ms(fn, runs: int, warmup: int = 10) -> float:
     return statistics.median(times)
 
 
-def stein_bound_ms(ops, m):
-    """K1: stage A 2*(2B)*(2D)*span and stage B 2*2*K*2B*m_pad FLOP on
-    bf16-exact operands at the bf16 tensor-core peak, against its
-    operands read and (K, P) outputs written once at the HBM rate."""
-    ws1, _, lmat, h_ext = ops
-    p, b2, d2 = lmat.shape
+def stein_bound_ms(ops, m, modes=None):
+    """K1: per lag each program needs stage A's G column, 2*(2B)*(2D)
+    FLOP, and stage B's two syntheses, 2*2*K*2B FLOP, on bf16-exact
+    operands at the bf16 tensor-core peak, over the lags it must rank
+    (``m``, or ``num_valid`` when smaller); against its operands read and
+    (K, P_eff) outputs written once at the HBM rate.  Returns (ms, what
+    bounds it, GFLOP)."""
+    import torch
+
+    ws1, _, lmat, _ = ops
+    modes = modes or {}
+    _, b2, d2 = lmat.shape
+    p = lmat.shape[0] * modes.get("windows", 1)
     k = ws1.shape[0]
-    span = h_ext.shape[-1] - 127
-    m_pad = -(-m // 128) * 128
-    flops = p * (2.0 * b2 * d2 * span + 2.0 * 2 * k * b2 * m_pad)
-    nbytes = sum(t.numel() * 4 for t in ops) + k * p * 8
-    return max(flops / BF16_FLOPS, nbytes / HBM_BYTES) * 1e3, "operations"
+    nv = modes.get("num_valid")
+    lags = (p * m if nv is None
+            else int(torch.clamp(nv, max=m).sum().item()))
+    flops = lags * (2.0 * b2 * d2 + 2.0 * 2 * k * b2)
+    nbytes = (sum(t.numel() * 4 for t in ops) + k * p * 8
+              + (0 if nv is None else nv.numel() * 4))
+    t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops / 1e9)
 
 
 def filterbank_bound_ms(k, n, m, surface: bool):
@@ -524,6 +707,46 @@ def phase_times(head, fb_head, inputs, card):
     return t
 
 
+def phase_config_times(cfgs, launches, card):
+    """Per config: K1 held against its plain version at the shape its
+    engine gives it (as in ``compare``), their times, K1's bound, and
+    whole engine calls (host included)."""
+    from caf_cookoff_tpu_torch import batched_stein_os_peak, batched_stein_peak
+    from caf_cookoff_tpu_torch.ops import fused_stein as fs
+
+    rows = {}
+    for name, cfg in cfgs.items():
+        needles, hays, freqs, lags, _ = cfg
+        ops, b, sup, m, modes, shape = config_operands(cfg)
+        err = compare(f"K1 at {name}'s shape ({shape})", ops, b, sup, m,
+                      **modes)
+        bound, by, gflop = stein_bound_ms(ops, m, modes)
+        k1 = cuda_median_ms(lambda: fs.fused_stein_rank(
+            *ops, b, sup, m, want_idxs=lags is not None, **modes), 10, 3)
+        plain = cuda_median_ms(lambda: fs.coarse_rank_plain(
+            *ops, b, sup, m, emulate_bf16=True, **modes), 3, 1)
+        if lags is None:
+            call = cuda_median_ms(lambda: batched_stein_peak(
+                needles, hays, freqs, FS, device=DEVICE), 5, 2)
+        else:
+            call = cuda_median_ms(lambda: batched_stein_os_peak(
+                needles, hays, freqs, FS, num_lags=lags, device=DEVICE), 5, 1)
+        rows[name] = {"shape": shape, "launches": launches[name],
+                      "max_abs_err": err, "ms": k1, "plain_ms": plain, "bound_ms": bound,
+                      "bound_by": by, "gflop": gflop, "call_ms": call,
+                      "pairs": needles.shape[0]}
+        for what, ms in ((f"K1 fused_stein_rank wrapper, {name}: {shape}",
+                          k1),
+                         (f"K1 coarse_rank_plain (same roundings), {name}",
+                          plain),
+                         (f"K1 bound ({by}, {gflop:.1f} GFLOP), {name}",
+                          bound),
+                         (f"{name} whole engine call ({needles.shape[0]} "
+                          f"pairs, host included)", call)):
+            print(f"[times] {what}: {ms:.4f} ms  [{card}]")
+    return rows
+
+
 def main() -> int:
     import_port()
     name, card = phase_device()
@@ -536,11 +759,16 @@ def main() -> int:
     inputs = golden_inputs(pairs)
     launches1, fb = phase_main_stein(inputs)
     launches2, launches3 = phase_main_pallas(inputs, fb)
+    cfgs = config_inputs()
+    err_modes = phase_kernel_modes(cfgs["config3"])
+    config_launches = {name: run_config(name, cfg)
+                       for name, cfg in cfgs.items()}
     t = phase_times(head, fb_head, inputs, card)
+    configs = phase_config_times(cfgs, config_launches, card)
     import torch
 
     k, n = fb_head[2].shape[0], len(inputs[0][0])
-    bound1, by1 = stein_bound_ms(head[0], head[3])
+    bound1, by1, _ = stein_bound_ms(head[0], head[3])
     bound2, by2 = filterbank_bound_ms(k, n, fb_head[3], surface=False)
     bound3, by3 = filterbank_bound_ms(k, n, fb_head[3], surface=True)
     src = "caf_cookoff_tpu_torch/csrc/"
@@ -548,10 +776,17 @@ def main() -> int:
         "name": "fused_stein_rank", "route": "cuda",
         "source": src + "fused_stein.cu",
         "replaces": "caf_cookoff_tpu/ops/pallas_stein.py:71",
-        "launches": launches1, "max_abs_err": err1,
+        "launches": launches1 + sum(config_launches.values()),
+        "max_abs_err": err1,
         "ms": t["k1"], "plain_ms": t["k1_plain"],
         "bound_ms": bound1, "bound_by": by1, "library_ms": None,
         "stage_b_bf16_matmul_ms": t["k1_matmul"],
+        "modes": "(a) one pair, (b) pairs, (c) share_h, (d) windows + "
+                 "num_valid, (c+d)",
+        "launches_by_path": {"stein goldens": launches1,
+                             **config_launches},
+        "max_abs_err_modes_config3": err_modes,
+        "configs": configs,
     }, {
         "name": "caf_peak_rows", "route": "cuda",
         "source": src + "caf_filterbank.cu",

@@ -1,7 +1,9 @@
 """The port's CLI verbs and bench harness against the JAX package's, on
 the CPU (``--device cpu``: the port runs on the card unless asked)."""
 
+import json
 import pathlib
+import re
 
 import pytest
 import torch
@@ -95,3 +97,74 @@ def test_selftest_exits_1_on_a_wrong_answer(fixture_pairs, capsys,
     assert rc == 1
     assert "0/10 golden fixtures exact" in out
     assert out.count("FAIL") == 10
+
+
+def _value(out, prefix="Peak value:"):
+    return float(_lines(out, prefix)[0].split()[-1])
+
+
+@pytest.mark.parametrize("backend,engine", [
+    ("auto", "Engine: stein-os (segmented long-capture)"),
+    ("xla", "Engine: overlap-save scan")])
+def test_run_full_haystack_matches_jax_cli(fixture_pairs, capsys, backend,
+                                           engine):
+    """``run --full-haystack`` searches the whole capture file: the same
+    result lines and engine line as the JAX CLI, the value within rtol
+    1e-4 and, for the scan, the peak-to-floor SNR within 0.05 dB."""
+    needle, haystack = map(str, fixture_pairs[0])
+    argv = ["run", needle, haystack, "--full-haystack", "--freq-step",
+            "0.25", "--backend", backend]
+    assert jcli.main(argv) == 0
+    want = capsys.readouterr().out
+    assert tcli.main(argv + ["--device", "cpu"]) == 0
+    got = capsys.readouterr().out
+    for prefix in ("Frequency offset:", "Time offset:", "Engine:"):
+        assert _lines(got, prefix) == _lines(want, prefix)
+    assert _lines(got, "Engine:") == [engine]
+    assert _lines(got, "Time offset:") == [
+        "Time offset: 202 samples (4.2083 ms)"]
+    assert _value(got) == pytest.approx(_value(want), rel=1e-4)
+    snr = [re.search(r"peak/floor ([-\d.]+) dB", out) for out in (got, want)]
+    if backend == "xla":
+        assert float(snr[0].group(1)) == pytest.approx(
+            float(snr[1].group(1)), abs=0.05)
+    else:
+        assert snr[0] is None
+
+
+@pytest.mark.parametrize("full", [False, True])
+def test_batch_matches_jax_cli(fixture_pairs, capsys, full):
+    """``batch`` over two pairs (equal-length, or whole captures with
+    ``--full-haystack``): the JAX CLI's records, values within rtol
+    1e-4; the text lines agree up to the value."""
+    specs = [f"{n}:{h}" for n, h in (fixture_pairs[0], fixture_pairs[3])]
+    argv = ["batch", *specs, "--freq-step", "0.25"] + (
+        ["--full-haystack"] if full else [])
+    assert jcli.main(argv + ["--json"]) == 0
+    want = json.loads(capsys.readouterr().out)
+    assert tcli.main(argv + ["--json", "--device", "cpu"]) == 0
+    got = json.loads(capsys.readouterr().out)
+    assert [(r["freq_hz"], r["lag_samples"]) for r in got] == \
+        [(r["freq_hz"], r["lag_samples"]) for r in want] == \
+        [(69.25, 202), (-76.25, 151)]
+    for g, w in zip(got, want):
+        assert g["peak_value"] == pytest.approx(w["peak_value"], rel=1e-4)
+    assert jcli.main(argv) == 0
+    want_txt = capsys.readouterr().out.splitlines()
+    assert tcli.main(argv + ["--device", "cpu"]) == 0
+    got_txt = capsys.readouterr().out.splitlines()
+    assert [ln.split("  peak")[0] for ln in got_txt] == \
+        [ln.split("  peak")[0] for ln in want_txt]
+
+
+def test_unported_options_name_the_roadmap_item(fixture_pairs, capsys):
+    needle, haystack = map(str, fixture_pairs[0])
+    for argv, item in (
+            (["run", needle, haystack, "--num-peaks", "2"], "item 9"),
+            (["run", needle, haystack, "--full-haystack",
+              "--rate-grid=-300:300:150"], "item 12"),
+            (["batch", f"{needle}:{haystack}", "--num-peaks", "3"],
+             "item 9")):
+        assert tcli.main(argv + ["--device", "cpu"]) == 2
+        err = capsys.readouterr().err
+        assert "not ported yet" in err and item in err

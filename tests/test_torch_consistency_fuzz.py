@@ -2,8 +2,8 @@
 
 The workloads of tests/test_consistency_fuzz.py — random needle lengths,
 on-grid dopplers, lags incl. edges — through the port's exact engines
-(filterbank and Stein, fused and unfused) and the JAX package's Stein
-engine: identical (freq, lag), and the planted emitter.
+(filterbank and Stein, fused, unfused and banded) and the JAX package's
+Stein engine: identical (freq, lag), and the planted emitter.
 """
 
 import numpy as np
@@ -67,11 +67,17 @@ def test_port_engines_agree_with_jax_randomized(seed, n, lag, f_idx, g0, gs,
 @pytest.mark.parametrize("seed,n,lag,f_idx,g0,gs,gk", BANDED_CASES)
 def test_wide_spans_raise_until_banded_stein_lands(seed, n, lag, f_idx, g0,
                                                    gs, gk):
-    """Where the JAX package bands the span, the port raises SpanError
-    (a legal reroute) and its filterbank still answers exactly."""
+    """The banded Stein path has landed: where the JAX package bands the
+    span, the port bands it too and answers the planted emitter as JAX
+    does (values within rtol 1e-4); pinning the single-band engine
+    (``fused=False``) still raises SpanError, and the filterbank still
+    answers exactly."""
     needle, hay, freqs, want = _workload(seed, n, lag, f_idx, g0, gs, gk)
-    with pytest.raises(SpanError, match="not ported yet"):
-        stein_caf_peak(needle, hay, freqs, FS, device="cpu")
+    got = stein_caf_peak(needle, hay, freqs, FS, device="cpu")
+    jax_got = jax_stein_peak(needle, hay, freqs, FS)
+    assert got[:2] == jax_got[:2] == want
+    assert got[2] == pytest.approx(jax_got[2], rel=1e-4)
+    with pytest.raises(SpanError):
+        stein_caf_peak(needle, hay, freqs, FS, fused=False, device="cpu")
     assert caf_peak(needle, hay, freqs, FS, backend="xla",
                     device="cpu")[:2] == want
-    assert jax_stein_peak(needle, hay, freqs, FS)[:2] == want

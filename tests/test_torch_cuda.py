@@ -255,3 +255,186 @@ def test_run_benchmarks_on_card(card):
         assert row["golden"] == "exact"
         assert row["ms"] > 0
         assert row["device"] == torch.cuda.get_device_name(0)
+
+
+def _modes_operands(rng, p, s, w, n, d, k, v):
+    """Random operands of the kernel's composed modes on the card: lmat
+    per (pair, band), h_ext per (pair, window), a per-program lag bound
+    that cuts the last window short."""
+    from caf_cookoff_tpu_torch.models.batched_stein import (
+        _os_window_extensions)
+
+    def plane(shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).cuda()
+
+    b = n // d
+    lmat, sup = _needle_operator(plane((p * s, n)), plane((p * s, n)), d)
+    total = w * v - 300
+    h = plane((p, total + n)), plane((p, total + n))
+    h_ext = _os_window_extensions(*h, v, w, fs.fused_span(b, sup, v))
+    ws1, ws2 = fs.stein_synthesis_weights(
+        torch.linspace(-100.0, 100.0, k, device="cuda"), FS, b, d)
+    per_w = np.clip(total - np.arange(w) * v, 0, v)
+    num_valid = torch.as_tensor(np.tile(per_w, p * s), dtype=torch.int32,
+                                device="cuda")
+    return (ws1, ws2, lmat, h_ext), b, sup, num_valid
+
+
+@pytest.mark.parametrize("s,w", [(3, 1), (1, 3), (3, 2)])
+def test_kernel_modes_match_plain_on_card(card, s, w):
+    """K1 in modes (c) share_h, (d) windows + num_valid and (c+d) against
+    its plain version with the same bf16 roundings and index maps:
+    values within RTOL, the plain value at the kernel's lag within RTOL
+    of the bin maximum, lags the plain argmax in all but near-tied
+    bins."""
+    p, n, d, k, v = 2, 512, 64, 40, 1024
+    ops, b, sup, nv = _modes_operands(np.random.default_rng(s * 10 + w), p,
+                                      s, w, n, d, k, v)
+    modes = dict(windows=w, share_h=s,
+                 num_valid=nv if w > 1 else None)
+    before = fs.LAUNCHES
+    kv, ki = fs.fused_stein_rank(*ops, b, sup, v, **modes)
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES == before + 1
+    assert kv.shape == ki.shape == (k, p * s * w)
+    surf = fs.coarse_surface_plain(*ops, b, sup, v, emulate_bf16=True,
+                                   **modes)
+    pv, pi = surf.max(-1)
+    pv, pi = pv.T, pi.T.to(torch.int32)
+    torch.testing.assert_close(kv, pv, rtol=RTOL, atol=0)
+    at = torch.gather(surf, 2, ki.T.long()[..., None])[..., 0].T
+    assert bool((at >= (1 - RTOL) * pv).all())
+    assert (ki == pi).float().mean().item() >= LAG_SHARE
+    if w > 1:
+        bound = nv.view(-1)[None, :].expand(k, -1)
+        assert bool((ki < bound).all())
+
+
+def test_kernel_composed_planted_lags_on_card(card):
+    """(c+d) on planted structure (one impulse needle per (pair, band),
+    two spikes per (pair, window), the stronger one past the short last
+    window's bound): every program's lag is isolated, so kernel and
+    plain version agree on every lag exactly."""
+    from caf_cookoff_tpu_torch.models.batched_stein import (
+        _os_window_extensions)
+
+    p, s, w, n, d, k, v = 2, 3, 2, 512, 64, 16, 1024
+    total = w * v - 300
+    needles = np.zeros((p * s, n), np.complex64)
+    for j in range(p * s):
+        needles[j, 7 * j] = 1.0
+    hays = np.zeros((p, total + n), np.complex64)
+    for pair in range(p):
+        for win in range(w):
+            hays[pair, win * v + 101 + 13 * pair + 29 * win] = 2.0
+            hays[pair, win * v + 903 + 17 * pair] = 3.0 if win else 1.0
+    nt, ht = torch.from_numpy(needles).cuda(), torch.from_numpy(hays).cuda()
+    b = n // d
+    lmat, sup = _needle_operator(nt.real, nt.imag, d)
+    h_ext = _os_window_extensions(ht.real, ht.imag, v, w,
+                                  fs.fused_span(b, sup, v))
+    ws1, ws2 = fs.stein_synthesis_weights(
+        torch.linspace(-100.0, 100.0, k, device="cuda"), FS, b, d)
+    nv = torch.as_tensor(np.tile(np.clip(total - np.arange(w) * v, 0, v),
+                                 p * s), dtype=torch.int32, device="cuda")
+    modes = dict(windows=w, share_h=s, num_valid=nv)
+    kv, ki = fs.fused_stein_rank(ws1, ws2, lmat, h_ext, b, sup, v, **modes)
+    pv, pi = fs.coarse_rank_plain(ws1, ws2, lmat, h_ext, b, sup, v,
+                                  emulate_bf16=True, **modes)
+    torch.testing.assert_close(ki, pi, rtol=0, atol=0)
+    torch.testing.assert_close(kv, pv, rtol=RTOL, atol=0)
+
+
+def test_kernel_zero_window_on_card(card):
+    """A program whose lag bound is 0 reads -1.0 at every lag: value
+    -1.0 at lag 0 in every bin, as in the TPU kernel."""
+    ops, b, sup, _ = _modes_operands(np.random.default_rng(5), 1, 1, 3,
+                                     256, 32, 9, 512)
+    nv = torch.tensor([512, 0, 100], dtype=torch.int32, device="cuda")
+    kv, ki = fs.fused_stein_rank(*ops, b, sup, 512, windows=3,
+                                 num_valid=nv)
+    assert kv[:, 1].tolist() == [-1.0] * 9
+    assert ki[:, 1].tolist() == [0] * 9
+    assert bool((kv[:, [0, 2]] > 0).all()) and int(ki[:, 2].max()) < 100
+
+
+def test_kernel_programs_past_one_launch_on_card(card):
+    """70000 programs (share_h 35000 x windows 2) run in two launches of
+    grid z; programs on both sides of the 65535 cut match the plain
+    version fed each program's own operands."""
+    rng = np.random.default_rng(9)
+    n, d, k, v, s, w = 128, 32, 9, 256, 35_000, 2
+    b = n // d
+
+    def plane(shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).cuda()
+
+    lmat, sup = _needle_operator(plane((s, n)), plane((s, n)), d)
+    h_ext = _haystack_extension(plane((w, n)), plane((w, n)), v,
+                                fs.fused_span(b, sup, v))
+    ws1, ws2 = fs.stein_synthesis_weights(
+        torch.linspace(-50.0, 50.0, k, device="cuda"), FS, b, d)
+    kv, ki = fs.fused_stein_rank(ws1, ws2, lmat, h_ext, b, sup, v,
+                                 windows=w, share_h=s)
+    assert kv.shape == (k, s * w)
+    progs = [0, 1, 65_533, 65_534, 65_535, 65_536, 69_999]
+    for i in progs:
+        pv, _ = fs.coarse_rank_plain(ws1, ws2, lmat[i // w][None],
+                                     h_ext[i % w][None], b, sup, v,
+                                     emulate_bf16=True)
+        torch.testing.assert_close(kv[:, i:i + 1], pv, rtol=RTOL, atol=0)
+
+
+@pytest.mark.parametrize("idx,grid,want_freq,want_lag", GOLDEN)
+def test_batched_engines_goldens_on_card(card, idx, grid, want_freq,
+                                         want_lag):
+    """Each golden through ``batched_stein_peak`` (truncated pair) and
+    ``batched_stein_os_peak`` (the whole capture file), each one K1
+    launch: the golden (freq, lag)."""
+    from caf_cookoff_tpu_torch import (batched_stein_os_peak,
+                                       batched_stein_peak)
+
+    needle_path, hay_path = ensure_fixtures(DATA)[idx]
+    needle = load_c64(needle_path)
+    full = load_c64(hay_path)
+    freqs = FreqGrid(*grid).frequencies(np.float32)
+    for fn, hay in ((batched_stein_peak, full[:len(needle)]),
+                    (batched_stein_os_peak, full)):
+        before = fs.LAUNCHES
+        fr, lg, val = fn(needle[None], hay[None], freqs, FS, device="cuda")
+        assert fs.LAUNCHES == before + 1
+        assert float(fr[0]) == pytest.approx(want_freq, abs=1e-4)
+        assert int(lg[0]) == want_lag and float(val[0]) > 0
+
+
+def test_batched_engines_match_single_pair_on_card(card):
+    """Five goldens as one batch on one grid: the batch answers equal
+    ``stein_caf_peak`` pair by pair, and the windowed engine's banded
+    route (a +-2000 Hz grid) recovers an emitter in an outer band."""
+    from caf_cookoff_tpu_torch import (batched_stein_os_peak,
+                                       batched_stein_peak, stein_caf_peak)
+
+    grid = np.arange(-100.0, 100.0, 0.5, dtype=np.float32)
+    pairs = [ensure_fixtures(DATA)[i] for i in (0, 2, 4, 6, 9)]
+    needles = np.stack([load_c64(p[0]) for p in pairs])
+    hays = np.stack([load_c64(p[1], count=needles.shape[1]) for p in pairs])
+    fr, lg, _ = batched_stein_peak(needles, hays, grid, FS, device="cuda")
+    for i in range(len(pairs)):
+        want = stein_caf_peak(needles[i], hays[i], grid, FS, device="cuda")
+        assert (float(fr[i]), int(lg[i])) == want[:2]
+    rng = np.random.default_rng(33)
+    n, total, lag, f_true = 1024, 10240, 6100, -1650.0
+    needle = (rng.standard_normal(n)
+              + 1j * rng.standard_normal(n)).astype(np.complex64)
+    hay = (1e-3 * (rng.standard_normal(total)
+                   + 1j * rng.standard_normal(total))).astype(np.complex64)
+    hay[lag:lag + n] += needle * np.exp(
+        2j * np.pi * f_true * np.arange(n) / FS).astype(np.complex64)
+    wide = np.arange(-2000.0, 2000.0, 50.0, dtype=np.float32)
+    before = fs.LAUNCHES
+    fr, lg, _ = batched_stein_os_peak(needle[None], hay[None], wide, FS,
+                                      device="cuda")
+    assert fs.LAUNCHES == before + 1
+    assert (float(fr[0]), int(lg[0])) == (f_true, lag)

@@ -180,6 +180,10 @@ def test_wrapper_cpu_route_counts_no_launch():
         tfs.fused_stein_rank(*ops, b, sup, 1024, want_top2=True, sep=4)
     with pytest.raises(ValueError, match="h_ext"):
         tfs.fused_stein_rank(*ops[:3], ops[3][..., :-1], b, sup, 1024)
+    with pytest.raises(ValueError, match="windows"):
+        tfs.fused_stein_rank(*ops, b, sup, 1024, windows=2)
+    with pytest.raises(ValueError, match="num_valid"):
+        tfs.fused_stein_rank(*ops, b, sup, 1024, num_valid=[5, 5])
 
 
 def test_import_needs_no_toolchain():
@@ -195,3 +199,108 @@ def test_import_needs_no_toolchain():
                          text=True, check=True,
                          cwd=pathlib.Path(__file__).resolve().parents[1])
     assert out.stdout.strip() == "[]"
+
+
+def _modes_operands(p, s, w, n, d, k, v, planted):
+    """JAX-built operands of K1's composed modes: lmat per (pair, band),
+    h_ext per (pair, window) (linear window slices), and the per-window
+    lag bound of a capture whose last window ends 300 lags short.
+    ``planted``: impulse needles and isolated spikes (bf16-proof lags,
+    the stronger spike past the short window's bound); else noise."""
+    total = w * v - 300
+    if planted:
+        needles = np.zeros((p * s, n), np.complex64)
+        for j in range(p * s):
+            needles[j, 7 * j] = 1.0
+        hays = np.zeros((p, total + n), np.complex64)
+        for pair in range(p):
+            for win in range(w):
+                hays[pair, win * v + 101 + 13 * pair + 29 * win] = 2.0
+                hays[pair, win * v + 903 + 17 * pair] = 3.0 if win else 1.0
+    else:
+        rng = np.random.default_rng(p * 100 + s * 10 + w)
+        needles, hays = _pairs(rng, p * s, n, hay_len=total + n)
+        hays = hays[:p]
+    ns_re, ns_im = map(jnp.asarray, split_array(needles))
+    hs_re, hs_im = map(jnp.asarray, split_array(hays))
+    b = n // d
+    lmat, sup = jbs._needle_operator(ns_re, ns_im, d)
+    h_ext = jbs._os_window_extensions(hs_re, hs_im, v, w,
+                                      jps.fused_span(b, sup, v))
+    ws1, ws2 = jps.stein_synthesis_weights(
+        jnp.asarray(np.linspace(-100, 100, k).astype(np.float32)), FS, b, d)
+    per_w = np.clip(total - np.arange(w) * v, 0, v)
+    num_valid = np.tile(per_w, p * s).astype(np.int32) if w > 1 else None
+    return (ws1, ws2, lmat, h_ext), b, sup, num_valid
+
+
+MODES = [(3, 1), (1, 3), (3, 2)]   # (share_h, windows): (c), (d), (c+d)
+
+
+@pytest.mark.parametrize("s,w", MODES)
+def test_plain_modes_bf16_match_pallas_kernel(s, w):
+    """The plain version in modes (c), (d) and (c+d), with the kernel's
+    bf16 roundings and index maps, against JAX's Pallas kernel in
+    interpret mode: planted structure (emitters in different bands and
+    windows), identical lags, values within the JAX package's 2e-2."""
+    p, n, d, k, v = 2, 512, 64, 16, 1024
+    ops, b, sup, nv = _modes_operands(p, s, w, n, d, k, v, planted=True)
+    kv, ki = jps.fused_stein_rank(*ops, b, sup, v, interpret=True,
+                                  windows=w, share_h=s,
+                                  num_valid=None if nv is None
+                                  else jnp.asarray(nv))
+    tops = stein_operands_from_numpy(*ops, device="cpu")
+    pv, pi = tfs.fused_stein_rank(*tops, b, sup, v, windows=w, share_h=s,
+                                  num_valid=nv)
+    assert pv.shape == (k, p * s * w)
+    np.testing.assert_array_equal(pi.numpy(), np.asarray(ki))
+    np.testing.assert_allclose(pv.numpy(), np.asarray(kv), rtol=2e-2)
+
+
+@pytest.mark.parametrize("s,w", MODES)
+def test_plain_modes_f32_match_xla_twin(s, w):
+    """The f32 plain version with the index maps against JAX's
+    ``_coarse_rank_xla`` fed the operands repeated per program, as the
+    JAX package's CPU route feeds it: identical lags, values to 1e-4."""
+    p, n, d, k, v = 2, 512, 64, 24, 1024
+    ops, b, sup, nv = _modes_operands(p, s, w, n, d, k, v, planted=False)
+    ws1, ws2, lmat, h_ext = ops
+    lmat_rep = jnp.repeat(lmat, w, axis=0)
+    ln = h_ext.shape[-1]
+    h_rep = jnp.broadcast_to(h_ext.reshape(p, 1, w, 2, ln),
+                             (p, s, w, 2, ln)).reshape(p * s * w, 2, ln)
+    xv, xi = jbs._coarse_rank_xla(ws1, ws2, lmat_rep, h_rep, b, sup, v,
+                                  num_valid=None if nv is None
+                                  else jnp.asarray(nv))
+    tops = stein_operands_from_numpy(*ops, device="cpu")
+    pv, pi = tfs.coarse_rank_plain(*tops, b, sup, v, windows=w, share_h=s,
+                                   num_valid=nv)
+    np.testing.assert_array_equal(pi.numpy(), np.asarray(xi))
+    np.testing.assert_allclose(pv.numpy(), np.asarray(xv), rtol=1e-4)
+
+
+def test_program_maps_match_kernel_index_maps():
+    """``program_maps`` is the Pallas kernel's BlockSpec index maps."""
+    s, w = 3, 4
+    i = torch.arange(2 * s * w)
+    li, hi = tfs.program_maps(i, w, s)
+    assert li.tolist() == [j // w for j in range(2 * s * w)]
+    assert hi.tolist() == [(j // (s * w)) * w + j % w
+                           for j in range(2 * s * w)]
+
+
+def test_zero_lag_bound_reads_minus_one_at_lag_zero():
+    """A program whose ``num_valid`` is 0 returns -1.0 at lag 0 in every
+    bin, as JAX's kernel in interpret mode does; a bound of 100 keeps
+    every lag below it."""
+    p, s, w, n, d, k, v = 1, 1, 3, 256, 32, 9, 512
+    ops, b, sup, _ = _modes_operands(p, s, w, n, d, k, v, planted=False)
+    nv = np.array([512, 0, 100], np.int32)
+    kv, ki = jps.fused_stein_rank(*ops, b, sup, v, interpret=True,
+                                  windows=w, num_valid=jnp.asarray(nv))
+    tops = stein_operands_from_numpy(*ops, device="cpu")
+    pv, pi = tfs.fused_stein_rank(*tops, b, sup, v, windows=w, num_valid=nv)
+    assert pv[:, 1].tolist() == [-1.0] * k and pi[:, 1].tolist() == [0] * k
+    assert int(pi[:, 2].max()) < 100
+    np.testing.assert_array_equal(pi.numpy(), np.asarray(ki))
+    np.testing.assert_allclose(pv.numpy(), np.asarray(kv), rtol=2e-2)

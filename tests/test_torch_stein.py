@@ -134,8 +134,12 @@ def test_errors_where_jax_raises():
         tstein._auto_block_len(FS, wide, 64)
     y = (rng.standard_normal(4096)
          + 1j * rng.standard_normal(4096)).astype(np.complex64)
-    with pytest.raises(SpanError, match="banded Stein"):
-        tstein.stein_caf_peak(y, y, wide, FS, device="cpu")
+    # A wide uniform grid is banded, as in JAX; pinning the single-band
+    # engine (fused=False) raises SpanError in both packages.
+    assert tstein.stein_caf_peak(y, y, wide, FS, device="cpu")[:2] == \
+        jstein.stein_caf_peak(y, y, wide, FS)[:2]
+    with pytest.raises(SpanError):
+        tstein.stein_caf_peak(y, y, wide, FS, fused=False, device="cpu")
     with pytest.raises(ValueError):
         tstein.stein_caf_peak(y, y[:100], freqs, FS, device="cpu")
     # fused=False on the ineligible shape is the unfused engine.
@@ -156,3 +160,181 @@ def test_cli_run_prints_jax_result_lines(fixture_pairs, capsys, tmp_path):
     assert tcli.main(["generate", "--out", str(tmp_path), "--count", "2"]) \
         == 0
     assert len(list(tmp_path.glob("chirp_*_T*samp_F*Hz.c64"))) == 2
+
+
+def _cplx(rng, n, scale=1.0):
+    return (scale * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+            ).astype(np.complex64)
+
+
+def _same(got, want, rel=1e-4):
+    assert got[:2] == want[:2]
+    assert got[2] == pytest.approx(want[2], rel=rel)
+    return got[:2]
+
+
+def test_stein_overlap_save_golden(fixture_pairs):
+    """The untruncated capture through the long-capture engine (on the
+    CPU: the block-loop scan and the exact window re-score)."""
+    from caf_cookoff_tpu.utils.io import load_c64
+
+    needle = load_c64(fixture_pairs[0][0])
+    haystack = load_c64(fixture_pairs[0][1])
+    freqs = FreqGrid(-100.0, 100.0, 0.25).frequencies(np.float32)
+    assert _same(tstein.stein_overlap_save_peak(needle, haystack, freqs, FS,
+                                                device="cpu"),
+                 jstein.stein_overlap_save_peak(needle, haystack, freqs,
+                                                FS)) == (69.25, 202)
+
+
+@pytest.mark.parametrize("refine", [True, False])
+def test_stein_overlap_save_synthetic_long(refine):
+    """A 65536-sample capture; ``refine=False`` returns the scan's own
+    coarse answer (rtol 1e-3: the segment-phase envelope in f32)."""
+    rng = np.random.default_rng(5)
+    n, total, lag, f_true = 512, 65536, 51_200, -350.0
+    needle = _cplx(rng, n)
+    hay = _cplx(rng, total, 1e-4)
+    hay[lag:lag + n] += needle * np.exp(
+        2j * np.pi * f_true * np.arange(n) / FS).astype(np.complex64)
+    freqs = np.arange(-400.0, 400.0, 50.0, dtype=np.float32)
+    got = tstein.stein_overlap_save_peak(needle, hay, freqs, FS,
+                                         refine=refine, device="cpu")
+    want = jstein.stein_overlap_save_peak(needle, hay, freqs, FS,
+                                          refine=refine)
+    assert _same(got, want, rel=1e-4 if refine else 1e-3) == (f_true, lag)
+
+
+def test_stein_overlap_save_wide_span_runs_banded():
+    """A span the scan cannot take routes through the banded windowed
+    engine on the CPU too, as in JAX."""
+    rng = np.random.default_rng(33)
+    n, total, lag, f_true = 1024, 10240, 6100, -1650.0
+    needle = _cplx(rng, n)
+    hay = _cplx(rng, total, 1e-3)
+    hay[lag:lag + n] += needle * np.exp(
+        2j * np.pi * f_true * np.arange(n) / FS).astype(np.complex64)
+    freqs = np.arange(-2000.0, 2000.0, 50.0, dtype=np.float32)
+    assert _same(tstein.stein_overlap_save_peak(needle, hay, freqs, FS,
+                                                device="cpu"),
+                 jstein.stein_overlap_save_peak(needle, hay, freqs, FS)) \
+        == (f_true, lag)
+    with pytest.raises(SpanError):
+        tstein.stein_overlap_save_peak(needle, hay, freqs, FS, refine=False,
+                                       device="cpu")
+
+
+def test_stein_wide_span_guard():
+    """Past the envelope with a correlation length that is no multiple of
+    512, both packages raise with a pointer to the exact backends."""
+    x = _cplx(np.random.default_rng(6), 128)
+    freqs = np.arange(-2000.0, 2000.0, 250.0, dtype=np.float32)
+    with pytest.raises(JSpanError, match="segmented"):
+        jstein.stein_caf_peak(x, x, freqs, FS)
+    with pytest.raises(SpanError, match="segmented"):
+        tstein.stein_caf_peak(x, x, freqs, FS, device="cpu")
+
+
+@pytest.mark.parametrize("n,lag,step", [(500, 33, 100.0), (40, 7, 25.0)])
+def test_stein_short_and_non_divisible_needles(n, lag, step):
+    """A needle length no multiple of the block (500) and one shorter
+    than a block (40)."""
+    needle = _cplx(np.random.default_rng(9), n)
+    hay = np.zeros(n, np.complex64)
+    hay[lag:] = needle[:n - lag]
+    freqs = np.arange(-5 * step, 5 * step, step, dtype=np.float32)
+    assert _same(tstein.stein_caf_peak(needle, hay, freqs, FS, device="cpu"),
+                 jstein.stein_caf_peak(needle, hay, freqs, FS)) == (0.0, lag)
+
+
+@pytest.mark.parametrize("f_true,lag,g0,gs,gk", [
+    (4300.0, 512, -6000.0, 100.0, 120), (-9750.0, 64, -10000.0, 250.0, 80)])
+def test_banded_wide_span_matches_filterbank(f_true, lag, g0, gs, gk):
+    """Spans far past the single-segment envelope run the banded path
+    (K1 (c)'s plain version on the CPU) and match JAX and the exact
+    filterbank."""
+    n = 4096
+    needle = _cplx(np.random.default_rng(12), n)
+    hay = np.zeros(n, np.complex64)
+    hay[lag:] = (needle * np.exp(2j * np.pi * f_true * np.arange(n) / FS)
+                 ).astype(np.complex64)[:n - lag]
+    freqs = (g0 + gs * np.arange(gk)).astype(np.float32)
+    got = tstein.stein_caf_peak(needle, hay, freqs, FS, device="cpu")
+    assert _same(got, jstein.stein_caf_peak(needle, hay, freqs, FS)) == \
+        (f_true, lag)
+    assert tfb.caf_peak(needle, hay, freqs, FS, device="cpu")[:2] == \
+        (f_true, lag)
+
+
+def test_banded_emitters_in_different_bands():
+    """Two emitters in different bands: the global top-k ranks across
+    bands and the exact re-score picks the stronger."""
+    n = 4096
+    t = np.arange(n)
+    needle = _cplx(np.random.default_rng(13), n)
+    hay = np.zeros(n, np.complex64)
+    both = (needle * np.exp(2j * np.pi * 5200.0 * t / FS)
+            + 0.7 * needle * np.exp(2j * np.pi * -4400.0 * t / FS))
+    hay[100:] = both.astype(np.complex64)[:n - 100]
+    freqs = np.arange(-6000.0, 6000.0, 200.0, dtype=np.float32)
+    assert _same(tstein.stein_caf_peak(needle, hay, freqs, FS, device="cpu"),
+                 jstein.stein_caf_peak(needle, hay, freqs, FS)) == \
+        (5200.0, 100)
+
+
+def test_banded_rejected_for_nonuniform_or_explicit_fused():
+    needle = _cplx(np.random.default_rng(14), 1024)
+    nonuniform = np.array([-9000.0, -100.0, 50.0, 8000.0], np.float32)
+    with pytest.raises(SpanError):
+        tstein.stein_caf_peak(needle, needle, nonuniform, FS, device="cpu")
+    wide = np.arange(-9000.0, 9000.0, 500.0, dtype=np.float32)
+    with pytest.raises(SpanError):
+        tstein.stein_caf_peak(needle, needle, wide, FS, fused=False,
+                              device="cpu")
+
+
+def test_stein_os_refined_value_full_energy():
+    """The refined value is the JAX package's full-energy exact |R|^2."""
+    rng = np.random.default_rng(17)
+    n, total, lag, f_true = 2048, 16384, 9000, 250.0
+    needle = _cplx(rng, n)
+    hay = _cplx(rng, total, 0.01)
+    hay[lag:lag + n] += needle * np.exp(
+        2j * np.pi * f_true * np.arange(n) / FS).astype(np.complex64)
+    freqs = np.arange(-500.0, 500.0, 125.0, dtype=np.float32)
+    assert _same(tstein.stein_overlap_save_peak(needle, hay, freqs, FS,
+                                                device="cpu"),
+                 jstein.stein_overlap_save_peak(needle, hay, freqs, FS)) \
+        == (f_true, lag)
+
+
+@pytest.mark.parametrize("g,span", [(100.0, 6000.0), (15.0, 6000.0),
+                                    (0.5, 500.0), (2.0, 1500.0),
+                                    (250.0, 12000.0), (0.5, 10.0)])
+def test_plan_bands_matches_jax(g, span):
+    """Same band plan (block length, bands, arrays) as the JAX package,
+    and the cost-optimal pow2 it tests for."""
+    freqs = np.arange(-span, span, g, dtype=np.float32)
+    got, want = tstein._plan_bands(FS, freqs), jstein._plan_bands(FS, freqs)
+    assert got.keys() == want.keys()
+    for key in got:
+        np.testing.assert_array_equal(got[key], want[key])
+    if (g, span) == (100.0, 6000.0):
+        assert got["block_len"] == 16
+    assert tstein._plan_bands(FS, freqs[:1]) is None
+    assert tstein._plan_bands(FS, freqs[[0, 1, 3]]) is None
+
+
+def test_segment_spectra_conj_matches_jax():
+    import jax.numpy as jnp
+
+    from caf_cookoff_tpu.ops.splitfft import split_array
+
+    needle = _cplx(np.random.default_rng(3), 300)
+    got = tstein._segment_spectra_conj(torch.from_numpy(needle), 1024, 64)
+    nr, ni = map(jnp.asarray, split_array(needle))
+    wr, wi = jstein._segment_spectra_conj((nr, ni), 1024, 64, "xla")
+    np.testing.assert_allclose(got.real.numpy(), np.asarray(wr), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(got.imag.numpy(), np.asarray(wi), rtol=1e-4,
+                               atol=1e-4)
