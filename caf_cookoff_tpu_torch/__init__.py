@@ -15,9 +15,14 @@ the filterbank (``xla`` / ``matmul*``), the fused filterbank (``pallas``,
 banded for wide spans); the batch engines (``batched_caf_peak`` /
 ``batched_caf_surface``, ``batched_stein_peak``); the long-capture
 engines (``overlap_save_peak`` / ``overlap_save_surface``,
-``stein_overlap_save_peak``, ``batched_stein_os_peak``); and the CLI
-verbs ``generate``, ``run`` (with ``--full-haystack``), ``batch``,
-``bench``, ``selftest`` and ``info``.  ROADMAP.md lists what is still to
+``stein_overlap_save_peak``, ``batched_stein_os_peak``); the
+multi-emitter lattices and detection (``find_peaks``, ``merge_peaks``,
+``resolution_cell``, ``detection_threshold_db``,
+``apply_detection_threshold``, ``overlap_save_peaks``,
+``batched_overlap_save_peaks_local``, ``batched_stein_peaks``,
+``batched_stein_os_peaks``); and the CLI verbs ``generate``, ``run``
+(with ``--full-haystack`` and ``--num-peaks``), ``batch``, ``bench``,
+``selftest`` and ``info``.  ROADMAP.md lists what is still to
 be ported.
 """
 
@@ -33,7 +38,9 @@ from caf_cookoff_tpu_torch.models.batched import (batched_caf_peak,
                                                   batched_caf_surface)
 from caf_cookoff_tpu_torch.models.batched_stein import (
     batched_stein_os_peak,
+    batched_stein_os_peaks,
     batched_stein_peak,
+    batched_stein_peaks,
 )
 from caf_cookoff_tpu_torch.models.filterbank import (
     FilterbankCAF,
@@ -42,11 +49,22 @@ from caf_cookoff_tpu_torch.models.filterbank import (
     caf_surface,
     find_peak,
 )
-from caf_cookoff_tpu_torch.models.overlap_save import (overlap_save_peak,
-                                                       overlap_save_surface)
+from caf_cookoff_tpu_torch.models.overlap_save import (
+    batched_overlap_save_peaks_local,
+    overlap_save_peak,
+    overlap_save_peaks,
+    overlap_save_surface,
+)
 from caf_cookoff_tpu_torch.models.stein import (stein_caf_peak,
                                                 stein_caf_surface,
                                                 stein_overlap_save_peak)
+from caf_cookoff_tpu_torch.ops.peak import (
+    apply_detection_threshold,
+    detection_threshold_db,
+    find_peaks,
+    merge_peaks,
+    resolution_cell,
+)
 from caf_cookoff_tpu_torch.ops.shift import apply_fdoa, freq_shift, phasor_bank
 from caf_cookoff_tpu_torch.ops.xcor import xcor, xcor_pair
 
@@ -62,19 +80,28 @@ __all__ = [
     "SpanError",
     "VmemBudgetError",
     "amb_surf",
+    "apply_detection_threshold",
     "apply_fdoa",
     "batched_caf_peak",
     "batched_caf_surface",
+    "batched_overlap_save_peaks_local",
     "batched_stein_os_peak",
+    "batched_stein_os_peaks",
     "batched_stein_peak",
+    "batched_stein_peaks",
     "caf_peak",
     "caf_surface",
     "default_device",
+    "detection_threshold_db",
     "find_peak",
+    "find_peaks",
     "freq_shift",
+    "merge_peaks",
     "overlap_save_peak",
+    "overlap_save_peaks",
     "overlap_save_surface",
     "phasor_bank",
+    "resolution_cell",
     "stein_caf_peak",
     "stein_caf_surface",
     "stein_overlap_save_peak",

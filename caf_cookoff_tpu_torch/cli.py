@@ -4,7 +4,8 @@
   python -m caf_cookoff_tpu_torch generate --out DIR
   python -m caf_cookoff_tpu_torch run NEEDLE.c64 HAYSTACK.c64 [--backend stein]
   python -m caf_cookoff_tpu_torch run NEEDLE.c64 CAPTURE.c64 --full-haystack
-  python -m caf_cookoff_tpu_torch batch N1.c64:C1.c64 N2.c64:C2.c64 [--full-haystack]
+  python -m caf_cookoff_tpu_torch run NEEDLE.c64 CAPTURE.c64 [--full-haystack] --num-peaks 3
+  python -m caf_cookoff_tpu_torch batch N1.c64:C1.c64 N2.c64:C2.c64 [--full-haystack] [--num-peaks 3]
   python -m caf_cookoff_tpu_torch bench [--backends xla,pallas-refine,stein]
   python -m caf_cookoff_tpu_torch selftest [--backend pallas-refine]
   python -m caf_cookoff_tpu_torch info
@@ -13,9 +14,12 @@
 does, and prints the reference's two result lines; ``--full-haystack``
 searches the whole capture (the segmented long-capture engine, or the
 overlap-save scan where that engine is ineligible) and names the engine
-that answered.  ``batch`` runs many pairs through the batched Stein
-engines.  Every verb that computes runs on the CUDA card unless
-``--device cpu`` asks for the CPU; ``bench`` times the card only.
+that answered.  ``--num-peaks N`` also lists the N strongest emitters
+(non-maximum suppressed lattices, each slot held to a detection
+threshold, ``--min-snr-db``).  ``batch`` runs many pairs through the
+batched Stein engines (``--num-peaks``: a lattice per pair).  Every verb
+that computes runs on the CUDA card unless ``--device cpu`` asks for the
+CPU; ``bench`` times the card only.
 """
 
 from __future__ import annotations
@@ -65,13 +69,105 @@ def cmd_generate(args) -> int:
 
 def _not_ported(args) -> Optional[str]:
     """The options whose engines are not ported yet, as an error line."""
-    if getattr(args, "num_peaks", 1) > 1:
-        return ("--num-peaks > 1 (the multi-emitter lattices) is not "
-                "ported yet: ROADMAP Queue 1 item 9")
     if getattr(args, "rate_grid", None):
         return ("--rate-grid (the rate engines) is not ported yet: "
                 "ROADMAP Queue 1 item 12")
+    if getattr(args, "refine", False):
+        return ("--refine (the zoom re-score) is not ported yet: ROADMAP "
+                "Queue 1 item 11")
     return None
+
+
+def _parse_min_snr(value):
+    """``--min-snr-db``: 'auto' (the cell-count threshold), 'none'/'off'
+    (no masking) or a float dB value."""
+    if value is None:
+        return None
+    s = str(value).strip().lower()
+    if s in ("none", "off"):
+        return None
+    if s == "auto":
+        return "auto"
+    try:
+        return float(s)
+    except ValueError:
+        raise SystemExit(
+            f"error: --min-snr-db wants 'auto', 'none', or a float dB "
+            f"value, got {value!r}")
+
+
+def _print_lattice(rows, num_peaks: int, min_snr, min_snr_arg) -> None:
+    """The multi-peak listing: the "Detections: N of M" line when a
+    threshold is active, then one row a slot, with below-threshold /
+    no-further-peaks tags.  ``rows`` are ``(freq_hz, lag, value,
+    snr_db)``, value -inf for empty or masked slots."""
+    if min_snr is not None:
+        n_det = sum(1 for r in rows if np.isfinite(r[2]))
+        print(f"Detections: {n_det} of {num_peaks} lattice "
+              f"slots pass the SNR threshold "
+              f"(--min-snr-db {min_snr_arg})")
+    for i, (f_hz, lag_i, val, snr_db) in enumerate(rows):
+        if not np.isfinite(val):
+            tag = ("below detection threshold" if np.isfinite(snr_db)
+                   else "no further distinct peaks")
+            print(f"peak {i + 1}: ({tag})")
+            continue
+        print(f"peak {i + 1}: {f_hz:+9.3f} Hz "
+              f"@ lag {lag_i:>6d}  ({val:.5g}, {snr_db:.1f} dB)")
+
+
+def _run_lattice(needle, haystack, freqs, full: bool, args) -> None:
+    """``run --num-peaks``: over the whole capture the fused lattice
+    engine (the lattice scan when it raises an ``EngineError``), else
+    ``find_peaks`` on the truncated pair's circular surface, whose floor
+    is the surface mean; lags signed as the result lines'."""
+    from caf_cookoff_tpu_torch.config import xcor_length
+    from caf_cookoff_tpu_torch.models.batched_stein import (
+        batched_stein_os_peaks)
+    from caf_cookoff_tpu_torch.models.filterbank import caf_surface
+    from caf_cookoff_tpu_torch.models.overlap_save import overlap_save_peaks
+    from caf_cookoff_tpu_torch.ops.peak import (apply_detection_threshold,
+                                                find_peaks, resolution_cell,
+                                                unwrap_lag)
+
+    min_snr = _parse_min_snr(args.min_snr_db)
+    # Exclusion windows = the waveform's resolution cell.
+    excl = dict(zip(("exclude_freq", "exclude_lag"),
+                    resolution_cell(needle, freqs, args.fs)))
+    if full:
+        try:
+            # SNR against the engine's model floor; the scan measures its
+            # floor (same dB scale).
+            out = batched_stein_os_peaks(
+                needle[None], haystack[None], freqs, args.fs, args.num_peaks,
+                min_snr_db=min_snr, with_snr=True, device=args.device, **excl)
+            fr, lg, vv, snr = (x[0] for x in out)
+        except EngineError as exc:
+            print(f"note: lattice shape outside the fused engine's "
+                  f"envelope ({exc}); using the lattice scan",
+                  file=sys.stderr)
+            fr, lg, vv, snr = overlap_save_peaks(
+                needle, haystack, freqs, args.fs, args.num_peaks,
+                min_snr_db=min_snr, with_snr=True, device=args.device,
+                **excl)
+        rows = list(zip(fr.tolist(), lg.tolist(), vv.tolist(),
+                        snr.tolist()))
+    else:
+        n = len(needle)
+        surface = caf_surface(needle, haystack[:n], freqs, args.fs,
+                              backend=args.backend, device=args.device)
+        # Circular surface: the lag period keeps a wrap-around skirt
+        # from taking a slot.
+        pks = find_peaks(surface, args.num_peaks, lag_period=surface.shape[-1],
+                         **excl)
+        vals, snr, _ = apply_detection_threshold(
+            pks.value.cpu().numpy(), float(surface.double().mean()),
+            surface.numel(), min_snr)
+        rows = [(float(freqs[int(pks.freq_idx[i])]),
+                 unwrap_lag(int(pks.lag_idx[i]), xcor_length(n), n),
+                 float(vals[i]), float(snr[i]))
+                for i in range(args.num_peaks)]
+    _print_lattice(rows, args.num_peaks, min_snr, args.min_snr_db)
 
 
 def cmd_run(args) -> int:
@@ -86,7 +182,8 @@ def cmd_run(args) -> int:
     haystack = load_c64(args.haystack)
     freqs = _grid(args).frequencies(np.float32)
     engine, snr_db = None, None
-    if args.full_haystack and len(haystack) > len(needle):
+    full = args.full_haystack and len(haystack) > len(needle)
+    if full:
         freq, lag, value, engine, snr_db = _full_haystack_peak(
             needle, haystack, freqs, args)
     else:
@@ -100,6 +197,8 @@ def cmd_run(args) -> int:
     print(f"Peak value: {value:.6g}")
     if engine is not None:
         print(f"Engine: {engine}")
+    if args.num_peaks > 1:
+        _run_lattice(needle, haystack, freqs, full, args)
     return 0
 
 
@@ -162,6 +261,7 @@ def cmd_batch(args) -> int:
         return 2
     fs = args.fs
     freqs = _grid(args).frequencies(np.float32)
+    cap_lens = [len(c) for c in captures]     # before any padding
     longest = max(len(c) for c in captures)
     full = args.full_haystack and longest > n
     if full:
@@ -196,6 +296,12 @@ def cmd_batch(args) -> int:
                 "lag_ms": int(lg[i]) / fs * 1e3,
                 "peak_value": float(vv[i])}
                for i, (n_path, c_path) in enumerate(parsed)]
+    if args.num_peaks > 1:
+        lattices = _batch_lattices(np.stack(needles), np.stack(captures),
+                                   cap_lens, freqs, full, args)
+        for rec, lattice in zip(records, lattices):
+            rec["peaks"] = [{"freq_hz": f, "lag_samples": lag,
+                             "peak_value": v} for f, lag, v in lattice]
     if args.json:
         print(json.dumps(records, indent=2))
         return 0
@@ -203,7 +309,65 @@ def cmd_batch(args) -> int:
         print(f"{r['needle']} x {r['capture']}: "
               f"{r['freq_hz']:+9.3f} Hz @ lag {r['lag_samples']:>7d} "
               f"({r['lag_ms']:.4f} ms)  peak {r['peak_value']:.5g}")
+        for p, peak in enumerate(r.get("peaks", ())):
+            print(f"    peak {p + 1}: {peak['freq_hz']:+9.3f} Hz @ lag "
+                  f"{peak['lag_samples']:>7d}  ({peak['peak_value']:.5g})")
     return 0
+
+
+def _batch_lattices(needles, captures, cap_lens, freqs, full: bool, args):
+    """``batch --num-peaks``: per pair, the detected lattice rows
+    ``(freq_hz, lag, value)``.  Whole captures go through the fused
+    long-capture lattice (the batched lattice scan on an
+    ``EngineError``), equal-length pairs through the fused batch lattice
+    (per-pair surfaces and ``find_peaks`` on an ``EngineError``)."""
+    from caf_cookoff_tpu_torch.models.batched_stein import (
+        batched_stein_os_peaks, batched_stein_peaks)
+    from caf_cookoff_tpu_torch.models.filterbank import caf_surface
+    from caf_cookoff_tpu_torch.models.overlap_save import (
+        batched_overlap_save_peaks_local)
+    from caf_cookoff_tpu_torch.ops.peak import (apply_detection_threshold,
+                                                find_peaks, resolution_cell)
+
+    fs = args.fs
+    min_snr = _parse_min_snr(args.min_snr_db)
+    kw = dict(zip(("exclude_freq", "exclude_lag"),
+                  resolution_cell(needles[0], freqs, fs)),
+              min_snr_db=min_snr, device=args.device)
+    try:
+        if full:
+            # capture_lens: each pair's real length, so zero padding to
+            # one batch length cannot bias the model floor low.
+            lf, ll, lv = batched_stein_os_peaks(
+                needles, captures, freqs, fs, args.num_peaks,
+                capture_lens=cap_lens, **kw)
+        else:
+            lf, ll, lv = batched_stein_peaks(needles, captures, freqs, fs,
+                                             args.num_peaks, **kw)
+    except EngineError as exc:
+        fallback = "the lattice scan" if full else "per-pair surfaces"
+        print(f"note: lattice shape outside the fused engine's envelope "
+              f"({exc}); using {fallback}", file=sys.stderr)
+        if full:
+            lf, ll, lv = batched_overlap_save_peaks_local(
+                needles, captures, freqs, fs, args.num_peaks, **kw)
+        else:
+            rows = []
+            for nd, cp in zip(needles, captures):
+                surf = caf_surface(nd, cp, freqs, fs, backend=args.backend,
+                                   device=args.device)
+                pks = find_peaks(surf, args.num_peaks, kw["exclude_freq"],
+                                 kw["exclude_lag"],
+                                 lag_period=surf.shape[-1])
+                vals, _, _ = apply_detection_threshold(
+                    pks.value.cpu().numpy(), float(surf.double().mean()),
+                    surf.numel(), min_snr)
+                rows.append((freqs[pks.freq_idx.cpu().numpy()],
+                             pks.lag_idx.cpu().numpy(), vals))
+            lf, ll, lv = (np.stack(col) for col in zip(*rows))
+    return [[(float(lf[i, p]), int(ll[i, p]), float(lv[i, p]))
+             for p in range(args.num_peaks) if np.isfinite(float(lv[i, p]))]
+            for i in range(len(needles))]
 
 
 def cmd_bench(args) -> int:
@@ -332,7 +496,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="search the whole capture (segmented long-capture "
                    "engine, overlap-save scan as its fallback)")
     r.add_argument("--num-peaks", type=int, default=1,
-                   help="multi-emitter listing: not ported yet")
+                   help="list the N strongest peaks (multi-emitter, "
+                   "non-max suppressed)")
+    r.add_argument("--min-snr-db", default="auto",
+                   help="detection threshold over the noise floor for "
+                   "--num-peaks listings: 'auto' (from the searched cell "
+                   "count at 1e-3 false alarm), 'none', or a dB value")
+    r.add_argument("--refine", action="store_true",
+                   help="zoom re-score: not ported yet")
     r.add_argument("--rate-grid", metavar="START:STOP:STEP",
                    help="rate search: not ported yet")
     r.add_argument("--device", default=None, help=_DEVICE_HELP)
@@ -349,7 +520,13 @@ def build_parser() -> argparse.ArgumentParser:
                     help="search whole captures (windowed engine)")
     bt.add_argument("--json", action="store_true")
     bt.add_argument("--num-peaks", type=int, default=1,
-                    help="multi-emitter lattices: not ported yet")
+                    help="top-N multi-emitter lattice per pair (NMS "
+                    "windows sized to the first needle's resolution cell)")
+    bt.add_argument("--min-snr-db", default="auto",
+                    help="per-pair detection threshold for --num-peaks "
+                    "lattices: 'auto', 'none', or a dB value")
+    bt.add_argument("--refine", action="store_true",
+                    help="zoom re-score: not ported yet")
     bt.add_argument("--device", default=None, help=_DEVICE_HELP)
     bt.set_defaults(fn=cmd_batch)
 

@@ -1,9 +1,11 @@
 // Fused Stein coarse rank for Hopper (sm_90a): per (pair, doppler bin),
-// the max over lags of |R|^2 and the lowest lag that attains it.
+// the max over lags of |R|^2 and the lowest lag that attains it, and on
+// request the strongest lag more than `sep` from it (the top-2 mode).
 //
 // Replaces caf_cookoff_tpu/ops/pallas_stein.py::_fused_stein_kernel
 // in modes (a) one pair, (b) many pairs, (c) share_h bands, (d) windows
-// with a per-program lag bound, and (c) with (d); lags always computed.
+// with a per-program lag bound, (c) with (d), and (e) want_top2 with any
+// of them; lags always computed.
 //
 // Program i of P_eff = P * S * W runs band-major, i = (pair*S + band)*W
 // + w (S = share_h, W = windows); it reads the needle operator
@@ -42,8 +44,21 @@
 //      within a thread, then by warp shuffles.
 //   3. stein_reduce_tiles: per (program, bin), the tiles in ascending lag
 //      order with a strict '>', so the lowest lag survives exact ties.
+//      For want_top2, stein_reduce_top2 instead: one warp per (program,
+//      bin) takes slot 1, (max, lowest lag), from the tile partials; slot
+//      2 is the max over lags with |lag - lag1| > sep (lowest lag on
+//      ties; (-1.0, 0) when there is none).  A tile wholly outside that
+//      window gives its partial, a tile wholly inside gives nothing, and
+//      the at most two tiles that straddle an edge of the window are
+//      recomputed from G, ws1 and ws2 with stage B's own arithmetic (the
+//      same fmaf order and mag2_rn), so their |R|^2 are stage B's bit
+//      for bit.  This is exact for any separation > sep, where the TPU
+//      kernel's greedy merge of 512-lag tiles is exact only past 2*sep;
+//      the recompute is 2 x 128 lags of a bin's m_pad (3% of stage B at
+//      8192 lags) and needs no |R|^2 buffer.
 // The program axis is the grid's z, capped at 65535 by the hardware:
-// launches 1 and 2 go out in chunks of at most that many programs.
+// launches 1 and 2 go out in chunks of at most that many programs; the
+// reduces index programs globally.
 // Plain FMA loops, no tensor cores: wgmma/TMA and keeping G out of
 // device memory are later work (G is (P_eff, 2B, m_pad) bf16 in device
 // memory: 134 MB at 64 pairs x 128 rows x 8192 lags).
@@ -52,6 +67,7 @@
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <cmath>
 #include <cstddef>
 
 namespace {
@@ -63,9 +79,36 @@ constexpr int kThreadsB = 256;  // 16 (bin groups) x 16 (lag lanes)
 constexpr int kBinsPerThread = kBinTile / 16;   // 4
 constexpr int kLagsPerThread = kLagTile / 16;   // 8
 constexpr int kGridZMax = 65535;                // programs per launch
+constexpr int kWarpsTop2 = 8;                   // (program, bin)s per block
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// |R|^2 with explicit roundings: nvcc may not contract it into an fma,
+// so stage B and the top-2 recompute round it alike, as the plain
+// version's rr * rr + ri * ri does.
+__device__ __forceinline__ float mag2_rn(float rr, float ri) {
+  return __fadd_rn(__fmul_rn(rr, rr), __fmul_rn(ri, ri));
+}
+
+// (best, arg) <- (v, lag) if v is larger, or equal at a lower lag.
+__device__ __forceinline__ void keep_better(float v, int lag, float& best,
+                                            int& arg) {
+  if (v > best || (v == best && lag < arg)) {
+    best = v;
+    arg = lag;
+  }
+}
+
+// Every lane of the warp ends with the warp's (max, lowest lag).
+__device__ __forceinline__ void warp_best(float& best, int& arg) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, best, off);
+    const int ol = __shfl_xor_sync(0xffffffffu, arg, off);
+    keep_better(ov, ol, best, arg);
+  }
 }
 
 // Launch 1.  grid (m_pad / kLagTile, B, programs in this chunk),
@@ -197,8 +240,7 @@ __global__ void __launch_bounds__(kThreadsB) stein_stage_b(
     for (int j = 0; j < kLagsPerThread; ++j) {
       const int tau = tau0 + tx + 16 * j;
       // Lags past the bound read -1.0, as in the TPU kernel.
-      const float v =
-          tau < bound ? rr[i][j] * rr[i][j] + ri[i][j] * ri[i][j] : -1.f;
+      const float v = tau < bound ? mag2_rn(rr[i][j], ri[i][j]) : -1.f;
       if (j == 0 || v > best) {  // ascending tau: ties keep the lowest
         best = v;
         arg = tau;
@@ -249,6 +291,93 @@ __global__ void stein_reduce_tiles(const float* __restrict__ part_val,
   lags[static_cast<size_t>(k) * num_programs + p] = arg;
 }
 
+// Launch 3 of the top-2 mode.  grid ceil(P_eff*K / kWarpsTop2), one warp
+// per (program p, bin k), warp w of block x owns idx = x*kWarpsTop2 + w,
+// p = idx / K (the global program id).  sep < 0 means no window (slot 2
+// = slot 1, as |lag - lag1| <= sep never holds); the wrapper caps sep at
+// m_pad so lag1 +- sep cannot overflow.
+__global__ void __launch_bounds__(32 * kWarpsTop2) stein_reduce_top2(
+    const __nv_bfloat16* __restrict__ ws1,
+    const __nv_bfloat16* __restrict__ ws2,
+    const __nv_bfloat16* __restrict__ g, const int* __restrict__ num_valid,
+    const float* __restrict__ part_val, const int* __restrict__ part_lag,
+    float* __restrict__ vals, int* __restrict__ lags,
+    float* __restrict__ vals2, int* __restrict__ lags2, int num_programs,
+    int num_bins, int b2, int m_pad, int num_lags, int sep) {
+  const int lane = threadIdx.x % 32;
+  const size_t idx =
+      static_cast<size_t>(blockIdx.x) * kWarpsTop2 + threadIdx.x / 32;
+  if (idx >= static_cast<size_t>(num_programs) * num_bins) return;  // warp
+  const int p = static_cast<int>(idx / num_bins);
+  const int k = static_cast<int>(idx % num_bins);
+  const int n_tiles = m_pad / kLagTile;
+  const float* pv = part_val + idx * n_tiles;
+  const int* pl = part_lag + idx * n_tiles;
+
+  // Slot 1: the tiles' (max, lowest lag).
+  float v1 = -INFINITY;
+  int a1 = 0x7fffffff;
+  for (int t = lane; t < n_tiles; t += 32) keep_better(pv[t], pl[t], v1, a1);
+  warp_best(v1, a1);
+
+  // Slot 2 over the lags outside the window [lo, hi].
+  const bool window = sep >= 0;
+  const int lo = a1 - sep, hi = a1 + sep;
+  float v2 = -1.f;
+  int a2 = 0;
+  for (int t = lane; t < n_tiles; t += 32) {
+    const int t0 = t * kLagTile;
+    if (!window || t0 + kLagTile - 1 < lo || t0 > hi)
+      keep_better(pv[t], pl[t], v2, a2);
+  }
+  if (window) {
+    const int bound = num_valid ? min(num_valid[p], num_lags) : num_lags;
+    // The tile holding lo - 1 and lo, and the one holding hi and hi + 1.
+    const int t_lo = (lo >= 1 && lo % kLagTile) ? lo / kLagTile : -1;
+    const int t_hi =
+        (hi + 1 < m_pad && (hi + 1) % kLagTile) ? hi / kLagTile : -1;
+    const __nv_bfloat16* w1p = ws1 + static_cast<size_t>(k) * b2;
+    const __nv_bfloat16* w2p = ws2 + static_cast<size_t>(k) * b2;
+    for (int e = 0; e < 2; ++e) {
+      const int t = e ? t_hi : t_lo;
+      if (t < 0 || (e && t == t_lo)) continue;
+      const int t0 = t * kLagTile;
+      const __nv_bfloat16* gp =
+          g + static_cast<size_t>(p) * b2 * m_pad + t0 + lane;
+      constexpr int kLagsPerLane = kLagTile / 32;
+      float rr[kLagsPerLane], ri[kLagsPerLane];
+#pragma unroll
+      for (int j = 0; j < kLagsPerLane; ++j) rr[j] = ri[j] = 0.f;
+      // Stage B's order: rows ascending, one fmaf each.
+      for (int r = 0; r < b2; ++r) {
+        const float w1 = __bfloat162float(w1p[r]);
+        const float w2 = __bfloat162float(w2p[r]);
+        const __nv_bfloat16* gr = gp + static_cast<size_t>(r) * m_pad;
+#pragma unroll
+        for (int j = 0; j < kLagsPerLane; ++j) {
+          const float gv = __bfloat162float(gr[32 * j]);
+          rr[j] = fmaf(w1, gv, rr[j]);
+          ri[j] = fmaf(w2, gv, ri[j]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kLagsPerLane; ++j) {
+        const int tau = t0 + lane + 32 * j;
+        const bool masked = tau >= bound || (tau >= lo && tau <= hi);
+        keep_better(masked ? -1.f : mag2_rn(rr[j], ri[j]), tau, v2, a2);
+      }
+    }
+  }
+  warp_best(v2, a2);
+  if (lane == 0) {
+    const size_t o = static_cast<size_t>(k) * num_programs + p;
+    vals[o] = v1;
+    lags[o] = a1;
+    vals2[o] = v2;
+    lags2[o] = a2;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -263,16 +392,19 @@ const char* caf_cuda_error_string(int code) {
 // (P_eff / W, 2B, 2D) bf16; h_ext (P_eff / S, 2, h_len) f32; num_valid
 // (P_eff,) int32 or null; g (P_eff, 2B, m_pad) bf16 scratch;
 // part_val/part_lag (P_eff, K, m_pad / kLagTile) f32/int32 scratch;
-// vals/lags (K, P_eff) f32/int32 out.  m_pad is a multiple of kLagTile
-// and h_len >= (B - 1) * D + m_pad + D - 1.  Enqueues the launches on
-// `stream`, on the calling thread's current device (the operands' card);
-// returns the first CUDA error (0 on success).
+// vals/lags (K, P_eff) f32/int32 out; vals2/lags2 (K, P_eff) f32/int32
+// out, or both null (no top-2 mode; then sep is unused).  m_pad is a
+// multiple of kLagTile, h_len >= (B - 1) * D + m_pad + D - 1 and
+// sep <= m_pad.  Enqueues the launches on `stream`, on the calling
+// thread's current device (the operands' card); returns the first CUDA
+// error (0 on success).
 int caf_fused_stein_rank(const void* ws1, const void* ws2, const void* lmat,
                          const void* h_ext, const void* num_valid, void* g,
                          void* part_val, void* part_lag, void* vals,
-                         void* lags, int num_programs, int num_bins,
-                         int num_blocks, int sup, int h_len, int num_lags,
-                         int m_pad, int windows, int share_h, void* stream) {
+                         void* lags, void* vals2, void* lags2,
+                         int num_programs, int num_bins, int num_blocks,
+                         int sup, int h_len, int num_lags, int m_pad,
+                         int windows, int share_h, int sep, void* stream) {
   cudaError_t err = cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_tiles = m_pad / kLagTile;
@@ -305,6 +437,20 @@ int caf_fused_stein_rank(const void* ws1, const void* ws2, const void* lmat,
   }
 
   const int total = num_programs * num_bins;
+  if (vals2 != nullptr) {
+    stein_reduce_top2<<<(total + kWarpsTop2 - 1) / kWarpsTop2,
+                        32 * kWarpsTop2, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(ws1),
+        static_cast<const __nv_bfloat16*>(ws2),
+        static_cast<const __nv_bfloat16*>(g),
+        static_cast<const int*>(num_valid),
+        static_cast<const float*>(part_val),
+        static_cast<const int*>(part_lag), static_cast<float*>(vals),
+        static_cast<int*>(lags), static_cast<float*>(vals2),
+        static_cast<int*>(lags2), num_programs, num_bins, b2, m_pad,
+        num_lags, sep);
+    return cudaGetLastError();
+  }
   stein_reduce_tiles<<<(total + 255) / 256, 256, 0, s>>>(
       static_cast<const float*>(part_val),
       static_cast<const int*>(part_lag), static_cast<float*>(vals),

@@ -16,7 +16,12 @@ then carries:
   sharing the pair's haystack (K1 mode (c), ``share_h``);
 * :func:`batched_stein_os_peak` — long captures: one program per
   (pair[, band], overlap-save window), each bounded by its own lag
-  count (K1 mode (d), ``windows`` + ``num_valid``).
+  count (K1 mode (d), ``windows`` + ``num_valid``);
+* the multi-emitter lattices :func:`batched_stein_peaks` (equal-length
+  pairs, circular lags) and :func:`batched_stein_os_peaks` (long
+  captures, banded or not): the same programs with K1's top-2 mode (e),
+  two lag candidates per bin more than ``exclude_lag`` apart, folded
+  into per-pair NMS lattices whose entries are then re-scored exactly.
 
 The coarse rank only ranks bins: the top candidates of each pair are
 re-scored with exact filterbank rows (the rank-then-score contract of
@@ -37,12 +42,15 @@ from caf_cookoff_tpu_torch.config import (as_grid, floor_pow2,
                                           resolve_backend, xcor_length)
 from caf_cookoff_tpu_torch.errors import EligibilityError, SpanError
 from caf_cookoff_tpu_torch.models.filterbank import _surface_rows, mag2
+from caf_cookoff_tpu_torch.models.overlap_save import detection_rows
 from caf_cookoff_tpu_torch.ops.fused_stein import (FUSED_TILE, SUPER,
                                                    coarse_rank_plain,
                                                    fused_span,
                                                    fused_stein_rank,
                                                    stein_synthesis_weights)
-from caf_cookoff_tpu_torch.ops.peak import CafPeak
+from caf_cookoff_tpu_torch.ops.peak import (CafPeak, _lag_distance,
+                                            find_peak_2d, merge_peaks,
+                                            resolve_exclusions)
 from caf_cookoff_tpu_torch.ops.xcor import pad_to
 from caf_cookoff_tpu_torch.utils.convert import as_signal
 
@@ -131,18 +139,21 @@ def _shift_to_centers(ns_re: torch.Tensor, ns_im: torch.Tensor,
 
 def _coarse_rank(ws1, ws2, lmat, h_ext, b: int, sup: int, num_lags: int,
                  want_idxs: bool = True, windows: int = 1, share_h: int = 1,
-                 num_valid=None):
-    """((K, P_eff) values, lags) of the coarse rank: the kernel for CUDA
+                 num_valid=None, want_top2: bool = False, sep: int = 0):
+    """((K, P_eff) values, lags) of the coarse rank — with ``want_top2``
+    (K1 mode (e)) also slot 2's values and lags: the kernel for CUDA
     tensors, the f32 plain version for CPU tensors (the JAX package's
     CPU route)."""
     lmat, h_ext = lmat.float(), h_ext.float()
     if lmat.device.type == "cpu":
         return coarse_rank_plain(ws1, ws2, lmat, h_ext, b, sup, num_lags,
                                  windows=windows, share_h=share_h,
-                                 num_valid=num_valid)
+                                 num_valid=num_valid, want_top2=want_top2,
+                                 sep=sep)
     return fused_stein_rank(ws1, ws2, lmat, h_ext, b, sup, num_lags,
                             want_idxs=want_idxs, windows=windows,
-                            share_h=share_h, num_valid=num_valid)
+                            share_h=share_h, num_valid=num_valid,
+                            want_top2=want_top2, sep=sep)
 
 
 def _pick(rowmax: torch.Tensor, cand: torch.Tensor,
@@ -452,3 +463,377 @@ def batched_stein_peak(needles, haystacks, freqs_hz, sample_rate, *,
     peak = _batched_stein_core(pad_to(ns, n + (-n) % SUPER), hs,
                                _as_tensor(freqs, dev), fs, m, d, refine)
     return _host(freqs, peak)
+
+
+# ---------------------------------------------------------------------------
+# Multi-emitter lattices (K1 mode (e))
+# ---------------------------------------------------------------------------
+#
+# K1's top-2 mode gives, per (program, bin), two lag candidates more than
+# ``exclude_lag`` apart; they fold into per-pair NMS lattices whose
+# entries are re-scored EXACTLY on a guard-extended capture window around
+# each entry's lag (the rank-then-score contract), and the lattice
+# re-sorts and re-dedups on the exact values.  The port's K1(e) is exact
+# for same-bin pairs more than ``exclude_lag`` apart (the JAX package's
+# CPU twin's contract; its TPU kernel guarantees only past
+# ``2*exclude_lag``).  A third same-bin emitter in one window needs the
+# lattice scans of ``models/overlap_save``.
+
+
+def _lattice_from_bin_candidates(vals_j, lags_j, num_peaks: int,
+                                 exclude_freq: int, exclude_lag: int,
+                                 bin_offset=0, num_bins: Optional[int] = None,
+                                 lag_period: Optional[int] = None) -> CafPeak:
+    """NMS lattices from (..., K, J) per-bin candidate slots (J slots a
+    bin: K1's top-2, possibly stacked over windows), one per leading
+    index.  Negative values are kernel sentinels and become -inf, so
+    they can neither win nor suppress.  ``bin_offset`` (broadcastable to
+    the leading axes) and ``num_bins``: banded grids report global bins
+    ``offset + row`` on the ascending ``freqs_pad`` lattice, pad rows
+    past ``num_bins`` masked."""
+    k = vals_j.shape[-2]
+    rows = (torch.as_tensor(bin_offset, device=vals_j.device)[..., None]
+            + torch.arange(k, device=vals_j.device))
+    bins = rows[..., None].expand(vals_j.shape)
+    v = torch.where(vals_j < 0, -math.inf, vals_j)
+    if num_bins is not None:
+        v = torch.where(bins < num_bins, v, -math.inf)
+    lead = vals_j.shape[:-2]
+    cands = CafPeak(v.reshape(*lead, -1),
+                    bins.reshape(*lead, -1).to(torch.int32),
+                    lags_j.reshape(*lead, -1).to(torch.int32))
+    return merge_peaks(cands, num_peaks, exclude_freq, exclude_lag,
+                       lag_period=lag_period)
+
+
+def _entry_candidate_bins(vals_flat, lags_flat, lag_e, bin_e,
+                          exclude_lag: int, exclude_freq: int,
+                          num_bins: int, lag_period: Optional[int] = None):
+    """Exact-re-score candidate bins of every lattice entry: (P, K, J)
+    coarse candidates (lags in the entries' coordinates), (P, E) entry
+    lags and bins -> ((P, E, r) bins, (P, E, r) valid).
+
+    The ranking keeps candidates within one lag cell of the entry's lag
+    AND bins within one freq cell of the entry's own coarse bin — else a
+    same-lag stronger emitter farther away in frequency would capture
+    the re-score and collapse this entry onto it.  Top-``_REFINE_BINS``
+    of the masked ranking (ties to the lower bin, as ``lax.top_k``);
+    slots whose rank is -inf are invalid."""
+    from caf_cookoff_tpu_torch.models.stein import _REFINE_BINS
+
+    ok = ((_lag_distance(lags_flat[:, None], lag_e[..., None, None],
+                         lag_period) <= exclude_lag)
+          & (vals_flat[:, None] >= 0))
+    rank = torch.amax(torch.where(ok, vals_flat[:, None], -math.inf),
+                      dim=-1)                                 # (P, E, K)
+    bins_all = torch.arange(num_bins, device=rank.device)
+    rank = torch.where((bins_all - bin_e[..., None]).abs() <= exclude_freq,
+                       rank, -math.inf)
+    r = min(_REFINE_BINS, num_bins)
+    sel_rank, bins = torch.sort(rank, dim=-1, descending=True, stable=True)
+    return bins[..., :r].to(torch.int32), torch.isfinite(sel_rank[..., :r])
+
+
+def _rescore_guards(needle_len: int, auto_lag_cell: int,
+                    hay_len: int) -> Tuple[int, int]:
+    """(guard, rescore_win) of the per-entry exact re-score windows: the
+    window holds the whole needle plus ``guard`` samples each side; the
+    argmax slack around the coarse lag is resolution-derived (at least 4
+    samples, for bf16 flat-top ties) and clamped to the guard."""
+    win = max(int(auto_lag_cell), 4)
+    guard = min(max(64, win), max(needle_len // 4, 1),
+                max((hay_len - needle_len) // 2, 1))
+    return guard, min(win, guard)
+
+
+def _windows_at(sig: torch.Tensor, start: torch.Tensor, wlen: int):
+    """(P, E, wlen) slices ``sig[p, start[p, e]:start[p, e] + wlen]`` of a
+    (P, L) batch."""
+    idx = start[..., None] + torch.arange(wlen, device=sig.device)
+    return torch.gather(sig[:, None, :].expand(-1, start.shape[1], -1), 2,
+                        idx)
+
+
+def _rescore_rows(ns, windows, freqs, bins, keep, sample_rate,
+                  xcor_len: int) -> CafPeak:
+    """One batched exact re-score over every (pair, entry, candidate bin)
+    row: (P, E) (value, row, window-local lag) of the kept cells."""
+    exact = mag2(_surface_rows(ns[:, None, :], windows, freqs[bins.long()],
+                               sample_rate, xcor_len))      # (P, E, r, M)
+    return find_peak_2d(torch.where(keep, exact, -math.inf))
+
+
+def _rescore_entries_circular(ns, circ, freqs, vals_j, lags_j, lat: CafPeak,
+                              sample_rate, xcor_len: int, guard: int,
+                              rescore_win: int, exclude_lag: int,
+                              exclude_freq: int):
+    """Exact re-score of each pair's coarse lattice — CIRCULAR lags.
+
+    ``circ``: (P, M + wlen) haystacks zero-padded to the period M and
+    tiled past the wrap, so the window from ``(lag - guard) mod M``
+    holds the samples circular lag ``lag`` correlates against; local lag
+    ``d <= 2*guard`` is circular lag ``(start + d) mod M``.  The argmax
+    is held to ``|d - guard| <= rescore_win``, one cell around the
+    entry's own coarse lag, so a nearby stronger emitter cannot capture
+    it.  Returns (P, E) values, bins, lags."""
+    m = xcor_len
+    wlen = ns.shape[-1] + 2 * guard
+    bins, bok = _entry_candidate_bins(vals_j, lags_j, lat.lag_idx,
+                                      lat.freq_idx, exclude_lag,
+                                      exclude_freq, freqs.shape[0],
+                                      lag_period=m)
+    start = torch.remainder(lat.lag_idx.long() - guard, m)
+    d = torch.arange(m, device=circ.device)
+    keep = (bok[..., None] & (d <= 2 * guard)
+            & ((d - guard).abs() <= rescore_win))
+    pk = _rescore_rows(ns, _windows_at(circ, start, wlen), freqs, bins, keep,
+                       sample_rate, m)
+    return (torch.where(torch.isfinite(lat.value), pk.value, -math.inf),
+            bins.gather(-1, pk.freq_idx.long()[..., None])[..., 0],
+            torch.remainder(lat.lag_idx + pk.lag_idx - guard,
+                            m).to(torch.int32))
+
+
+def _rescore_entries_windowed(ns, hs, freqs, vals_j, lags_j, lat: CafPeak,
+                              sample_rate, xcor_len: int, total_lags: int,
+                              guard: int, rescore_win: int,
+                              exclude_lag: int, exclude_freq: int):
+    """Exact re-score of each pair's coarse lattice — LINEAR capture lags
+    (the overlap-save engines): a guard-extended slice of the raw
+    capture around each entry's lag, local lags held to full overlap,
+    the requested lag bound and one cell around the entry's own coarse
+    lag (see :func:`_rescore_entries_circular`)."""
+    wlen = ns.shape[-1] + 2 * guard
+    hay_len = hs.shape[-1]
+    bins, bok = _entry_candidate_bins(vals_j, lags_j, lat.lag_idx,
+                                      lat.freq_idx, exclude_lag,
+                                      exclude_freq, freqs.shape[0])
+    start = torch.clamp(lat.lag_idx.long() - guard, 0,
+                        max(hay_len - wlen, 0))
+    d = torch.arange(xcor_len, device=hs.device)
+    glob = start[..., None, None] + d                       # (P, E, 1, M)
+    keep = (bok[..., None] & (d <= 2 * guard) & (glob < total_lags)
+            & ((glob - lat.lag_idx[..., None, None]).abs() <= rescore_win))
+    pk = _rescore_rows(ns, _windows_at(hs, start, wlen), freqs, bins, keep,
+                       sample_rate, xcor_len)
+    return (torch.where(torch.isfinite(lat.value), pk.value, -math.inf),
+            bins.gather(-1, pk.freq_idx.long()[..., None])[..., 0],
+            (start + pk.lag_idx).to(torch.int32))
+
+
+def _batched_stein_peaks_core(ns, hs, freqs_t, sample_rate, xcor_len: int,
+                              block_len: int, num_peaks: int,
+                              exclude_freq: int, exclude_lag: int,
+                              guard: int, rescore_win: int) -> CafPeak:
+    """Equal-length multi-emitter batch: one program per pair with K1's
+    top-2 mode (b+e), per-pair lattices on circular lags, the per-entry
+    exact re-score and the re-dedup.  Fields (P, num_peaks)."""
+    n, m = ns.shape[-1], xcor_len
+    ops, b, sup, _ = _batch_operands(pad_to(ns, n + (-n) % SUPER), hs,
+                                     freqs_t, sample_rate, m, block_len)
+    v1, i1, v2, i2 = _coarse_rank(*ops, b, sup, m, want_top2=True,
+                                  sep=exclude_lag)           # (K, P) each
+    vals_j = torch.stack([v1, v2], dim=-1).permute(1, 0, 2)   # (P, K, 2)
+    lags_j = torch.stack([i1, i2], dim=-1).permute(1, 0, 2)
+    lat = _lattice_from_bin_candidates(vals_j, lags_j, num_peaks,
+                                       exclude_freq, exclude_lag,
+                                       lag_period=m)
+    base = pad_to(hs, m)
+    circ = torch.cat([base, base[:, :n + 2 * guard]], dim=-1)
+    vals_e, bins_e, lags_e = _rescore_entries_circular(
+        ns, circ, freqs_t, vals_j, lags_j, lat, sample_rate, m, guard,
+        rescore_win, exclude_lag, exclude_freq)
+    # Two coarse cells can re-score onto one exact peak (a doppler
+    # sidelobe past the bin exclusion): re-dedup and re-sort on the
+    # exact values, circularly.
+    return merge_peaks(CafPeak(vals_e, bins_e, lags_e), num_peaks,
+                       exclude_freq, exclude_lag, lag_period=m)
+
+
+def _stein_os_peaks(ns, hs, freqs_all, centers, rel, sample_rate,
+                    xcor_len: int, block_len: int, windows: int,
+                    total_lags: int, num_peaks: int, exclude_freq: int,
+                    exclude_lag: int, guard: int, rescore_win: int,
+                    num_bins: Optional[int] = None) -> CafPeak:
+    """Long-capture multi-emitter scan: one program per (pair[, band],
+    window) with K1's top-2 mode ((d+e), banded (c+d+e)), one NMS lattice
+    per program on global bins and lags, folded per pair (hierarchical:
+    slots at sidelobe level may differ from a flat fold), then the
+    per-entry exact re-score on absolute frequencies with the unshifted
+    needles and the re-dedup.  ``ns`` are the unpadded needles; banded
+    when ``centers`` is given (global bin ``band*Kb + j``, -inf past
+    ``num_bins``).  Fields (P, num_peaks), lags absolute."""
+    p, v, n = ns.shape[0], xcor_len, ns.shape[-1]
+    ns_k = ns if centers is not None else pad_to(ns, n + (-n) % SUPER)
+    ops, b, sup, modes = _os_operands(ns_k, hs, centers, rel, sample_rate,
+                                      v, block_len, windows, total_lags)
+    v1, i1, v2, i2 = _coarse_rank(*ops, b, sup, v, want_top2=True,
+                                  sep=exclude_lag, **modes)
+    kb, s = rel.shape[0], modes["share_h"]
+    woff = torch.arange(windows, dtype=torch.int32, device=ns.device) * v
+    vals_j = torch.stack([v1, v2], dim=-1).reshape(kb, p, s, windows, 2)
+    lags_j = (torch.stack([i1, i2], dim=-1).reshape(kb, p, s, windows, 2)
+              + woff[:, None])
+    vals_j = torch.where(lags_j < total_lags, vals_j, -1.0)
+    vals_j = vals_j.permute(1, 2, 3, 0, 4)                 # (P, S, W, Kb, 2)
+    lags_j = lags_j.permute(1, 2, 3, 0, 4)
+    offs = torch.arange(s, device=ns.device) * kb
+    wlat = _lattice_from_bin_candidates(vals_j, lags_j, num_peaks,
+                                        exclude_freq, exclude_lag,
+                                        bin_offset=offs[:, None],
+                                        num_bins=num_bins)
+    lat = merge_peaks(CafPeak(*(f.reshape(p, -1) for f in wlat)), num_peaks,
+                      exclude_freq, exclude_lag)
+    # Per pair, the candidate slots on the global lattice as (S*Kb, W*2);
+    # pad rows go negative so the re-score's bin ranking skips them.
+    vflat = vals_j.permute(0, 1, 3, 2, 4).reshape(p, s * kb, -1)
+    lflat = lags_j.permute(0, 1, 3, 2, 4).reshape(p, s * kb, -1)
+    if num_bins is not None:
+        rows = torch.arange(s * kb, device=ns.device)
+        vflat = torch.where(rows[None, :, None] < num_bins, vflat, -1.0)
+    vals_e, bins_e, lags_e = _rescore_entries_windowed(
+        ns, hs, freqs_all, vflat, lflat, lat, sample_rate, xcor_len,
+        total_lags, guard, rescore_win, exclude_lag, exclude_freq)
+    return merge_peaks(CafPeak(vals_e, bins_e, lags_e), num_peaks,
+                       exclude_freq, exclude_lag)
+
+
+def _stein_model_floor(needles: np.ndarray, haystacks: np.ndarray,
+                       valid_len=None) -> np.ndarray:
+    """(P,) per-pair model noise floor ``sum|n|^2 * mean|h|^2`` (host
+    numpy): the fused kernel reduces bins to maxima, so there are no
+    cells to measure; a noise-only xcor cell has that second moment.
+    ``valid_len`` (a scalar or one per pair) restricts each haystack
+    mean to its real samples, so zero padding cannot bias it low."""
+    needles = np.asarray(needles)
+    haystacks = np.asarray(haystacks)
+    n_energy = np.sum(np.abs(needles) ** 2, axis=-1, dtype=np.float64)
+    if valid_len is None:
+        h_mean = np.mean(np.abs(haystacks) ** 2, axis=-1, dtype=np.float64)
+    else:
+        lens = np.broadcast_to(np.asarray(valid_len, np.int64),
+                               (haystacks.shape[0],))
+        h_mean = np.array([
+            np.mean(np.abs(haystacks[i, :lens[i]]) ** 2, dtype=np.float64)
+            for i in range(haystacks.shape[0])])
+    return n_energy * h_mean
+
+
+def _exclusions(ns, freqs, sample_rate, exclude_freq, exclude_lag):
+    """(exclude_freq, exclude_lag, auto lag cell): unset windows default
+    to the first needle's resolution cell."""
+    auto = resolve_exclusions(ns[0], freqs, sample_rate, None, None)
+    return (auto[0] if exclude_freq is None else int(exclude_freq),
+            auto[1] if exclude_lag is None else int(exclude_lag), auto[1])
+
+
+def batched_stein_peaks(needles, haystacks, freqs_hz, sample_rate,
+                        num_peaks: int, *, block_len: int = 64,
+                        exclude_freq: Optional[int] = None,
+                        exclude_lag: Optional[int] = None,
+                        backend: Optional[str] = None, min_snr_db=None,
+                        with_snr: bool = False, device=None):
+    """Top-``num_peaks`` emitters PER PAIR of an equal-length (P, N)
+    batch through K1's top-2 mode: ``(freqs (P, k), lags (P, k), values
+    (P, k)[, snr_db])``, strongest first, empty slots -inf.  Lags are
+    CIRCULAR xcor indices (unwrap with ``ops.peak.unwrap_lag``).
+    ``min_snr_db`` / ``with_snr`` threshold against the per-pair model
+    floor (:func:`_stein_model_floor`).  Grids past the single-band
+    envelope raise ``EligibilityError`` (no banding here: use
+    ``find_peaks`` on ``caf_surface``, or the overlap-save lattices)."""
+    resolve_backend(backend)
+    ns, hs, rdtype = _batch(needles, haystacks, device)
+    if ns.ndim != 2 or hs.shape != ns.shape:
+        raise ValueError(
+            f"need matching (P, N) batches, got {tuple(ns.shape)} vs "
+            f"{tuple(hs.shape)}")
+    freqs = as_grid(freqs_hz, dtype=rdtype)
+    fs = float(sample_rate)
+    n = ns.shape[-1]
+    m = xcor_length(n)
+    try:
+        d = _pow2_block_len(fs, freqs, block_len)
+    except SpanError as e:
+        raise EligibilityError(
+            f"{e} — the multi-emitter fused engine does not band wide "
+            "spans; use find_peaks on caf_surface or the overlap-save "
+            "lattice engines for this grid") from e
+    ef, el, auto_lag = _exclusions(ns, freqs, fs, exclude_freq, exclude_lag)
+    # The circular extension (period m) imposes no window-fit limit: m,
+    # not n, or the guard collapses to 1.
+    guard, rescore_win = _rescore_guards(n, auto_lag, m)
+    pk = _batched_stein_peaks_core(ns, hs, _as_tensor(freqs, ns.device), fs,
+                                   m, d, int(num_peaks), ef, el, guard,
+                                   rescore_win)
+    if min_snr_db is None and not with_snr:
+        return _host(freqs, pk)
+    return detection_rows(freqs, pk, _stein_model_floor(ns.cpu().numpy(),
+                                                        hs.cpu().numpy()),
+                          len(freqs) * m, min_snr_db, with_snr)
+
+
+def batched_stein_os_peaks(needles, haystacks, freqs_hz, sample_rate,
+                           num_peaks: int, num_lags: Optional[int] = None, *,
+                           block_len: int = 64,
+                           exclude_freq: Optional[int] = None,
+                           exclude_lag: Optional[int] = None,
+                           backend: Optional[str] = None, min_snr_db=None,
+                           with_snr: bool = False, capture_lens=None,
+                           device=None):
+    """Top-``num_peaks`` emitters PER PAIR of long captures through K1's
+    top-2 mode (config 4's multi-emitter workload): ``(freqs (P, k), lags
+    (P, k), values (P, k)[, snr_db (P, k)])``, strongest first, lags
+    absolute capture offsets, empty and sub-threshold slots -inf.
+
+    Exclusion windows default to the first needle's resolution cell;
+    ``min_snr_db`` / ``with_snr`` threshold against the per-pair model
+    floor (``capture_lens``: each pair's real capture length, so batch
+    padding cannot bias it).  Uniform grids route banded whenever the
+    band plan's modelled cost wins (as :func:`batched_stein_os_peak`);
+    a grid that neither fits the single-band envelope nor bands raises
+    ``EligibilityError`` (use :func:`caf_cookoff_tpu_torch.models.
+    overlap_save.batched_overlap_save_peaks_local`)."""
+    from caf_cookoff_tpu_torch.models.stein import _band_routing
+
+    resolve_backend(backend)
+    ns, hs, rdtype = _batch(needles, haystacks, device)
+    if ns.ndim != 2 or hs.ndim != 2 or ns.shape[0] != hs.shape[0]:
+        raise ValueError(
+            f"need (P, N) needles and (P, L) haystacks, got "
+            f"{tuple(ns.shape)} vs {tuple(hs.shape)}")
+    n = ns.shape[-1]
+    if hs.shape[-1] <= n:
+        raise ValueError("use batched_stein_peaks for equal-length pairs")
+    freqs = as_grid(freqs_hz, dtype=rdtype)
+    fs = float(sample_rate)
+    try:
+        d = _pow2_block_len(fs, freqs, block_len)
+        span_err = None
+    except SpanError as e:
+        d, span_err = None, e
+    use_banded, d, freqs_pad, centers, rel = _band_routing(fs, freqs, d)
+    if d is None:
+        raise EligibilityError(
+            f"{span_err} — this grid neither fits the single-band envelope "
+            "nor bands cleanly; use batched_overlap_save_peaks_local "
+            "(the lattice scan) for it") from span_err
+    m = xcor_length(n)
+    total_lags = num_lags or hs.shape[-1] - n + 1
+    windows = -(-total_lags // m)
+    ef, el, auto_lag = _exclusions(ns, freqs, fs, exclude_freq, exclude_lag)
+    guard, rescore_win = _rescore_guards(n, auto_lag, hs.shape[-1])
+    dev = ns.device
+    out_freqs = freqs_pad if use_banded else freqs
+    pk = _stein_os_peaks(
+        ns, hs, _as_tensor(out_freqs, dev),
+        _as_tensor(centers, dev) if use_banded else None,
+        _as_tensor(rel, dev), fs, m, d, windows, total_lags,
+        int(num_peaks), ef, el, guard, rescore_win,
+        num_bins=len(freqs) if use_banded else None)
+    if min_snr_db is None and not with_snr:
+        return _host(out_freqs, pk)
+    return detection_rows(
+        out_freqs, pk,
+        _stein_model_floor(ns.cpu().numpy(), hs.cpu().numpy(),
+                           valid_len=capture_lens),
+        len(freqs) * total_lags, min_snr_db, with_snr)

@@ -88,9 +88,10 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_library()))
     vp, ci = ctypes.c_void_p, ctypes.c_int
     # ws1, ws2, lmat, h_ext, num_valid (may be null), g, part_val,
-    # part_lag, vals, lags; programs, K, B, D, h_len, num_lags, m_pad,
-    # windows, share_h; stream
-    lib.caf_fused_stein_rank.argtypes = [vp] * 10 + [ci] * 9 + [vp]
+    # part_lag, vals, lags, vals2, lags2 (both null without top-2);
+    # programs, K, B, D, h_len, num_lags, m_pad, windows, share_h, sep;
+    # stream
+    lib.caf_fused_stein_rank.argtypes = [vp] * 12 + [ci] * 10 + [vp]
     lib.caf_fused_stein_rank.restype = ci
     lib.caf_fused_stein_lag_tile.argtypes = []
     lib.caf_fused_stein_lag_tile.restype = ci

@@ -19,7 +19,15 @@ bounds each program's lags.
   tensors (or raises) and runs the plain version for CPU tensors.
 * :func:`coarse_rank_plain` is that plain version; ``emulate_bf16=True``
   applies the kernel's roundings (inputs and G to bf16, f32 sums, stage
-  A summed in the kernel's order so that G is the kernel's bit for bit).
+  A summed in the kernel's order so that G is the kernel's bit for bit);
+  :func:`coarse_surface_plain` with ``emulate_bf16=True`` also sums stage
+  B row by row in the kernel's order, so every |R|^2 is the kernel's
+  bit for bit.
+* ``want_top2=True`` (K1 mode (e)) adds, per (program, bin), the
+  strongest lag more than ``sep`` from the first (:func:`top2_separated`:
+  value -1.0 and lag 0 when there is none) — exact for any separation
+  past ``sep``, where the TPU kernel's tile merge guarantees only past
+  ``2*sep``.
 * ``LAUNCHES`` counts kernel launches, so a run can show that its main
   path went through the kernel.
 """
@@ -43,6 +51,7 @@ _GRID_YZ_MAX = 65_535
 # Programs per step of the plain version: bounds its (programs, K, lags)
 # intermediates.
 _PLAIN_CHUNK = 8
+_BIG_IDX = 2 ** 30  # "no lag" in the top-2 argmins
 
 LAUNCHES = 0
 
@@ -102,9 +111,22 @@ def _stage_a_in_kernel_order(lm, h, sup: int, span: int):
     return co
 
 
+def _stage_b_in_kernel_order(ws1, ws2, g):
+    """(n, K, m_pad) ``(ws1 @ G, ws2 @ G)`` summed row by row in the
+    kernel's order.  With bf16-exact operands every product is exact in
+    f32, so each partial sum rounds as the kernel's ``fmaf`` chain does."""
+    n, b2, m_pad = g.shape
+    rr = g.new_zeros(n, ws1.shape[0], m_pad)
+    ri = g.new_zeros(n, ws1.shape[0], m_pad)
+    for r in range(b2):
+        rr.addcmul_(ws1[None, :, r, None], g[:, None, r, :])
+        ri.addcmul_(ws2[None, :, r, None], g[:, None, r, :])
+    return rr, ri
+
+
 def _surface_chunk(ws1, ws2, lmat, h_ext, b: int, sup: int, num_lags: int,
                    progs, windows: int, share_h: int, num_valid,
-                   emulate_bf16: bool):
+                   emulate_bf16: bool, stage_b_in_kernel_order: bool):
     """(n, K, m_pad) masked ``|R|^2`` of the programs ``progs``."""
     li, hi = program_maps(progs, windows, share_h)
     lm, h = lmat[li], h_ext[hi]
@@ -121,8 +143,11 @@ def _surface_chunk(ws1, ws2, lmat, h_ext, b: int, sup: int, num_lags: int,
     cols = ((torch.arange(2 * b, device=co.device) % b) * sup)[:, None] \
         + torch.arange(m_pad, device=co.device)[None, :]
     g = torch.gather(co, 2, cols.expand(n, -1, -1))     # (n, 2B, m_pad)
-    rr = torch.einsum("kb,pbm->pkm", ws1, g)
-    ri = torch.einsum("kb,pbm->pkm", ws2, g)
+    if stage_b_in_kernel_order:
+        rr, ri = _stage_b_in_kernel_order(ws1, ws2, g)
+    else:
+        rr = torch.einsum("kb,pbm->pkm", ws1, g)
+        ri = torch.einsum("kb,pbm->pkm", ws2, g)
     mag2 = rr * rr + ri * ri
     if num_valid is None:
         bound = torch.full((n, 1, 1), num_lags, device=mag2.device)
@@ -139,35 +164,61 @@ def coarse_surface_plain(ws1, ws2, lmat, h_ext, b: int, sup: int,
                          num_valid=None):
     """(P_eff, K, m_pad) masked ``|R|^2`` of the coarse rank, in plain
     PyTorch: lags at or past ``num_lags`` (or past ``num_valid[i]`` when
-    given, capped at ``num_lags``) read -1.0."""
+    given, capped at ``num_lags``) read -1.0.  ``emulate_bf16`` sums
+    stage B in the kernel's order too, so the surface is the kernel's
+    bit for bit."""
     if emulate_bf16:
         ws1, ws2, lmat, h_ext = map(_bf16, (ws1, ws2, lmat, h_ext))
     progs = torch.arange(lmat.shape[0] * windows, device=lmat.device)
     return _surface_chunk(ws1, ws2, lmat, h_ext, b, sup, num_lags, progs,
-                          windows, share_h, num_valid, emulate_bf16)
+                          windows, share_h, num_valid, emulate_bf16,
+                          emulate_bf16)
+
+
+def top2_separated(mag2: torch.Tensor, sep: int):
+    """Per row of a (..., lags) masked surface: (max, lowest lag) and the
+    max over lags with ``|lag - lag1| > sep`` with its lowest lag — the
+    ``want_top2`` branch of ``_coarse_rank_xla``.  With no second lag
+    the masked row is all -1.0, so slot 2 reads (-1.0, 0).  Returns four
+    (...) tensors: values f32, lags int32."""
+    lag = torch.arange(mag2.shape[-1], device=mag2.device)
+    m1 = torch.amax(mag2, dim=-1, keepdim=True)
+    a1 = torch.amin(torch.where(mag2 >= m1, lag, _BIG_IDX), dim=-1,
+                    keepdim=True)
+    masked = torch.where((lag - a1).abs() <= sep, -1.0, mag2)
+    m2 = torch.amax(masked, dim=-1, keepdim=True)
+    a2 = torch.amin(torch.where(masked >= m2, lag, _BIG_IDX), dim=-1,
+                    keepdim=True)
+    a1, a2 = (torch.where(a == _BIG_IDX, 0, a).to(torch.int32)
+              for a in (a1, a2))
+    return m1[..., 0], a1[..., 0], m2[..., 0], a2[..., 0]
 
 
 def coarse_rank_plain(ws1, ws2, lmat, h_ext, b: int, sup: int,
                       num_lags: int, emulate_bf16: bool = False,
-                      windows: int = 1, share_h: int = 1, num_valid=None):
+                      windows: int = 1, share_h: int = 1, num_valid=None,
+                      want_top2: bool = False, sep: int = 0):
     """Plain PyTorch version of the kernel (port of ``_coarse_rank_xla``
     with the kernel's index maps): ((K, P_eff) f32 values, (K, P_eff)
-    int32 lowest-argmax lags), ``_PLAIN_CHUNK`` programs at a time."""
+    int32 lowest-argmax lags), ``_PLAIN_CHUNK`` programs at a time;
+    ``want_top2`` adds the slot-2 values and lags of
+    :func:`top2_separated`."""
     if emulate_bf16:
         ws1, ws2, lmat, h_ext = map(_bf16, (ws1, ws2, lmat, h_ext))
     p_eff = lmat.shape[0] * windows
-    vals, idxs = [], []
+    fields = []
     for p0 in range(0, p_eff, _PLAIN_CHUNK):
         progs = torch.arange(p0, min(p0 + _PLAIN_CHUNK, p_eff),
                              device=lmat.device)
         mag2 = _surface_chunk(ws1, ws2, lmat, h_ext, b, sup, num_lags,
                               progs, windows, share_h, num_valid,
-                              emulate_bf16)
-        v, i = torch.max(mag2, dim=-1)      # first maximum on ties
-        vals.append(v)
-        idxs.append(i)
-    return (torch.cat(vals).T.contiguous(),
-            torch.cat(idxs).to(torch.int32).T.contiguous())
+                              emulate_bf16, False)
+        if want_top2:
+            fields.append(top2_separated(mag2, sep))
+        else:
+            v, i = torch.max(mag2, dim=-1)      # first maximum on ties
+            fields.append((v, i.to(torch.int32)))
+    return tuple(torch.cat(f).T.contiguous() for f in zip(*fields))
 
 
 def _check_operands(ws1, ws2, lmat, h_ext, num_blocks, sup, num_lags,
@@ -215,16 +266,14 @@ def fused_stein_rank(ws1, ws2, lmat, h_ext, num_blocks: int, sup: int,
     ``models/batched_stein``); ``num_valid``: optional (P_eff,) integer
     per-program lag bound (numpy or a tensor).  Returns ((K, P_eff) f32,
     (K, P_eff) int32) with window-local lags; the lags are zeros when
-    ``want_idxs=False``.
+    ``want_idxs=False``.  ``want_top2=True`` returns ``(vals, idxs,
+    vals2, idxs2)``: slot 2 is the strongest lag more than ``sep`` from
+    slot 1's, (-1.0, 0) when there is none (:func:`top2_separated`).
 
     CUDA tensors launch the kernel (a failed build or launch raises);
     CPU tensors run :func:`coarse_rank_plain` with the kernel's bf16
     roundings.
     """
-    if want_top2:
-        raise NotImplementedError(
-            "fused_stein_rank: want_top2 (K1(e), ROADMAP Queue 2) is not "
-            "ported yet")
     devices = {t.device for t in (ws1, ws2, lmat, h_ext)}
     if len(devices) != 1:
         raise ValueError(f"operands on several devices: {devices}")
@@ -235,15 +284,20 @@ def fused_stein_rank(ws1, ws2, lmat, h_ext, num_blocks: int, sup: int,
     _check_operands(ws1, ws2, lmat, h_ext, num_blocks, sup, num_lags,
                     windows, share_h, num_valid)
     if device.type == "cuda":
-        vals, idxs = _launch(ws1, ws2, lmat, h_ext, num_blocks, sup,
-                             num_lags, windows, share_h, num_valid)
+        out = _launch(ws1, ws2, lmat, h_ext, num_blocks, sup, num_lags,
+                      windows, share_h, num_valid,
+                      sep if want_top2 else None)
     elif device.type == "cpu":
-        vals, idxs = coarse_rank_plain(ws1, ws2, lmat, h_ext, num_blocks,
-                                       sup, num_lags, emulate_bf16=True,
-                                       windows=windows, share_h=share_h,
-                                       num_valid=num_valid)
+        out = coarse_rank_plain(ws1, ws2, lmat, h_ext, num_blocks, sup,
+                                num_lags, emulate_bf16=True,
+                                windows=windows, share_h=share_h,
+                                num_valid=num_valid, want_top2=want_top2,
+                                sep=sep)
     else:
         raise ValueError(f"fused_stein_rank: unsupported device {device}")
+    if want_top2:
+        return out
+    vals, idxs = out
     if not want_idxs:
         idxs = torch.zeros_like(idxs)
     return vals, idxs
@@ -257,7 +311,8 @@ def _stage_a_smem_bytes(sup: int) -> int:
 
 
 def _launch(ws1, ws2, lmat, h_ext, num_blocks, sup, num_lags, windows,
-            share_h, num_valid):
+            share_h, num_valid, sep):
+    """Launch the kernel; ``sep`` is None without the top-2 mode."""
     global LAUNCHES
     from caf_cookoff_tpu_torch.ops import _build
 
@@ -292,8 +347,10 @@ def _launch(ws1, ws2, lmat, h_ext, num_blocks, sup, num_lags, windows,
                            device=dev)
     part_lag = torch.empty((p_eff, k, n_tiles), dtype=torch.int32,
                            device=dev)
-    vals = torch.empty((k, p_eff), dtype=torch.float32, device=dev)
-    lags = torch.empty((k, p_eff), dtype=torch.int32, device=dev)
+    outs = [torch.empty((k, p_eff), dtype=dt, device=dev)
+            for dt in (torch.float32, torch.int32) * (1 if sep is None
+                                                       else 2)]
+    top2 = outs[2:] if sep is not None else (None, None)
     # The launches go to the operands' card; the caller's current card
     # is restored afterwards.
     with torch.cuda.device(dev):
@@ -301,11 +358,15 @@ def _launch(ws1, ws2, lmat, h_ext, num_blocks, sup, num_lags, windows,
             ws1b.data_ptr(), ws2b.data_ptr(), lmatb.data_ptr(), h.data_ptr(),
             None if num_valid is None else num_valid.contiguous().data_ptr(),
             g.data_ptr(), part_val.data_ptr(), part_lag.data_ptr(),
-            vals.data_ptr(), lags.data_ptr(), p_eff, k, num_blocks, sup,
-            h_len, num_lags, m_pad, windows, share_h,
+            outs[0].data_ptr(), outs[1].data_ptr(),
+            *(None if t is None else t.data_ptr() for t in top2),
+            p_eff, k, num_blocks, sup, h_len, num_lags, m_pad, windows,
+            share_h,
+            # |lag - lag1| <= sep means the same for every sep >= m_pad.
+            0 if sep is None else min(int(sep), m_pad),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused Stein kernel launch failed: "
                            f"{lib.caf_cuda_error_string(rc).decode()}")
     LAUNCHES += 1
-    return vals, lags
+    return tuple(outs)

@@ -438,3 +438,215 @@ def test_batched_engines_match_single_pair_on_card(card):
                                       device="cuda")
     assert fs.LAUNCHES == before + 1
     assert (float(fr[0]), int(lg[0])) == (f_true, lag)
+
+
+# ---------------------------------------------------------------------------
+# K1 mode (e): want_top2
+# ---------------------------------------------------------------------------
+
+
+def _top2_plain(ops, b, sup, m, sep, **modes):
+    """The plain version's four (K, P_eff) top-2 fields with the kernel's
+    roundings and sums in the kernel's order (bit for bit |R|^2)."""
+    surf = fs.coarse_surface_plain(*ops, b, sup, m, emulate_bf16=True,
+                                   **modes)
+    return tuple(t.T for t in fs.top2_separated(surf, sep))
+
+
+def _assert_top2(got, want):
+    """Both value slots within RTOL, both lag slots identical."""
+    for slot in (0, 2):
+        torch.testing.assert_close(got[slot], want[slot], rtol=RTOL, atol=0)
+    for slot in (1, 3):
+        torch.testing.assert_close(got[slot], want[slot], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("sep", [0, 3, 200])
+def test_top2_matches_plain_on_card(card, sep):
+    """Mode (b+e) on random operands (two pairs, K = 37, M = 2048): both
+    slots equal the plain version's, one launch."""
+    needles, hays = _pairs(np.random.default_rng(7), 2, 1024)
+    freqs = np.linspace(-100, 100, 37).astype(np.float32)
+    ops, b, sup = _operands(needles, hays, freqs, 2048, 32)
+    before = fs.LAUNCHES
+    got = fs.fused_stein_rank(*ops, b, sup, 2048, want_top2=True, sep=sep)
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES == before + 1
+    assert [tuple(t.shape) for t in got] == [(37, 2)] * 4
+    _assert_top2(got, _top2_plain(ops, b, sup, 2048, sep))
+    assert bool(((got[3] - got[1]).abs() > sep).all())
+
+
+@pytest.mark.parametrize("s,w", [(3, 1), (1, 3), (3, 2)])
+def test_top2_modes_match_plain_on_card(card, s, w):
+    """Modes (c+e), (d+e) with the last window cut short, (c+d+e)."""
+    p, n, d, k, v = 2, 512, 64, 40, 1024
+    ops, b, sup, nv = _modes_operands(np.random.default_rng(s * 7 + w), p,
+                                      s, w, n, d, k, v)
+    modes = dict(windows=w, share_h=s, num_valid=nv if w > 1 else None)
+    got = fs.fused_stein_rank(*ops, b, sup, v, want_top2=True, sep=5,
+                              **modes)
+    _assert_top2(got, _top2_plain(ops, b, sup, v, 5, **modes))
+
+
+def _spike_operands(spikes, k=16, n=512, d=64, v=1024):
+    """One program whose |R|^2 is flat over the bins and the squared
+    spike amplitude at each spike's lag: an impulse needle against a
+    capture of (lag, amplitude) spikes (linear window slices)."""
+    from caf_cookoff_tpu_torch.models.batched_stein import (
+        _os_window_extensions)
+
+    needle = torch.zeros(1, n, dtype=torch.complex64, device="cuda")
+    needle[0, 0] = 1.0
+    hay = torch.zeros(1, 2 * v, dtype=torch.complex64, device="cuda")
+    for lag, amp in spikes:
+        hay[0, lag] = amp
+    b = n // d
+    lmat, sup = _needle_operator(needle.real, needle.imag, d)
+    h_ext = _os_window_extensions(hay.real, hay.imag, v, 1,
+                                  fs.fused_span(b, sup, v))
+    ws1, ws2 = fs.stein_synthesis_weights(
+        torch.linspace(-100.0, 100.0, k, device="cuda"), FS, b, d)
+    return (ws1, ws2, lmat, h_ext), b, sup
+
+
+@pytest.mark.parametrize("strong,skirt,weak", [
+    (514, 511, 505),      # across a 512- (and 128-) lag tile edge
+    (645, 639, 635),      # across a 128-lag tile edge only
+    (505, 508, 514)])     # the weaker after the stronger
+def test_top2_keeps_pairs_past_sep_across_tile_edges_on_card(
+        card, strong, skirt, weak):
+    """A same-bin pair 1.5*sep apart with the stronger's skirt across the
+    tile edge, where the TPU kernel's greedy tile merge drops the
+    weaker: the kernel keeps it in slot 2, in every bin."""
+    sep = 6
+    ops, b, sup = _spike_operands([(strong, 3.0), (skirt, 2.5), (weak, 2.0)])
+    got = fs.fused_stein_rank(*ops, b, sup, 1024, want_top2=True, sep=sep)
+    assert got[1].unique().tolist() == [strong]
+    assert got[3].unique().tolist() == [weak]
+    _assert_top2(got, _top2_plain(ops, b, sup, 1024, sep))
+
+
+def test_top2_tie_across_a_recomputed_tile_on_card(card):
+    """Bit-identical needle copies at lags 1310 and 5000 outside the
+    window of a stronger copy at 1000 (sep 300): 1310 lies in the tile
+    that straddles the window's edge, whose lags the kernel recomputes,
+    5000 in a tile taken from stage B.  They tie exactly, so the lowest
+    lag, 1310, is slot 2 in every bin — only if the recompute is stage
+    B's arithmetic bit for bit and ties keep the lower lag."""
+    from caf_cookoff_tpu_torch.models.batched_stein import (
+        _os_window_extensions)
+
+    rng = np.random.default_rng(21)
+    n, d, k, v, sep = 128, 32, 64, 8192, 300
+    needle = (rng.standard_normal(n)
+              + 1j * rng.standard_normal(n)).astype(np.complex64)
+    hay = np.zeros(v + n, np.complex64)
+    for lag, amp in ((1000, 2.0), (1310, 1.0), (5000, 1.0)):
+        hay[lag:lag + n] = amp * needle
+    nt = torch.from_numpy(needle).cuda()[None]
+    ht = torch.from_numpy(hay).cuda()[None]
+    b = n // d
+    lmat, sup = _needle_operator(nt.real, nt.imag, d)
+    h_ext = _os_window_extensions(ht.real, ht.imag, v, 1,
+                                  fs.fused_span(b, sup, v))
+    ws1, ws2 = fs.stein_synthesis_weights(
+        torch.linspace(-100.0, 100.0, k, device="cuda"), FS, b, d)
+    ops = (ws1, ws2, lmat, h_ext)
+    got = fs.fused_stein_rank(*ops, b, sup, v, want_top2=True, sep=sep)
+    assert got[1].unique().tolist() == [1000]
+    assert got[3].unique().tolist() == [1310]
+    _assert_top2(got, _top2_plain(ops, b, sup, v, sep))
+
+
+def test_top2_sentinels_on_card(card):
+    """A program with lag bound 0 reads (-1.0, 0) in both slots; a sep
+    that covers every lag leaves slot 2 at (-1.0, 0) everywhere."""
+    ops, b, sup, _ = _modes_operands(np.random.default_rng(5), 1, 1, 3,
+                                     256, 32, 9, 512)
+    nv = torch.tensor([512, 0, 100], dtype=torch.int32, device="cuda")
+    got = fs.fused_stein_rank(*ops, b, sup, 512, windows=3, num_valid=nv,
+                              want_top2=True, sep=4)
+    for slot, want in ((0, -1.0), (1, 0), (2, -1.0), (3, 0)):
+        assert got[slot][:, 1].tolist() == [want] * 9
+    assert int(got[3][:, 2].max()) < 100
+    _assert_top2(got, _top2_plain(ops, b, sup, 512, 4, windows=3,
+                                  num_valid=nv))
+    for sep in (512, 10 ** 6):
+        got = fs.fused_stein_rank(*ops, b, sup, 512, windows=3,
+                                  num_valid=nv, want_top2=True, sep=sep)
+        assert got[2].eq(-1.0).all() and got[3].eq(0).all()
+        _assert_top2(got, _top2_plain(ops, b, sup, 512, sep, windows=3,
+                                      num_valid=nv))
+
+
+def test_top2_programs_past_one_launch_on_card(card):
+    """70000 programs: the top-2 reduce indexes programs globally; both
+    sides of the 65535 cut equal the plain version."""
+    rng = np.random.default_rng(9)
+    n, d, k, v, s, w = 128, 32, 9, 256, 35_000, 2
+    b = n // d
+
+    def plane(shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).cuda()
+
+    lmat, sup = _needle_operator(plane((s, n)), plane((s, n)), d)
+    h_ext = _haystack_extension(plane((w, n)), plane((w, n)), v,
+                                fs.fused_span(b, sup, v))
+    ws1, ws2 = fs.stein_synthesis_weights(
+        torch.linspace(-50.0, 50.0, k, device="cuda"), FS, b, d)
+    got = fs.fused_stein_rank(ws1, ws2, lmat, h_ext, b, sup, v, windows=w,
+                              share_h=s, want_top2=True, sep=3)
+    assert got[0].shape == (k, s * w)
+    for i in [0, 1, 65_533, 65_534, 65_535, 65_536, 69_999]:
+        want = _top2_plain((ws1, ws2, lmat[i // w][None],
+                            h_ext[i % w][None]), b, sup, v, 3)
+        _assert_top2([t[:, i:i + 1] for t in got], want)
+
+
+def test_lattice_engines_on_card(card):
+    """The fused lattices on the card, each one K1 launch: the
+    long-capture lattice equals the cuFFT lattice scan on three emitters,
+    and the equal-length lattice equals ``find_peaks`` on the surface."""
+    from caf_cookoff_tpu_torch import (batched_overlap_save_peaks_local,
+                                       batched_stein_os_peaks,
+                                       batched_stein_peaks, caf_surface,
+                                       find_peaks, resolution_cell)
+
+    grid = np.arange(-100.0, 100.0, 0.5, dtype=np.float32)
+    rng = np.random.default_rng(5)
+    n, total = 1024, 16384
+    needle = (rng.standard_normal(n)
+              + 1j * rng.standard_normal(n)).astype(np.complex64)
+    hay = (1e-4 * (rng.standard_normal(total)
+                   + 1j * rng.standard_normal(total))).astype(np.complex64)
+    t = np.arange(n)
+    truths = [(-30.0, 3000), (45.0, 9000), (10.0, 14000)]
+    for amp, (f, lag) in zip((1.0, 0.8, 0.6), truths):
+        hay[lag:lag + n] += (amp * needle * np.exp(
+            2j * np.pi * f * t / FS)).astype(np.complex64)
+    before = fs.LAUNCHES
+    fr, lg, vv = batched_stein_os_peaks(needle[None], hay[None], grid, FS, 4,
+                                        device="cuda")
+    assert fs.LAUNCHES == before + 1
+    fr2, lg2, vv2 = batched_overlap_save_peaks_local(
+        needle[None], hay[None], grid, FS, 4, device="cuda")
+    rows = [(float(f), int(l)) for f, l in zip(fr[0][:3], lg[0][:3])]
+    assert rows == [(float(f), int(l)) for f, l in zip(fr2[0][:3],
+                                                       lg2[0][:3])] == truths
+    np.testing.assert_allclose(vv[0][:3], vv2[0][:3], rtol=2e-5)
+    eq = (needle * np.exp(2j * np.pi * -20.0 * t / FS) + hay[:n]
+          + 0.7 * np.roll(needle * np.exp(2j * np.pi * 35.0 * t / FS), 300)
+          ).astype(np.complex64)
+    before = fs.LAUNCHES
+    fr, lg, vv = batched_stein_peaks(needle[None], eq[None], grid, FS, 2,
+                                     device="cuda")
+    assert fs.LAUNCHES == before + 1
+    surf = caf_surface(needle, eq, grid, FS, device="cuda")
+    pk = find_peaks(surf, 2, *resolution_cell(needle, grid, FS),
+                    lag_period=surf.shape[-1])
+    assert [(float(f), int(l)) for f, l in zip(fr[0], lg[0])] == \
+        [(float(grid[int(f)]), int(l)) for f, l in zip(pk.freq_idx,
+                                                       pk.lag_idx)]
+    np.testing.assert_allclose(vv[0], pk.value.cpu().numpy(), rtol=2e-5)

@@ -175,9 +175,19 @@ def test_wrapper_cpu_route_counts_no_launch():
     torch.testing.assert_close(i, pi, rtol=0, atol=0)
     _, i0 = tfs.fused_stein_rank(*ops, b, sup, 1024, want_idxs=False)
     assert int(i0.abs().sum()) == 0
+    # Mode (e): four (K, P) fields, slot 1 the plain rank's; a sep that
+    # covers every lag leaves slot 2 at its (-1.0, 0) sentinel.
+    top2 = tfs.fused_stein_rank(*ops, b, sup, 1024, want_top2=True, sep=4)
+    assert [tuple(t.shape) for t in top2] == [(16, 1)] * 4
+    assert [t.dtype for t in top2] == [torch.float32, torch.int32] * 2
+    torch.testing.assert_close(top2[0], pv, rtol=0, atol=0)
+    torch.testing.assert_close(top2[1], pi, rtol=0, atol=0)
+    assert bool((top2[2] <= top2[0]).all())
+    assert bool(((top2[3] - top2[1]).abs() > 4).all())
+    _, _, v2, i2 = tfs.fused_stein_rank(*ops, b, sup, 1024, want_top2=True,
+                                        sep=1024)
+    assert v2.eq(-1.0).all() and i2.eq(0).all()
     assert tfs.LAUNCHES == before
-    with pytest.raises(NotImplementedError, match="K1"):
-        tfs.fused_stein_rank(*ops, b, sup, 1024, want_top2=True, sep=4)
     with pytest.raises(ValueError, match="h_ext"):
         tfs.fused_stein_rank(*ops[:3], ops[3][..., :-1], b, sup, 1024)
     with pytest.raises(ValueError, match="windows"):
