@@ -3,8 +3,10 @@
 The port of ``caf_cookoff_tpu`` to PyTorch on an NVIDIA H100: plain
 tensor code in PyTorch (``torch.fft`` for the FFT backends) and
 hand-written Hopper kernels built by nvcc at first use: the fused Stein
-coarse rank (``csrc/fused_stein.cu``, K1) and the fused filterbank peak
-rows and surface (``csrc/caf_filterbank.cu``, K2 and K3).  Functions
+coarse rank (``csrc/fused_stein.cu``, K1), the fused filterbank peak
+rows and surface (``csrc/caf_filterbank.cu``, K2 and K3) and the
+|R|^2/max epilogue microbenchmark (``csrc/roofline_epilogue.cu``, K4,
+``utils/roofline``).  Functions
 take numpy arrays or tensors; they run on the CUDA card unless
 ``device="cpu"`` asks for the CPU (without a card and without that
 request they raise).
@@ -20,9 +22,12 @@ multi-emitter lattices and detection (``find_peaks``, ``merge_peaks``,
 ``resolution_cell``, ``detection_threshold_db``,
 ``apply_detection_threshold``, ``overlap_save_peaks``,
 ``batched_overlap_save_peaks_local``, ``batched_stein_peaks``,
-``batched_stein_os_peaks``); and the CLI verbs ``generate``, ``run``
-(with ``--full-haystack`` and ``--num-peaks``), ``batch``, ``bench``,
-``selftest`` and ``info``.  ROADMAP.md lists what is still to
+``batched_stein_os_peaks``); the rate engines (``rate_caf_peak``,
+``rate_overlap_save_peak[s]``, ``stein_rate_os_peak[s]``) and the zoom
+refinement (``refine_peak``, ``refine_peak_rate``, ``refine_peaks``);
+and the CLI verbs ``generate``, ``run`` (with ``--full-haystack``,
+``--num-peaks``, ``--refine``, ``--rate`` and ``--rate-grid``),
+``batch`` (with ``--refine``), ``bench``, ``selftest`` and ``info``.  ROADMAP.md lists what is still to
 be ported.
 """
 
@@ -55,6 +60,11 @@ from caf_cookoff_tpu_torch.models.overlap_save import (
     overlap_save_peaks,
     overlap_save_surface,
 )
+from caf_cookoff_tpu_torch.models.rate import (rate_caf_peak,
+                                               rate_overlap_save_peak,
+                                               rate_overlap_save_peaks,
+                                               stein_rate_os_peak,
+                                               stein_rate_os_peaks)
 from caf_cookoff_tpu_torch.models.stein import (stein_caf_peak,
                                                 stein_caf_surface,
                                                 stein_overlap_save_peak)
@@ -65,6 +75,8 @@ from caf_cookoff_tpu_torch.ops.peak import (
     merge_peaks,
     resolution_cell,
 )
+from caf_cookoff_tpu_torch.ops.refine import (refine_peak, refine_peak_rate,
+                                              refine_peaks)
 from caf_cookoff_tpu_torch.ops.shift import apply_fdoa, freq_shift, phasor_bank
 from caf_cookoff_tpu_torch.ops.xcor import xcor, xcor_pair
 
@@ -101,10 +113,18 @@ __all__ = [
     "overlap_save_peaks",
     "overlap_save_surface",
     "phasor_bank",
+    "rate_caf_peak",
+    "rate_overlap_save_peak",
+    "rate_overlap_save_peaks",
+    "refine_peak",
+    "refine_peak_rate",
+    "refine_peaks",
     "resolution_cell",
     "stein_caf_peak",
     "stein_caf_surface",
     "stein_overlap_save_peak",
+    "stein_rate_os_peak",
+    "stein_rate_os_peaks",
     "xcor",
     "xcor_pair",
     "__version__",

@@ -5,7 +5,9 @@
   python -m caf_cookoff_tpu_torch run NEEDLE.c64 HAYSTACK.c64 [--backend stein]
   python -m caf_cookoff_tpu_torch run NEEDLE.c64 CAPTURE.c64 --full-haystack
   python -m caf_cookoff_tpu_torch run NEEDLE.c64 CAPTURE.c64 [--full-haystack] --num-peaks 3
-  python -m caf_cookoff_tpu_torch batch N1.c64:C1.c64 N2.c64:C2.c64 [--full-haystack] [--num-peaks 3]
+  python -m caf_cookoff_tpu_torch run NEEDLE.c64 CAPTURE.c64 [--refine] [--rate]
+  python -m caf_cookoff_tpu_torch run NEEDLE.c64 CAPTURE.c64 [--full-haystack] --rate-grid=-300:300:150 [--num-peaks 2]
+  python -m caf_cookoff_tpu_torch batch N1.c64:C1.c64 N2.c64:C2.c64 [--full-haystack] [--num-peaks 3] [--refine]
   python -m caf_cookoff_tpu_torch bench [--backends xla,pallas-refine,stein]
   python -m caf_cookoff_tpu_torch selftest [--backend pallas-refine]
   python -m caf_cookoff_tpu_torch info
@@ -16,8 +18,12 @@ searches the whole capture (the segmented long-capture engine, or the
 overlap-save scan where that engine is ineligible) and names the engine
 that answered.  ``--num-peaks N`` also lists the N strongest emitters
 (non-maximum suppressed lattices, each slot held to a detection
-threshold, ``--min-snr-db``).  ``batch`` runs many pairs through the
-batched Stein engines (``--num-peaks``: a lattice per pair).  Every verb
+threshold, ``--min-snr-db``).  ``--refine`` zooms the answer (and each
+listed row) to continuous (freq, lag), ``--rate`` adds a doppler rate;
+``--rate-grid`` searches trial rates (the rate engines) and refines the
+answer in (freq, rate, lag).  ``batch`` runs many pairs through the
+batched Stein engines (``--num-peaks``: a lattice per pair; ``--refine``:
+one batched zoom).  Every verb
 that computes runs on the CUDA card unless ``--device cpu`` asks for the
 CPU; ``bench`` times the card only.
 """
@@ -67,15 +73,15 @@ def cmd_generate(args) -> int:
     return 0
 
 
-def _not_ported(args) -> Optional[str]:
-    """The options whose engines are not ported yet, as an error line."""
-    if getattr(args, "rate_grid", None):
-        return ("--rate-grid (the rate engines) is not ported yet: "
-                "ROADMAP Queue 1 item 12")
-    if getattr(args, "refine", False):
-        return ("--refine (the zoom re-score) is not ported yet: ROADMAP "
-                "Queue 1 item 11")
-    return None
+def _rate_grid(spec: str):
+    """``--rate-grid START:STOP:STEP`` -> the trial rates (Hz/s, the stop
+    included), or ``None`` when the spec is malformed."""
+    try:
+        r0s, r1s, rss = spec.split(":")
+        return (np.arange(float(r0s), float(r1s) + 1e-9, float(rss)),
+                float(rss))
+    except ValueError:
+        return None
 
 
 def _parse_min_snr(value):
@@ -96,14 +102,16 @@ def _parse_min_snr(value):
             f"value, got {value!r}")
 
 
-def _print_lattice(rows, num_peaks: int, min_snr, min_snr_arg) -> None:
+def _print_lattice(rows, num_peaks: int, min_snr, min_snr_arg,
+                   refine_fn=None, rates=None, what="lattice") -> None:
     """The multi-peak listing: the "Detections: N of M" line when a
     threshold is active, then one row a slot, with below-threshold /
     no-further-peaks tags.  ``rows`` are ``(freq_hz, lag, value,
-    snr_db)``, value -inf for empty or masked slots."""
+    snr_db)``, value -inf for empty or masked slots; ``rates`` adds a
+    Hz/s column; ``refine_fn(i)`` returns a suffix for finite row ``i``."""
     if min_snr is not None:
         n_det = sum(1 for r in rows if np.isfinite(r[2]))
-        print(f"Detections: {n_det} of {num_peaks} lattice "
+        print(f"Detections: {n_det} of {num_peaks} {what} "
               f"slots pass the SNR threshold "
               f"(--min-snr-db {min_snr_arg})")
     for i, (f_hz, lag_i, val, snr_db) in enumerate(rows):
@@ -112,15 +120,18 @@ def _print_lattice(rows, num_peaks: int, min_snr, min_snr_arg) -> None:
                    else "no further distinct peaks")
             print(f"peak {i + 1}: ({tag})")
             continue
-        print(f"peak {i + 1}: {f_hz:+9.3f} Hz "
-              f"@ lag {lag_i:>6d}  ({val:.5g}, {snr_db:.1f} dB)")
+        rate = "" if rates is None else f" {rates[i]:+8.1f} Hz/s"
+        line = (f"peak {i + 1}: {f_hz:+9.3f} Hz{rate} "
+                f"@ lag {lag_i:>6d}  ({val:.5g}, {snr_db:.1f} dB)")
+        print(line + (refine_fn(i) if refine_fn is not None else ""))
 
 
 def _run_lattice(needle, haystack, freqs, full: bool, args) -> None:
     """``run --num-peaks``: over the whole capture the fused lattice
     engine (the lattice scan when it raises an ``EngineError``), else
     ``find_peaks`` on the truncated pair's circular surface, whose floor
-    is the surface mean; lags signed as the result lines'."""
+    is the surface mean; lags signed as the result lines'.  ``--refine``
+    adds each row's zoom estimate."""
     from caf_cookoff_tpu_torch.config import xcor_length
     from caf_cookoff_tpu_torch.models.batched_stein import (
         batched_stein_os_peaks)
@@ -167,27 +178,43 @@ def _run_lattice(needle, haystack, freqs, full: bool, args) -> None:
                  unwrap_lag(int(pks.lag_idx[i]), xcor_length(n), n),
                  float(vals[i]), float(snr[i]))
                 for i in range(args.num_peaks)]
-    _print_lattice(rows, args.num_peaks, min_snr, args.min_snr_db)
+    refine_fn = None
+    if args.refine:
+        from caf_cookoff_tpu_torch.ops.refine import refine_peak
+
+        def refine_fn(i):
+            f_ref, t_ref, _ = refine_peak(
+                needle, haystack, rows[i][0], rows[i][1], args.fs,
+                coarse_step_hz=args.freq_step, device=args.device)
+            return f"  refined {f_ref:+9.4f} Hz @ {t_ref:.4f}"
+    _print_lattice(rows, args.num_peaks, min_snr, args.min_snr_db, refine_fn)
 
 
 def cmd_run(args) -> int:
+    from caf_cookoff_tpu_torch.config import xcor_length
     from caf_cookoff_tpu_torch.models.filterbank import caf_peak
+    from caf_cookoff_tpu_torch.ops.peak import unwrap_lag
+    from caf_cookoff_tpu_torch.ops.refine import refine_peak, refine_peak_rate
     from caf_cookoff_tpu_torch.utils.io import load_c64
 
-    missing = _not_ported(args)
-    if missing:
-        print(f"error: {missing}", file=sys.stderr)
-        return 2
+    rate_grid = None
+    if args.rate_grid:
+        rate_grid = _rate_grid(args.rate_grid)
+        if rate_grid is None:
+            print(f"error: --rate-grid wants START:STOP:STEP, got "
+                  f"{args.rate_grid!r}", file=sys.stderr)
+            return 2
     needle = load_c64(args.needle)
     haystack = load_c64(args.haystack)
+    n = len(needle)
     freqs = _grid(args).frequencies(np.float32)
     engine, snr_db = None, None
-    full = args.full_haystack and len(haystack) > len(needle)
+    full = args.full_haystack and len(haystack) > n
     if full:
         freq, lag, value, engine, snr_db = _full_haystack_peak(
             needle, haystack, freqs, args)
     else:
-        freq, lag, value = caf_peak(needle, haystack[:len(needle)], freqs,
+        freq, lag, value = caf_peak(needle, haystack[:n], freqs,
                                     args.fs, backend=args.backend,
                                     device=args.device)
     print(f"Frequency offset: {freq:.3f} Hz")
@@ -197,9 +224,93 @@ def cmd_run(args) -> int:
     print(f"Peak value: {value:.6g}")
     if engine is not None:
         print(f"Engine: {engine}")
-    if args.num_peaks > 1:
+    # The refiners take signed capture offsets: the truncated path's raw
+    # circular xcor index unwraps first.  They read the whole capture.
+    signed = lag if full else unwrap_lag(lag, xcor_length(n), n)
+    if args.refine:
+        f_ref, t_ref, _ = refine_peak(needle, haystack, freq, signed,
+                                      args.fs, coarse_step_hz=args.freq_step,
+                                      device=args.device)
+        print(f"Refined estimate: {f_ref:+.4f} Hz, {t_ref:.4f} "
+              f"samples ({t_ref / args.fs * 1e3:.6f} ms)")
+    rate_lattice = False
+    if rate_grid is not None:
+        rate_lattice = full and args.num_peaks > 1
+        _run_rate_grid(needle, haystack, freqs, full, *rate_grid, args)
+    elif args.rate:
+        f2, r2, t2, _ = refine_peak_rate(needle, haystack, freq, signed,
+                                         args.fs,
+                                         coarse_step_hz=args.freq_step,
+                                         device=args.device)
+        print(f"Second-order estimate: {f2:+.4f} Hz {r2:+.3f} Hz/s @ "
+              f"{t2:.4f} samples")
+    if args.num_peaks > 1 and not rate_lattice:
         _run_lattice(needle, haystack, freqs, full, args)
     return 0
+
+
+def _run_rate_grid(needle, haystack, freqs, full: bool, rates, rate_step,
+                   args) -> None:
+    """``run --rate-grid``: over the whole capture the segmented rate
+    engine (the serial scan when it raises an ``EngineError``), with
+    ``--num-peaks`` its lattice in place of the first-order one (each
+    row refined by ``refine_peak_rate`` under ``--refine``); on the
+    truncated pair the dechirp bank.  A single answer is then refined
+    by ``refine_peak_rate``, bracketed at one rate step."""
+    from caf_cookoff_tpu_torch.config import xcor_length
+    from caf_cookoff_tpu_torch.models import rate as rt
+    from caf_cookoff_tpu_torch.ops.peak import unwrap_lag
+    from caf_cookoff_tpu_torch.ops.refine import refine_peak_rate
+
+    fs, dev = args.fs, args.device
+    note = ("note: rate grid outside the segmented envelope ({}); using "
+            "the serial scan")
+
+    def refined(f_hz, lag, rate):
+        return refine_peak_rate(needle, haystack, f_hz, lag, fs,
+                                rate0_hz_per_s=rate,
+                                max_rate_hz_per_s=rate_step,
+                                coarse_step_hz=args.freq_step, device=dev)
+
+    if full and args.num_peaks > 1:
+        min_snr = _parse_min_snr(args.min_snr_db)
+        kw = dict(min_snr_db=min_snr, with_snr=True, device=dev)
+        try:
+            rr, fr, lg, vv, snr = rt.stein_rate_os_peaks(
+                needle, haystack, freqs, rates, fs, args.num_peaks, **kw)
+        except EngineError as exc:
+            print(note.format(exc), file=sys.stderr)
+            rr, fr, lg, vv, snr = rt.rate_overlap_save_peaks(
+                needle, haystack, freqs, rates, fs, args.num_peaks, **kw)
+
+        def suffix(i):
+            f2, r2, t2, _ = refined(float(fr[i]), int(lg[i]), float(rr[i]))
+            return f"  refined {f2:+9.4f} Hz {r2:+8.3f} Hz/s @ {t2:.4f}"
+
+        _print_lattice([(float(f), int(l), float(v), float(s))
+                        for f, l, v, s in zip(fr, lg, vv, snr)],
+                       args.num_peaks, min_snr, args.min_snr_db,
+                       suffix if args.refine else None, rates=rr,
+                       what="rate-lattice")
+        return
+    if full:
+        try:
+            r_c, f_c, lag_c, v_c = rt.stein_rate_os_peak(
+                needle, haystack, freqs, rates, fs, device=dev)
+        except EngineError as exc:
+            print(note.format(exc), file=sys.stderr)
+            r_c, f_c, lag_c, v_c = rt.rate_overlap_save_peak(
+                needle, haystack, freqs, rates, fs, device=dev)
+    else:
+        n = len(needle)
+        r_c, f_c, lag_c, v_c = rt.rate_caf_peak(needle, haystack[:n], freqs,
+                                                rates, fs, device=dev)
+        lag_c = unwrap_lag(lag_c, xcor_length(n), n)
+    print(f"Rate-bank peak: {f_c:+.3f} Hz {r_c:+.1f} Hz/s "
+          f"@ lag {lag_c} ({v_c:.5g})")
+    f2, r2, t2, _ = refined(f_c, lag_c, r_c)
+    print(f"Second-order estimate: {f2:+.4f} Hz {r2:+.3f} Hz/s @ {t2:.4f} "
+          f"samples")
 
 
 def _full_haystack_peak(needle, haystack, freqs, args):
@@ -237,10 +348,6 @@ def cmd_batch(args) -> int:
     from caf_cookoff_tpu_torch.models.overlap_save import overlap_save_peak
     from caf_cookoff_tpu_torch.utils.io import load_c64
 
-    missing = _not_ported(args)
-    if missing:
-        print(f"error: {missing}", file=sys.stderr)
-        return 2
     parsed = []
     for spec in args.pairs:
         if ":" not in spec:
@@ -264,6 +371,10 @@ def cmd_batch(args) -> int:
     cap_lens = [len(c) for c in captures]     # before any padding
     longest = max(len(c) for c in captures)
     full = args.full_haystack and longest > n
+    # --refine reads past any truncation: the whole captures, zero-padded
+    # to one length.
+    captures_full = np.stack([np.pad(c, (0, longest - len(c)))
+                              for c in captures])
     if full:
         if any(len(c) <= n for c in captures):
             print("error: --full-haystack needs every capture longer than "
@@ -296,6 +407,9 @@ def cmd_batch(args) -> int:
                 "lag_ms": int(lg[i]) / fs * 1e3,
                 "peak_value": float(vv[i])}
                for i, (n_path, c_path) in enumerate(parsed)]
+    if args.refine:
+        _batch_refine(records, np.stack(needles), captures_full, fr, lg,
+                      full, args)
     if args.num_peaks > 1:
         lattices = _batch_lattices(np.stack(needles), np.stack(captures),
                                    cap_lens, freqs, full, args)
@@ -306,13 +420,38 @@ def cmd_batch(args) -> int:
         print(json.dumps(records, indent=2))
         return 0
     for r in records:
-        print(f"{r['needle']} x {r['capture']}: "
-              f"{r['freq_hz']:+9.3f} Hz @ lag {r['lag_samples']:>7d} "
-              f"({r['lag_ms']:.4f} ms)  peak {r['peak_value']:.5g}")
+        line = (f"{r['needle']} x {r['capture']}: "
+                f"{r['freq_hz']:+9.3f} Hz @ lag {r['lag_samples']:>7d} "
+                f"({r['lag_ms']:.4f} ms)  peak {r['peak_value']:.5g}")
+        if args.refine:
+            line += (f"  refined {r['refined_freq_hz']:+9.4f} Hz @ "
+                     f"{r['refined_lag_samples']:.4f}")
+        print(line)
         for p, peak in enumerate(r.get("peaks", ())):
             print(f"    peak {p + 1}: {peak['freq_hz']:+9.3f} Hz @ lag "
                   f"{peak['lag_samples']:>7d}  ({peak['peak_value']:.5g})")
     return 0
+
+
+def _batch_refine(records, needles, captures_full, fr, lg, full: bool,
+                  args) -> None:
+    """``batch --refine``: one batched zoom over every pair's answer
+    against the whole captures (truncated-pair circular lags unwrapped
+    first); adds ``refined_freq_hz`` / ``refined_lag_samples`` to each
+    record."""
+    from caf_cookoff_tpu_torch.config import xcor_length
+    from caf_cookoff_tpu_torch.ops.peak import unwrap_lag
+    from caf_cookoff_tpu_torch.ops.refine import refine_peaks
+
+    n = needles.shape[-1]
+    lags = np.array([int(v) if full else unwrap_lag(v, xcor_length(n), n)
+                     for v in lg], np.int64)
+    f_ref, t_ref, _ = refine_peaks(needles, captures_full, fr, lags, args.fs,
+                                   coarse_step_hz=args.freq_step,
+                                   device=args.device)
+    for rec, f, t in zip(records, f_ref, t_ref):
+        rec["refined_freq_hz"] = float(f)
+        rec["refined_lag_samples"] = float(t)
 
 
 def _batch_lattices(needles, captures, cap_lens, freqs, full: bool, args):
@@ -503,9 +642,17 @@ def build_parser() -> argparse.ArgumentParser:
                    "--num-peaks listings: 'auto' (from the searched cell "
                    "count at 1e-3 false alarm), 'none', or a dB value")
     r.add_argument("--refine", action="store_true",
-                   help="zoom re-score: not ported yet")
+                   help="zoom re-score the peak (and each --num-peaks row) "
+                   "to continuous (freq, lag)")
+    r.add_argument("--rate", action="store_true",
+                   help="also estimate a linear doppler rate (Hz/s) by the "
+                   "second-order (freq, rate, lag) zoom")
     r.add_argument("--rate-grid", metavar="START:STOP:STEP",
-                   help="rate search: not ported yet")
+                   help="search this rate grid (Hz/s): the dechirp bank on "
+                   "the truncated pair, the segmented rate engine (serial "
+                   "scan as its fallback) with --full-haystack, and with "
+                   "--num-peaks N the N strongest accelerating emitters; "
+                   "then the joint (freq, rate, lag) refine")
     r.add_argument("--device", default=None, help=_DEVICE_HELP)
     r.set_defaults(fn=cmd_run)
 
@@ -526,7 +673,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="per-pair detection threshold for --num-peaks "
                     "lattices: 'auto', 'none', or a dB value")
     bt.add_argument("--refine", action="store_true",
-                    help="zoom re-score: not ported yet")
+                    help="batched zoom re-score of every pair's answer to "
+                    "continuous (freq, lag)")
     bt.add_argument("--device", default=None, help=_DEVICE_HELP)
     bt.set_defaults(fn=cmd_batch)
 

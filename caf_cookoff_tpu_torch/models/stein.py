@@ -179,7 +179,8 @@ def _refine_topk(needle, haystack, freqs_all, rowmax_coarse, sample_rate,
                    lag_idx=torch.argmax(exact[best]).to(torch.int32))
 
 
-def _plan_bands(sample_rate: float, freqs_hz: np.ndarray):
+def _plan_bands(sample_rate: float, freqs_hz: np.ndarray,
+                margin_hz: float = 0.0, d_cap: Optional[int] = None):
     """Band partition for wide-span grids, or ``None`` if infeasible.
 
     Only uniform grids band cleanly: every band then shares one relative
@@ -188,6 +189,10 @@ def _plan_bands(sample_rate: float, freqs_hz: np.ndarray):
     block-constant phase envelope.  Per lag column stage A costs ~4N MACs per
     band and the synthesis ~4*kb*N/D, so ``s*(1 + kb/D)`` (units of 4N)
     is evaluated at every pow2 block length and the cheapest wins.
+
+    ``margin_hz`` shrinks every band by an allowance consumed elsewhere
+    (the rate engines' ``|r|_max * T`` dechirp drift); ``d_cap`` excludes
+    block lengths above it (their quadratic-residual cap).
     """
     k = len(freqs_hz)
     if k < 2:
@@ -198,13 +203,20 @@ def _plan_bands(sample_rate: float, freqs_hz: np.ndarray):
         return None
     best = None
     for cand in (8, 16, 32, 64, 128):
+        if d_cap is not None and cand > d_cap:
+            continue
         # Widest band the phase-error envelope allows at this D:
-        # rel_max <= fs/(4D)  =>  kb <= 2*(fs/(4D))/g.
-        kb_c = max(1, int(2.0 * (sample_rate / (4.0 * cand)) / g))
+        # rel_max + margin <= fs/(4D)  =>  kb <= 2*(fs/(4D) - margin)/g.
+        width = sample_rate / (4.0 * cand) - float(margin_hz)
+        if width <= 0:
+            continue
+        kb_c = max(1, int(2.0 * width / g))
         s_c = -(-k // kb_c)
         cost = s_c * (1.0 + kb_c / cand)
         if best is None or cost < best[0]:
             best = (cost, cand, kb_c)
+    if best is None:
+        return None
     _, d, kb = best
     s = -(-k // kb)
     f0 = float(freqs_hz[0])
@@ -216,7 +228,8 @@ def _plan_bands(sample_rate: float, freqs_hz: np.ndarray):
             "centers": centers, "rel": rel}
 
 
-def _band_routing(sample_rate, freqs_np, d: Optional[int]):
+def _band_routing(sample_rate, freqs_np, d: Optional[int], *,
+                  margin_hz: float = 0.0, d_cap: Optional[int] = None):
     """Banded-vs-plain routing of the windowed engines.
 
     ``d`` is the plain-envelope block length (``None`` when the plain
@@ -225,9 +238,11 @@ def _band_routing(sample_rate, freqs_np, d: Optional[int]):
     ``rel=freqs_pad=freqs``) for the plain route, the band plan's arrays
     otherwise; ``d_eff`` is ``None`` when neither route is eligible.
     The banded route wins when the cost model (``s*(1 + kb/D)`` vs
-    ``1 + K/D``) says it is at least ~10% cheaper.
+    ``1 + K/D``) says it is at least ~10% cheaper.  ``margin_hz`` and
+    ``d_cap`` go to :func:`_plan_bands`.
     """
-    plan = _plan_bands(float(sample_rate), freqs_np)
+    plan = _plan_bands(float(sample_rate), freqs_np, margin_hz=margin_hz,
+                       d_cap=d_cap)
     use_banded = False
     if plan is not None:
         if d is None:

@@ -1,11 +1,12 @@
 """Build and load the package's CUDA kernels (nvcc + ctypes).
 
 The kernels live in ``caf_cookoff_tpu_torch/csrc/*.cu`` behind a plain
-C interface, so nvcc compiles them in seconds (no PyTorch headers); one
-nvcc call builds every source into one shared library, at first use,
-into ``build/torch_kernels/`` under the checkout, named by a hash of the
-sources and flags so an edited source rebuilds.  Nothing here runs at
-import time: the CPU tests import every module on machines without nvcc.
+C interface, so nvcc compiles them in seconds (no PyTorch headers): one
+nvcc process per source, all started together, then one link into a
+shared library, at first use, into ``build/torch_kernels/`` under the
+checkout, named by a hash of the sources and flags so an edited source
+rebuilds.  Nothing here runs at import time: the CPU tests import every
+module on machines without nvcc.
 """
 
 from __future__ import annotations
@@ -22,10 +23,11 @@ from typing import Optional
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 SOURCES = (PACKAGE_DIR / "csrc" / "fused_stein.cu",
-           PACKAGE_DIR / "csrc" / "caf_filterbank.cu")
+           PACKAGE_DIR / "csrc" / "caf_filterbank.cu",
+           PACKAGE_DIR / "csrc" / "roofline_epilogue.cu")
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -54,28 +56,42 @@ def library_path() -> Path:
 
 def build_library(verbose: bool = False) -> Path:
     """Compile the sources unless a library for them exists; returns its
-    path.  When it compiles, ``verbose`` adds ``-Xptxas -v`` (registers,
-    shared memory, spills per kernel) and prints nvcc's output."""
+    path.  Each source compiles in its own nvcc process, all at once;
+    when it compiles, ``verbose`` adds ``-Xptxas -v`` (registers, shared
+    memory, spills per kernel) and prints nvcc's output."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # Compile to a temporary name and rename: concurrent processes never
-    # load a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *map(str, SOURCES)]
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
+        objs = [Path(tmp_dir) / f"{src.stem}.o" for src in SOURCES]
+        cmds = [[nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+                 "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        logs = [proc.communicate()[0] for proc in procs]
+        for cmd, proc, log in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{log}")
+        # Link to a temporary name and rename: concurrent processes never
+        # load a half-written library.
+        tmp = Path(tmp_dir) / out.name
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(link)}\n{proc.stdout}"
+                               f"{proc.stderr}")
+        os.replace(tmp, out)
     if verbose:
-        print(f"nvcc: {time.perf_counter() - t0:.1f} s -> {out}")
-        print((proc.stdout + proc.stderr).strip())
+        print(f"nvcc: {time.perf_counter() - t0:.1f} s ({len(SOURCES)} "
+              f"sources in parallel, then one link) -> {out}")
+        print("\n".join(log.strip() for log in logs if log.strip()))
     return out
 
 
@@ -102,6 +118,9 @@ def load_library() -> ctypes.CDLL:
     lib.caf_filterbank_surface.argtypes = [vp, ci, vp, vp, vp, ci, ci, vp,
                                            vp]
     lib.caf_filterbank_surface.restype = ci
+    # out, rows, cols, sweeps, seed, stream
+    lib.caf_epilogue_roofline.argtypes = [vp, ci, ci, ci, ctypes.c_float, vp]
+    lib.caf_epilogue_roofline.restype = ci
     lib.caf_cuda_error_string.argtypes = [ci]
     lib.caf_cuda_error_string.restype = ctypes.c_char_p
     _LIB = lib

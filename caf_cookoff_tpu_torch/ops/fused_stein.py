@@ -83,6 +83,30 @@ def stein_synthesis_weights(freqs_hz, sample_rate, num_blocks: int,
     return (torch.cat([wr, -wi], dim=1), torch.cat([wi, wr], dim=1))
 
 
+def stein_rate_synthesis_weights(freqs_hz, rates_hz_per_s, sample_rate,
+                                 num_blocks: int, block_len: int,
+                                 device=None):
+    """(ws1, ws2) with the rate axis folded into synthesis rows (K1 mode
+    (f)): ``w[i*K + k, b] = -(2 pi f_k t_b + pi r_i t_b^2)``, ``t_b`` the
+    block centres in seconds, rows rate-major, built in f32.  Stage A is
+    shared by every (rate, doppler) row; callers fold ``|r|_max * T``
+    into the block-length envelope (``models/rate._rate_block_len``)."""
+    f32 = torch.float32
+    if device is None and isinstance(freqs_hz, torch.Tensor):
+        device = freqs_hz.device
+    tb = torch.as_tensor(
+        np.arange(num_blocks) * block_len + (block_len - 1) / 2.0,
+        dtype=f32, device=device) / torch.tensor(sample_rate, dtype=f32,
+                                                 device=device)
+    f = torch.as_tensor(freqs_hz, dtype=f32, device=device)
+    r = torch.as_tensor(rates_hz_per_s, dtype=f32, device=device)
+    w = (-(2.0 * math.pi)) * (f[None, :, None] * tb[None, None, :]) \
+        - math.pi * (r[:, None, None] * (tb * tb)[None, None, :])
+    w = w.reshape(-1, num_blocks)
+    wr, wi = torch.cos(w), torch.sin(w)
+    return (torch.cat([wr, -wi], dim=1), torch.cat([wi, wr], dim=1))
+
+
 def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 

@@ -7,12 +7,14 @@ Phases, each reported on its own line:
 
 1. device — fails unless torch sees a CUDA card; prints the card and
    ``nvidia-smi``'s name and power limit; TF32 off for matmuls and cuDNN.
-2. build  — compiles every ``csrc/*.cu`` with one nvcc call from this
-   checkout, printing ``-Xptxas -v`` (registers, shared memory, spills).
+2. build  — compiles every ``csrc/*.cu`` of this checkout, one nvcc
+   process per source, all at once, then one link, printing ``-Xptxas
+   -v`` (registers, shared memory, spills).
 3. kernel — each kernel against its plain PyTorch version on the card:
-   K1, the fused Stein rank (same bf16 roundings), at chirp_0's main-path
-   shape (400 bins, N = 4096, M = 8192, D = 64), a random two-pair shape
-   and the cross-tile tie case (lowest lag wins); K2, the fused
+   K1, the fused Stein rank (same bf16 roundings; every lag the plain
+   surface's lowest-lag argmax), at chirp_0's main-path shape (400 bins,
+   N = 4096, M = 8192, D = 64), a random two-pair shape and the
+   cross-tile tie case (lowest lag wins); K2, the fused
    filterbank peak rows, at chirp_0's 400 x 8192, a random K = 37,
    M = 2048 shape, N = 5000 (M = 16384) and an all-zero input (every lag
    ties: lag 0 wins); K3, the fused filterbank surface, at 400 x 8192.
@@ -53,13 +55,30 @@ Phases, each reported on its own line:
    its rows, pairs 0 and 15 held to the cuFFT lattice scan
    ``batched_overlap_save_peaks_local``.  K1's launch count, set to 0
    before each path, must rise.
-9. times  — CUDA-event medians, after warm-up, of each kernel's wrapper,
+9. rate   — K1 mode (f) (rate-major synthesis rows, 9 rates x 306-bin
+   bands = 2754 rows, 56 programs) at rate3's full shape against its
+   plain version, in (c+d+f) and (c+d+e+f), every lag identical; then
+   the rate workloads through the public engines: rate3
+   (``docs/bench_rate.py``'s recipe) through ``stein_rate_os_peak`` and
+   the serial ``rate_overlap_save_peak``, both exact, then
+   ``refine_peak_rate`` within 0.1 Hz/s and 0.1 samples; ratelat3 (a
+   second emitter) through ``stein_rate_os_peaks``, its emitters the
+   first two rows and equal to ``rate_overlap_save_peaks``'; rate1 (a
+   needle-length window) through ``rate_caf_peak`` (cuFFT, no kernel).
+   K1's launch count, set to 0 before each segmented path, must rise.
+10. refine — the ten goldens through ``refine_peak`` on the card, within
+   0.01 Hz and 0.1 samples of the injected truth.
+11. K4     — the epilogue microbenchmark (``utils/roofline``) against its
+   plain version bit for bit, then ``roofline.measure`` (its launch
+   count, set to 0 before, must rise).
+12. times  — CUDA-event medians, after warm-up, of each kernel's wrapper,
    its plain version and its library yardstick at the main path's
    shape, of K1 at each config's shape (where it is first held against
    its plain version as in phase 3), of K1(e) at both lattice shapes,
-   and of whole ``caf_peak``, config and lattice calls and the cuFFT
-   lattice scan per pair (host included), each printed beside the
-   card's name and power limit.
+   of K1 (f) and (e+f) at rate3's, of K4, and of whole ``caf_peak``,
+   config, lattice, rate-engine and refine calls and the cuFFT
+   yardsticks (host included), each printed beside the card's name and
+   power limit.
 
 Then a JSON line describing each kernel (with its bound from this run's
 shapes), and as the last line ``{"ok": true, "device": {...}}``.  Any
@@ -86,10 +105,10 @@ FS = 48_000.0
 # (1.2e-7 measured on the H100).  A kernel that skips a rounding, sums in
 # bf16 or drops a segment is off by 1e-3 or more.
 RTOL = 1e-5
-LAG_SHARE = 0.99    # least share of bins whose lag equals the plain argmax
 # K2/K3 vs plain versions: two f32 FFT algorithms (the kernel's radix-2,
 # cuFFT) that differ in the order of their sums (5.3e-7 rel and 3.4e-7 x
-# max measured on the H100).
+# max measured on the H100), so near-ties may order differently.
+LAG_SHARE = 0.99    # K2: least share of bins whose lag equals the plain one
 FB_RTOL = 1e-5      # per-bin peak values; the plain value at the kernel's lag
 FB_SURF_TOL = 1e-5  # surface max abs error, as a share of the surface max
 # H100 SXM peaks at 700 W (NVIDIA's data sheet): dense bf16 tensor cores,
@@ -222,21 +241,25 @@ def compare(label, ops, b, sup, m, **modes):
     kv, ki = fs.fused_stein_rank(*ops, b, sup, m, **modes)
     surf = surface_plain(ops, b, sup, m, **modes)
     torch.cuda.synchronize()
-    pv, pi = surf.max(dim=-1)
+    pv = surf.amax(dim=-1)
+    # The kernel's rule: the lowest lag attaining the maximum.
+    lag = torch.arange(surf.shape[-1], dtype=torch.int32, device=surf.device)
+    pi = torch.where(surf == pv[..., None], lag, surf.shape[-1]).amin(dim=-1)
     pv, pi = pv.T, pi.T
     check(bool(torch.isfinite(kv).all()), f"{label}: non-finite values")
     rel = ((kv - pv).abs() / pv).max().item()
     at = torch.gather(surf, 2, ki.T.long()[..., None])[..., 0].T
     lag_ok = bool((at >= (1 - RTOL) * pv).all())
-    share = (ki == pi).float().mean().item()
+    off = int((ki != pi).sum())
     err = (kv - pv).abs().max().item()
     print(f"[kernel] {label}: K={kv.shape[0]} P={kv.shape[1]} M={m}: "
           f"max rel err {rel:.3e} (tol {RTOL}), max abs err {err:.4g}, "
           f"plain value at kernel lag >= (1-{RTOL}) x max: {lag_ok}, "
-          f"exact lag matches {share:.4f} (least {LAG_SHARE})")
+          f"lags off the plain lowest-lag argmax {off} of {ki.numel()} "
+          f"(want 0)")
     check(rel <= RTOL, f"{label}: kernel values off the plain version")
     check(lag_ok, f"{label}: kernel lag not a (near-)maximum")
-    check(share >= LAG_SHARE, f"{label}: kernel lags off the plain argmax")
+    check(off == 0, f"{label}: kernel lags not the plain argmax")
     return err
 
 
@@ -661,14 +684,16 @@ def stein_bound_ms(ops, m, modes=None, top2=False):
 
 
 def k4_bound_ms():
-    """K4 (``docs/roofline_vpu.py``, still to port): a (416, 8192) f32
-    epilogue swept 64 times, 3 operations an element (mul, fma, max),
-    at the f32 peak, against its seed read and (416, 1) output written
-    once at the HBM rate.  Returns (ms, what bounds it)."""
-    ops = 416 * 8192 * 64 * 3.0
-    t_ops, t_bytes = ops / F32_FLOPS, (4 + 416 * 4) / HBM_BYTES
+    """K4: the (416, 8192) f32 pair swept 64 times, 6 operations an
+    element and sweep (2 offset adds, |R|^2's 2 mul and 1 add, 1 max),
+    at the f32 peak, against its (416,) output written once at the HBM
+    rate (nothing is read).  Returns (ms, what bounds it, GOP)."""
+    from caf_cookoff_tpu_torch.utils import roofline as rf
+
+    ops = rf.KP * rf.M * rf.REPEAT * float(rf.OPS_PER_ELEM)
+    t_ops, t_bytes = ops / F32_FLOPS, rf.KP * 4 / HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, (
-        "operations" if t_ops >= t_bytes else "bytes")
+        "operations" if t_ops >= t_bytes else "bytes"), ops / 1e9
 
 
 def filterbank_bound_ms(k, n, m, surface: bool):
@@ -1125,6 +1150,308 @@ def phase_lattice_times(lcfgs, shapes, launches, card):
     return rows
 
 
+RATES = np.arange(-200.0, 201.0, 50.0, dtype=np.float32)   # R = 9
+
+
+def rate_inputs():
+    """The rate workloads: rate3 (``docs/bench_rate.py:61-83``: config
+    3's shape, 9 trial rates, one emitter at 150 Hz/s), ratelat3 (rate3
+    with a second, weaker emitter) and rate1 (``tests/test_rate.py:34-48``:
+    a 412.34 Hz/s sweep in a needle-length window).  Name -> (needle,
+    haystack, freqs, rates, [(rate, freq, lag)] truths)."""
+    n, lags, k = 4096, 65536, 2000
+    rng = np.random.default_rng(3)
+    needle = (rng.standard_normal(n)
+              + 1j * rng.standard_normal(n)).astype(np.complex64)
+    hay = (1e-4 * (rng.standard_normal(lags + n)
+                   + 1j * rng.standard_normal(lags + n))).astype(np.complex64)
+    freqs = np.linspace(-500, 500, k, endpoint=False).astype(np.float32)
+    t = np.arange(n)
+
+    def add(h, f_hz, rate, lag, amp):
+        ph = 2 * np.pi * f_hz * t / FS + np.pi * rate * (t / FS) ** 2
+        h[lag:lag + n] += amp * (needle * np.exp(1j * ph)).astype(np.complex64)
+
+    e1 = (150.0, float(freqs[1234]), 30_000)
+    add(hay, e1[1], e1[0], e1[2], 3.0)
+    # The recipe searches 65536 lags of its lags + n samples: the last
+    # sample reaches no searched lag, so the captures end before it and
+    # the engines' default lag count is the recipe's.
+    hay = hay[:lags + n - 1]
+    cfg = {"rate3": (needle, hay.copy(), freqs, RATES, [e1])}
+    e2 = (-100.0, float(freqs[345]), 12_000)
+    add(hay, e2[1], e2[0], e2[2], 1.5)
+    cfg["ratelat3"] = (needle, hay, freqs, RATES, [e1, e2])
+    rng = np.random.default_rng(3)
+    needle = (rng.standard_normal(n)
+              + 1j * rng.standard_normal(n)).astype(np.complex64)
+    t_sec = np.arange(n) / FS
+    hay = (1e-4 * (rng.standard_normal(n)
+                   + 1j * rng.standard_normal(n))).astype(np.complex64)
+    hay[137:] += (needle * np.exp(2j * np.pi * 20.0 * t_sec + 1j * np.pi
+                                  * 412.34 * t_sec ** 2)
+                  ).astype(np.complex64)[:n - 137]
+    cfg["rate1"] = (needle, hay, np.arange(-100, 100, 0.5, dtype=np.float32),
+                    np.arange(-600.0, 601.0, 100.0), [(412.34, 20.0, 137)])
+    return cfg
+
+
+def rate_operands(cfg):
+    """K1's mode (f) operands at a rate workload's full shape, as
+    ``stein_rate_os_peak`` builds them: (ops with all R*Kb rows, b, sup,
+    m, modes, shape label)."""
+    import torch
+
+    from caf_cookoff_tpu_torch.models import batched_stein as bs
+    from caf_cookoff_tpu_torch.models import rate as rt
+    from caf_cookoff_tpu_torch.ops.fused_stein import (
+        stein_rate_synthesis_weights)
+
+    needle, hay, freqs, rates, _ = cfg
+    n = len(needle)
+    d, _, centers, rel, _ = rt._rate_routing(FS, freqs, rates, n, 64,
+                                             len(hay))
+    m = 2 * n
+    lags = len(hay) - n + 1
+    windows = -(-lags // m)
+    rel_t = torch.from_numpy(rel).to(DEVICE)
+    ops, b, sup, modes = bs._os_operands(
+        torch.from_numpy(needle).to(DEVICE)[None],
+        torch.from_numpy(hay).to(DEVICE)[None],
+        torch.from_numpy(centers).to(DEVICE), rel_t, FS, m, d, windows, lags)
+    ws1, ws2 = stein_rate_synthesis_weights(rel_t, rates, FS, b, d)
+    k = ws1.shape[0]
+    p_eff = modes["share_h"] * windows
+    return (ws1, ws2) + ops[2:], b, sup, m, modes, (
+        f"R={len(rates)} x Kb={len(rel)} = {k} rows, S={modes['share_h']} "
+        f"W={windows} P_eff={p_eff} M={m} D={d}; grid y {-(-k // 64)} "
+        f"bin tiles, partials {p_eff * k * (m // 128) * 8 / 1e6:.1f} MB, "
+        f"P_eff*K = {p_eff * k} (int)")
+
+
+def phase_kernel_rate(rcfgs):
+    """K1 mode (f) at rate3's full shape against its plain version with
+    the kernel's roundings: single (c+d+f) and top-2 (c+d+e+f); values
+    within RTOL, every lag identical."""
+    from caf_cookoff_tpu_torch.ops.peak import resolution_cell
+
+    cfg = rcfgs["rate3"]
+    ops, b, sup, m, modes, shape = rate_operands(cfg)
+    sep = resolution_cell(cfg[0], cfg[2], FS)[1]
+    print(f"[rate] rate3 K1 (f) operands: {shape}")
+    err = compare(f"K1 (c+d+f) at rate3 ({shape.split(';')[0]})", ops, b,
+                  sup, m, **modes)
+    got, err2 = compare_top2(f"K1 (c+d+e+f) at rate3", ops, b, sup, m, sep,
+                             **modes)
+    return (ops, b, sup, m, modes, shape, sep, got[1]), max(err, err2)
+
+
+def run_rate(name, cfg):
+    """One rate workload through its public engines on the card, gated;
+    returns (K1 launches of the segmented engine, its answer)."""
+    from caf_cookoff_tpu_torch import (caf_peak, rate_caf_peak,
+                                       rate_overlap_save_peak,
+                                       rate_overlap_save_peaks,
+                                       refine_peak_rate, stein_rate_os_peak,
+                                       stein_rate_os_peaks)
+    from caf_cookoff_tpu_torch.ops import fused_stein as fs
+    from caf_cookoff_tpu_torch.ops import pallas_caf as pc
+
+    needle, hay, freqs, rates, truths = cfg
+    if name == "rate1":
+        fs.LAUNCHES = pc.PEAK_LAUNCHES = pc.SURFACE_LAUNCHES = 0
+        r_c, f_c, lag_c, v_c = rate_caf_peak(needle, hay, freqs, rates, FS,
+                                             device=DEVICE)
+        launches = fs.LAUNCHES + pc.PEAK_LAUNCHES + pc.SURFACE_LAUNCHES
+        v1 = caf_peak(needle, hay, freqs, FS, backend="xla",
+                      device=DEVICE)[2]
+        want_r, want_f, want_l = truths[0]
+        print(f"[rate] rate1 rate_caf_peak: {r_c:+.1f} Hz/s, {f_c:+.3f} Hz, "
+              f"lag {lag_c}, value {v_c:.6g} = {v_c / v1:.3f} x the "
+              f"first-order peak (want lag {want_l}, rate within 100 of "
+              f"{want_r}, > 1.3 x); kernel launches {launches} (the dechirp "
+              f"bank runs on cuFFT, as the JAX package's runs on XLA)")
+        check(lag_c == want_l and abs(r_c - want_r) <= 100.0
+              and v_c > 1.3 * v1, "rate1 dechirp bank answer")
+        return 0, None
+    num = 3 if name == "ratelat3" else 1
+    fs.LAUNCHES = 0
+    t0 = time.perf_counter()
+    if num == 1:
+        got = stein_rate_os_peak(needle, hay, freqs, rates, FS, device=DEVICE)
+    else:
+        got = stein_rate_os_peaks(needle, hay, freqs, rates, FS, num,
+                                  device=DEVICE)
+    seconds = time.perf_counter() - t0
+    launches = fs.LAUNCHES
+    check(launches > 0, f"{name} did not launch K1")
+    if num == 1:
+        serial = rate_overlap_save_peak(needle, hay, freqs, rates, FS,
+                                        device=DEVICE)
+        print(f"[rate] {name}: stein_rate_os_peak {got} in {seconds:.2f} s "
+              f"(first call), K1 launches {launches}; serial "
+              f"rate_overlap_save_peak {serial}; want {truths[0]}")
+        check(got[:3] == serial[:3] == truths[0], f"{name} answers")
+        f2, r2, t2, _ = refine_peak_rate(
+            needle, hay, got[1], got[2], FS, rate0_hz_per_s=got[0],
+            max_rate_hz_per_s=float(rates[1] - rates[0]),
+            coarse_step_hz=float(freqs[1] - freqs[0]), device=DEVICE)
+        print(f"[rate] {name} refine_peak_rate: {f2:+.4f} Hz, {r2:+.4f} "
+              f"Hz/s, lag {t2:.4f} (want |r - 150| <= 0.1, |lag - 30000| "
+              f"<= 0.1)")
+        check(abs(r2 - 150.0) <= 0.1 and abs(t2 - 30_000) <= 0.1,
+              f"{name} refine_peak_rate")
+        return launches, got
+
+    def rows(out):
+        return [(float(r), float(f), int(l))
+                for r, f, l, v in zip(*out[:4]) if np.isfinite(v)]
+
+    serial = rows(rate_overlap_save_peaks(needle, hay, freqs, rates, FS, num,
+                                          device=DEVICE))
+    print(f"[rate] {name}: stein_rate_os_peaks rows {rows(got)} in "
+          f"{seconds:.2f} s (first call), K1 launches {launches}; serial "
+          f"rate_overlap_save_peaks rows {serial}; want {truths}")
+    check(rows(got)[:2] == serial[:2] == truths, f"{name} lattice rows")
+    return launches, got
+
+
+def phase_refine(pairs):
+    """The ten goldens through ``refine_peak`` on the card from the
+    cuFFT filterbank's 0.5 Hz answer: within 0.01 Hz and 0.1 samples of
+    each fixture's injected truth (``tests/test_refine.py:32-41``)."""
+    from caf_cookoff_tpu_torch import caf_peak, refine_peak
+    from caf_cookoff_tpu_torch.ops import fused_stein as fs
+    from caf_cookoff_tpu_torch.utils.io import load_c64, parse_ground_truth
+
+    freqs = np.arange(-100, 100, 0.5, dtype=np.float32)
+    worst, inputs = [0.0, 0.0], []
+    for n_path, h_path in pairs:
+        needle, hay = load_c64(n_path), load_c64(h_path)
+        gt = parse_ground_truth(h_path)
+        f0, lag0, _ = caf_peak(needle, hay[:len(needle)], freqs, FS,
+                               backend="xla", device=DEVICE)
+        fs.LAUNCHES = 0
+        f_hat, tau, value = refine_peak(needle, hay, f0, lag0, FS,
+                                        coarse_step_hz=0.5, device=DEVICE)
+        check(fs.LAUNCHES == 0 and value > 0, "refine_peak")
+        worst = [max(worst[0], abs(f_hat - gt.freq_hz)),
+                 max(worst[1], abs(tau - gt.lag_samples))]
+        inputs.append((needle, hay, f0, lag0))
+    print(f"[refine] 10 goldens through refine_peak on the card: worst "
+          f"|f - truth| {worst[0]:.5f} Hz (<= 0.01), |lag - truth| "
+          f"{worst[1]:.5f} samples (<= 0.1); the zooms are f32 matmuls, no "
+          f"kernel of the port")
+    check(worst[0] <= 0.01 and worst[1] <= 0.1, "refine_peak goldens")
+    return inputs
+
+
+def phase_kernel_k4():
+    """K4 against its plain version at (416, 8192), bit for bit, in both
+    compiled sweep counts; then its own path, ``roofline.measure``, with
+    the launch count zeroed just before."""
+    import torch
+
+    from caf_cookoff_tpu_torch.utils import roofline as rf
+
+    errs = []
+    for sweeps in (rf.REPEAT, 1):
+        got = rf.epilogue(sweeps=sweeps, seed=0.25, device=DEVICE)
+        want = rf.epilogue_plain(sweeps=sweeps, seed=0.25, device=DEVICE)
+        torch.cuda.synchronize()
+        errs.append((got - want).abs().max().item())
+        same = int((got == want).sum().item())
+        print(f"[kernel] K4 epilogue {rf.KP}x{rf.M}, {sweeps} sweep(s): "
+              f"max abs err {errs[-1]:.3g}, bit-identical rows {same} of "
+              f"{rf.KP}")
+        check(same == rf.KP, f"K4 ({sweeps} sweeps) off its plain version")
+    rf.LAUNCHES = 0
+    meas = rf.measure()
+    launches = rf.LAUNCHES
+    print(f"[kernel] K4 roofline.measure: {launches} launches, "
+          f"{meas['ops_per_s'] / 1e12:.3f} T f32 ops/s, epilogue floor "
+          f"{meas['epilogue_floor_us']:.3f} us")
+    check(launches > 0, "roofline.measure did not launch K4")
+    # A rate past the f32 peak means the compiler folded sweeps away.
+    check(0 < meas["ops_per_s"] <= F32_FLOPS,
+          "K4's operation rate is past the card's f32 peak")
+    return meas, launches, max(errs)
+
+
+def phase_rate_times(rcfgs, rshape, rate_launches, refine_inputs, card):
+    """K1 (f) and (e+f) at rate3's shape (wrapper, plain version, bound;
+    also three launches of 918 rows, the JAX package's row budget), the
+    rate engines' whole calls and the refiners'."""
+    from caf_cookoff_tpu_torch import (rate_overlap_save_peak, refine_peak,
+                                       refine_peak_rate, stein_rate_os_peak,
+                                       stein_rate_os_peaks)
+    from caf_cookoff_tpu_torch.ops import fused_stein as fs
+
+    ops, b, sup, m, modes, shape, sep, lag1 = rshape
+    needle, hay, freqs, rates, ((r_t, f_t, lag_t),) = rcfgs["rate3"]
+    t = {}
+    bound, by, gflop = stein_bound_ms(ops, m, modes)
+    t["k1"] = cuda_median_ms(lambda: fs.fused_stein_rank(*ops, b, sup, m,
+                                                         **modes), 10, 3)
+    third = ops[0].shape[0] // 3
+    t["k1_three"] = cuda_median_ms(lambda: [fs.fused_stein_rank(
+        ops[0][i * third:(i + 1) * third], ops[1][i * third:(i + 1) * third],
+        *ops[2:], b, sup, m, **modes) for i in range(3)], 10, 3)
+    t["k1_plain"] = cuda_median_ms(lambda: surface_plain(
+        ops, b, sup, m, **modes).max(dim=-1), 3, 1)
+    t["k1_top2"] = cuda_median_ms(lambda: fs.fused_stein_rank(
+        *ops, b, sup, m, want_top2=True, sep=sep, **modes), 10, 3)
+    t["k1_top2_plain"] = cuda_median_ms(lambda: top2_plain(
+        ops, b, sup, m, sep, **modes), 3, 1)
+    t["stein_rate_os_peak"] = cuda_median_ms(lambda: stein_rate_os_peak(
+        needle, hay, freqs, rates, FS, device=DEVICE), 5, 1)
+    t["stein_rate_os_peaks"] = cuda_median_ms(lambda: stein_rate_os_peaks(
+        *rcfgs["ratelat3"][:4], FS, 3, device=DEVICE), 5, 1)
+    t["rate_overlap_save_peak"] = cuda_median_ms(
+        lambda: rate_overlap_save_peak(needle, hay, freqs, rates, FS,
+                                       device=DEVICE), 5, 1)
+    n0, h0, f0, lag0 = refine_inputs[0]
+    t["refine_peak"] = cuda_median_ms(lambda: refine_peak(
+        n0, h0, f0, lag0, FS, coarse_step_hz=0.5, device=DEVICE), 20, 3)
+    t["refine_peak_rate"] = cuda_median_ms(lambda: refine_peak_rate(
+        needle, hay, f_t, lag_t, FS, rate0_hz_per_s=r_t,
+        max_rate_hz_per_s=float(rates[1] - rates[0]),
+        coarse_step_hz=float(freqs[1] - freqs[0]), device=DEVICE), 20, 3)
+    top2_bound = stein_bound_ms(ops, m, modes, top2=True)
+    rows = {"shape": shape, "sep": sep, "launches": rate_launches,
+            "ms": t["k1"], "ms_three_launches_918_rows": t["k1_three"],
+            "plain_ms": t["k1_plain"], "bound_ms": bound, "bound_by": by,
+            "gflop": gflop, "top2_ms": t["k1_top2"],
+            "top2_plain_ms": t["k1_top2_plain"],
+            "top2_bound_ms": top2_bound[0],
+            "recomputed_tiles": recompute_tiles(lag1, sep, m),
+            "call_ms": {k: t[k] for k in (
+                "stein_rate_os_peak", "stein_rate_os_peaks",
+                "rate_overlap_save_peak", "refine_peak",
+                "refine_peak_rate")}}
+    for what, ms in (
+            (f"K1 (c+d+f) fused_stein_rank wrapper, rate3: {shape}", t["k1"]),
+            ("K1 (c+d+f) in three launches of 918 rows (the JAX package's "
+             "row budget), rate3", t["k1_three"]),
+            ("K1 (c+d+f) plain version (surface with the kernel's roundings "
+             "and sums + max), rate3", t["k1_plain"]),
+            (f"K1 (c+d+f) bound ({by}, {gflop:.1f} GFLOP), rate3", bound),
+            (f"K1 (c+d+e+f) wrapper, rate3 sep={sep}", t["k1_top2"]),
+            ("K1 (c+d+e+f) plain version (+ top2_separated), rate3",
+             t["k1_top2_plain"]),
+            ("stein_rate_os_peak whole call, rate3 (host included)",
+             t["stein_rate_os_peak"]),
+            ("stein_rate_os_peaks whole call, ratelat3, 3 slots (host "
+             "included)", t["stein_rate_os_peaks"]),
+            ("rate_overlap_save_peak whole call, rate3 (the serial cuFFT "
+             "yardstick)", t["rate_overlap_save_peak"]),
+            ("refine_peak chirp_0 (host included)", t["refine_peak"]),
+            ("refine_peak_rate at rate3's emitter (host f64 polish "
+             "included)", t["refine_peak_rate"])):
+        print(f"[times] {what}: {ms:.4f} ms  [{card}]")
+    return rows
+
+
 def main() -> int:
     import_port()
     name, card = phase_device()
@@ -1145,38 +1472,63 @@ def main() -> int:
     err_top2, top2_shapes = phase_kernel_top2(lcfgs)
     lattice_launches = {name: run_lattice(name, cfg)
                         for name, cfg in lcfgs.items()}
+    rcfgs = rate_inputs()
+    rshape, err_rate = phase_kernel_rate(rcfgs)
+    rate_launches = {name: run_rate(name, rcfgs[name])[0]
+                     for name in ("rate3", "ratelat3", "rate1")}
+    del rate_launches["rate1"]      # the cuFFT dechirp bank: no kernel
+    refine_inputs = phase_refine(pairs)
+    k4, k4_launches, err4 = phase_kernel_k4()
     t = phase_times(head, fb_head, inputs, card)
     configs = phase_config_times(cfgs, config_launches, card)
     lattices = phase_lattice_times(lcfgs, top2_shapes, lattice_launches, card)
     for lattice, err in err_top2.items():
         lattices[lattice]["max_abs_err"] = err
+    rates = phase_rate_times(rcfgs, rshape, rate_launches, refine_inputs,
+                             card)
+    rates["max_abs_err"] = err_rate
     import torch
 
+    from caf_cookoff_tpu_torch.utils import roofline as rf
+
+    k4_plain = cuda_median_ms(lambda: rf.epilogue_plain(device=DEVICE), 10, 2)
+    for what, ms in (
+            (f"K4 epilogue ({k4['shape']}), 64 sweeps, device time a "
+             f"launch (CUDA graph of 20)", k4["ms"]),
+            ("K4 epilogue, 1 sweep, device time a launch", k4["ms_one_sweep"]),
+            ("K4 plain version (torch, 64 sweeps)", k4_plain)):
+        print(f"[times] {what}: {ms:.4f} ms  [{card}]")
     k, n = fb_head[2].shape[0], len(inputs[0][0])
     bound1, by1, _ = stein_bound_ms(head[0], head[3])
     bound2, by2 = filterbank_bound_ms(k, n, fb_head[3], surface=False)
     bound3, by3 = filterbank_bound_ms(k, n, fb_head[3], surface=True)
-    bound4, by4 = k4_bound_ms()
-    print(f"[bounds] K4 (docs/roofline_vpu.py, still to port): {bound4:.6f} "
-          f"ms ({by4}) at the published H100 peaks")
+    bound4, by4, gop4 = k4_bound_ms()
+    print(f"[bounds] K4: {bound4:.6f} ms ({by4}, {gop4:.3f} G f32 "
+          f"operations at the published H100 peak); measured "
+          f"{k4['ops_per_s'] / 1e12:.3f} T ops/s, epilogue floor "
+          f"{k4['epilogue_floor_us']:.3f} us  [{card}]")
     src = "caf_cookoff_tpu_torch/csrc/"
     print(json.dumps({"kernels": [{
         "name": "fused_stein_rank", "route": "cuda",
         "source": src + "fused_stein.cu",
         "replaces": "caf_cookoff_tpu/ops/pallas_stein.py:71",
         "launches": (launches1 + sum(config_launches.values())
-                     + sum(lattice_launches.values())),
+                     + sum(lattice_launches.values())
+                     + sum(rate_launches.values())),
         "max_abs_err": err1,
         "ms": t["k1"], "plain_ms": t["k1_plain"],
         "bound_ms": bound1, "bound_by": by1, "library_ms": None,
         "stage_b_bf16_matmul_ms": t["k1_matmul"],
         "modes": "(a) one pair, (b) pairs, (c) share_h, (d) windows + "
-                 "num_valid, (c+d), (e) want_top2 with (b) and (c+d)",
+                 "num_valid, (c+d), (e) want_top2 with (b) and (c+d), "
+                 "(f) rate-major synthesis rows with (c+d) and (c+d+e)",
         "launches_by_path": {"stein goldens": launches1,
-                             **config_launches, **lattice_launches},
+                             **config_launches, **lattice_launches,
+                             **rate_launches},
         "max_abs_err_modes_config3": err_modes,
         "configs": configs,
         "top2": lattices,
+        "rate": rates,
     }, {
         "name": "caf_peak_rows", "route": "cuda",
         "source": src + "caf_filterbank.cu",
@@ -1195,6 +1547,16 @@ def main() -> int:
         "bound_ms": bound3, "bound_by": by3, "library_ms": t["k3_library"],
         "library": "cuFFT filterbank rows + |.|^2",
         "launch_alone_ms": t["k3_alone"],
+    }, {
+        "name": "epilogue_roofline", "route": "cuda",
+        "source": src + "roofline_epilogue.cu",
+        "replaces": "docs/roofline_vpu.py:57",
+        "launches": k4_launches, "max_abs_err": err4,
+        "ms": k4["ms"], "plain_ms": k4_plain,
+        "bound_ms": bound4, "bound_by": by4, "library_ms": None,
+        "ms_one_sweep": k4["ms_one_sweep"], "ops_per_s": k4["ops_per_s"],
+        "ops_per_s_whole_launch": k4["ops_per_s_whole_launch"],
+        "epilogue_floor_us": k4["epilogue_floor_us"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -158,17 +158,22 @@ def test_batch_matches_jax_cli(fixture_pairs, capsys, full):
 
 
 def test_unported_options_name_the_roadmap_item(fixture_pairs, capsys):
+    """``--refine`` (ROADMAP item 11) and ``--rate-grid`` (item 12), once
+    refused with a "not ported yet" error, now run: exit 0 and print the
+    JAX CLI's refine, rate and lattice lines."""
     needle, haystack = map(str, fixture_pairs[0])
-    for argv, item in (
+    for argv, prefix in (
             (["run", needle, haystack, "--num-peaks", "2", "--refine"],
-             "item 11"),
+             "peak 1:"),
             (["run", needle, haystack, "--full-haystack",
-              "--rate-grid=-300:300:150"], "item 12"),
+              "--rate-grid=-300:300:150"], "Second-order estimate:"),
             (["batch", f"{needle}:{haystack}", "--num-peaks", "3",
-              "--refine"], "item 11")):
-        assert tcli.main(argv + ["--device", "cpu"]) == 2
-        err = capsys.readouterr().err
-        assert "not ported yet" in err and item in err
+              "--refine"], "    peak 1:")):
+        assert tcli.main(argv + ["--device", "cpu"]) == 0
+        out = capsys.readouterr()
+        assert "not ported yet" not in out.err
+        assert _lines(out.out, prefix)
+        assert "refined" in out.out or "Second-order" in out.out
 
 
 FS = 48_000.0
@@ -282,3 +287,157 @@ def test_batch_num_peaks_matches_jax_cli(tmp_path, capsys, full, min_snr):
             if ln.startswith("    peak")] == \
         [ln.split("  (")[0] for ln in want_txt.splitlines()
          if ln.startswith("    peak")]
+
+
+# ---------------------------------------------------------------------------
+# --refine, --rate and --rate-grid
+# ---------------------------------------------------------------------------
+
+_FLOAT = r"([-+]?\d+\.?\d*(?:e[-+]?\d+)?)"
+
+
+def _floats(line):
+    return [float(x) for x in re.findall(_FLOAT, line)]
+
+
+def _write_swept(tmp_path, tag, emitters, n=1024, total=8192, seed=8):
+    """A noise needle and a capture of its swept copies (f0 at the window
+    start, rate Hz/s, lag, amplitude), written as .c64 files."""
+    import numpy as np
+
+    from caf_cookoff_tpu_torch.utils.io import write_c64
+
+    rng = np.random.default_rng(seed)
+    needle = (rng.standard_normal(n)
+              + 1j * rng.standard_normal(n)).astype(np.complex64)
+    hay = (1e-4 * (rng.standard_normal(total)
+                   + 1j * rng.standard_normal(total))).astype(np.complex64)
+    t = np.arange(n)
+    for f0, rate, lag, amp in emitters:
+        end = min(lag + n, total)
+        hay[lag:end] += (amp * needle * np.exp(
+            2j * np.pi * f0 * t / FS + 1j * np.pi * rate * (t / FS) ** 2)
+        ).astype(np.complex64)[:end - lag]
+    paths = [str(tmp_path / f"{tag}_{x}.c64") for x in ("n", "c")]
+    write_c64(paths[0], needle)
+    write_c64(paths[1], hay)
+    return paths
+
+
+def _both(argv, capsys):
+    assert jcli.main(argv) == 0
+    want = capsys.readouterr().out
+    assert tcli.main(argv + ["--device", "cpu"]) == 0
+    return capsys.readouterr().out, want
+
+
+def test_run_refine_and_rate_match_jax_cli(fixture_pairs, capsys):
+    """``run --refine --rate`` on chirp_1's 1 Hz grid (the reference's
+    36.0 Hz snap of +35.99): the same result lines; both zoom estimates
+    within 0.01 Hz and 0.1 samples of the truth (78); the second-order
+    estimate, whose last stage is a host f64 polish in both packages,
+    within 1e-3 Hz, 0.05 Hz/s and 1e-3 samples of JAX's."""
+    needle, haystack = map(str, fixture_pairs[1])
+    got, want = _both(["run", needle, haystack, "--freq-start", "30",
+                       "--freq-stop", "40", "--freq-step", "1.0",
+                       "--refine", "--rate"], capsys)
+    for prefix in ("Frequency offset:", "Time offset:"):
+        assert _lines(got, prefix) == _lines(want, prefix)
+    for out in (got, want):
+        f_ref, t_ref = _floats(_lines(out, "Refined estimate:")[0])[:2]
+        assert abs(f_ref - 35.99) <= 0.01 and abs(t_ref - 78) <= 0.1
+    g, w = (_floats(_lines(out, "Second-order estimate:")[0])[:3]
+            for out in (got, want))
+    assert abs(g[0] - w[0]) <= 1e-3 and abs(g[1] - w[1]) <= 0.05
+    assert abs(g[2] - w[2]) <= 1e-3
+
+
+def _close_second_order(got_line, want_line):
+    g, w = _floats(got_line)[:3], _floats(want_line)[:3]
+    assert abs(g[0] - w[0]) <= 1e-3 and abs(g[1] - w[1]) <= 0.05
+    assert abs(g[2] - w[2]) <= 1e-3
+    return g
+
+
+@pytest.mark.parametrize("route", ["bank", "full", "lattice"])
+def test_run_rate_grid_matches_jax_cli(tmp_path, capsys, route):
+    """``run --rate-grid``: the dechirp bank on the truncated pair, the
+    segmented rate engine over the whole capture, and with ``--num-peaks
+    3 --refine`` its lattice with each row refined: integer fields
+    (rate, lag, bins) identical to the JAX CLI's, values within 1e-4,
+    refined floats within 1e-3 Hz, 0.05 Hz/s and 1e-3 samples."""
+    grid = ["--freq-start", "-100", "--freq-stop", "100", "--freq-step",
+            "1.0", "--rate-grid=-240:240:120"]
+    if route == "bank":
+        needle, cap = _write_swept(tmp_path, route, [(20.0, 240.0, 137, 1.0)],
+                                   n=2048, total=2048)
+        argv = ["run", needle, cap, *grid]
+    else:
+        emitters = [(25.0, 120.0, 3000, 1.0), (-60.0, -120.0, 6500, 0.6)]
+        needle, cap = _write_swept(tmp_path, route, emitters)
+        argv = ["run", needle, cap, "--full-haystack", *grid]
+        if route == "lattice":
+            argv += ["--num-peaks", "3", "--refine"]
+    got, want = _both(argv, capsys)
+    if route != "lattice":
+        g, w = (_lines(out, "Rate-bank peak:")[0] for out in (got, want))
+        assert g.split("(")[0] == w.split("(")[0]
+        assert _floats(g)[-1] == pytest.approx(_floats(w)[-1], rel=1e-4)
+        rate, lag = (137, 240.0) if route == "bank" else (3000, 120.0)
+        assert f"{lag:+.1f} Hz/s @ lag {rate}" in g
+        _close_second_order(_lines(got, "Second-order estimate:")[0],
+                            _lines(want, "Second-order estimate:")[0])
+        return
+    rows = [[ln for ln in out.splitlines() if ln.startswith("peak ")]
+            for out in (got, want)]
+    assert len(rows[0]) == len(rows[1]) == 3
+    assert _lines(got, "Detections:") == _lines(want, "Detections:") != []
+    for g, w in zip(*rows):
+        assert g.split("(")[0] == w.split("(")[0]       # freq, rate, lag
+        if "refined" in w:
+            gv, wv = _floats(g.split("(")[1]), _floats(w.split("(")[1])
+            assert gv[0] == pytest.approx(wv[0], rel=1e-4)
+            assert abs(gv[1] - wv[1]) <= 0.1                   # SNR dB
+            _close_second_order(g.split("refined")[1], w.split("refined")[1])
+    assert "+120.0 Hz/s @ lag   3000" in rows[0][0]
+    assert "-120.0 Hz/s @ lag   6500" in rows[0][1]
+
+
+def test_run_num_peaks_refine_matches_jax_cli(tmp_path, capsys):
+    """``run --full-haystack --num-peaks 2 --refine``: the JAX CLI's rows,
+    each refined within 0.01 Hz and 0.1 samples of its truth."""
+    truths = ((-30.0, 3000, 1.0), (45.0, 9000, 0.7))
+    needle, cap = _capture(tmp_path, "nr", truths)
+    got, want = _both(["run", needle, cap, *COARSE, "--full-haystack",
+                       "--num-peaks", "2", "--refine"], capsys)
+    rows = [[ln for ln in out.splitlines() if ln.startswith("peak ")]
+            for out in (got, want)]
+    for g, w, (f, lag, _) in zip(*rows, truths):
+        assert g.split("(")[0] == w.split("(")[0]
+        for line in (g, w):
+            f_ref, t_ref = _floats(line.split("refined")[1])[:2]
+            assert abs(f_ref - f) <= 0.01 and abs(t_ref - lag) <= 0.1
+
+
+@pytest.mark.parametrize("full", [False, True])
+def test_batch_refine_matches_jax_cli(fixture_pairs, capsys, full):
+    """``batch --refine`` over two goldens (equal-length, or whole
+    captures): the JAX CLI's records; both packages' refined estimates
+    within 0.01 Hz and 0.1 samples of the injected truth, read from the
+    whole captures."""
+    from caf_cookoff_tpu_torch.utils.io import parse_ground_truth
+
+    pairs = (fixture_pairs[0], fixture_pairs[3])
+    argv = ["batch", *[f"{n}:{h}" for n, h in pairs], "--freq-step", "0.25",
+            "--refine", "--json"] + (["--full-haystack"] if full else [])
+    got, want = (json.loads(out) for out in _both(argv, capsys))
+    for g, w, (_, h) in zip(got, want, pairs):
+        assert list(g) == list(w)
+        assert (g["freq_hz"], g["lag_samples"]) == \
+            (w["freq_hz"], w["lag_samples"])
+        gt = parse_ground_truth(h)
+        for rec in (g, w):
+            assert abs(rec["refined_freq_hz"] - gt.freq_hz) <= 0.01
+            assert abs(rec["refined_lag_samples"] - gt.lag_samples) <= 0.1
+    txt = _both([a for a in argv if a != "--json"], capsys)
+    assert all("  refined " in ln for out in txt for ln in out.splitlines())

@@ -650,3 +650,154 @@ def test_lattice_engines_on_card(card):
         [(float(grid[int(f)]), int(l)) for f, l in zip(pk.freq_idx,
                                                        pk.lag_idx)]
     np.testing.assert_allclose(vv[0], pk.value.cpu().numpy(), rtol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# K1 mode (f), the rate engines, the refiners, K4
+# ---------------------------------------------------------------------------
+
+
+def _rate_operands(rates, s=3, w=3, n=2048, kb=128, d=64, seed=6):
+    """K1 (c+d+f) operands on the card: ``s`` band needles and ``w``
+    windows of one capture (the last window cut short), rate-major rows
+    of a ``kb``-bin relative grid."""
+    from caf_cookoff_tpu_torch.models.batched_stein import (
+        _os_window_extensions)
+
+    rng = np.random.default_rng(seed)
+    m = 2 * n
+    needles, hays = _pairs(rng, s, n, hay_len=w * m + n)
+    nt = torch.from_numpy(needles).cuda()
+    ht = torch.from_numpy(hays[:1]).cuda()
+    b = n // d
+    lmat, sup = _needle_operator(nt.real, nt.imag, d)
+    h_ext = _os_window_extensions(ht.real, ht.imag, m, w,
+                                  fs.fused_span(b, sup, m))
+    rel = torch.linspace(-150.0, 150.0, kb, device="cuda")
+    ws1, ws2 = fs.stein_rate_synthesis_weights(rel, rates, FS, b, d)
+    nv = torch.tensor([m] * (w - 1) + [m - 777], dtype=torch.int32,
+                      device="cuda").repeat(s)
+    return (ws1, ws2, lmat, h_ext), b, sup, m, {
+        "windows": w, "share_h": s, "num_valid": nv}
+
+
+@pytest.mark.parametrize("top2", [False, True])
+def test_rate_rows_match_plain_on_card(card, top2):
+    """K1 (c+d+f) and (c+d+e+f) at 9 rates x 128 bins = 1152 rate-major
+    rows (18 bin tiles), 3 bands x 3 windows: the plain version's values
+    and every lag slot, bit for bit."""
+    rates = np.arange(-400.0, 401.0, 100.0, dtype=np.float32)
+    ops, b, sup, m, modes = _rate_operands(rates)
+    before = fs.LAUNCHES
+    got = fs.fused_stein_rank(*ops, b, sup, m, want_top2=top2, sep=3,
+                              **modes)
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES == before + 1
+    surf = fs.coarse_surface_plain(*ops, b, sup, m, emulate_bf16=True,
+                                   **modes)
+    if top2:
+        want = [t.T for t in fs.top2_separated(surf, 3)]
+    else:
+        v, i = surf.max(dim=-1)
+        want = [v.T, i.T.to(torch.int32)]
+    assert got[0].shape == (9 * 128, 9)
+    for g, w_ in zip(got, want):
+        assert torch.equal(g, w_)
+
+
+def _swept(emitters, n=2048, total=16384, seed=8):
+    rng = np.random.default_rng(seed)
+    needle = (rng.standard_normal(n)
+              + 1j * rng.standard_normal(n)).astype(np.complex64)
+    hay = (1e-4 * (rng.standard_normal(total)
+                   + 1j * rng.standard_normal(total))).astype(np.complex64)
+    t = np.arange(n)
+    for f0, rate, lag, amp in emitters:
+        hay[lag:lag + n] += (amp * needle * np.exp(
+            2j * np.pi * f0 * t / FS + 1j * np.pi * rate * (t / FS) ** 2)
+        ).astype(np.complex64)
+    return needle, hay
+
+
+def test_rate_engines_on_card_match_cpu(card):
+    """The rate engines on the card against their CPU runs (the kernel
+    in bf16 there, the plain version in f32 here): the same (rate, freq,
+    lag) answers and lattice rows, values within rtol 1e-4; the
+    segmented engines launch K1 once a call."""
+    from caf_cookoff_tpu_torch import (rate_caf_peak, rate_overlap_save_peak,
+                                       rate_overlap_save_peaks,
+                                       stein_rate_os_peak,
+                                       stein_rate_os_peaks)
+
+    freqs = np.linspace(-500, 500, 400, endpoint=False).astype(np.float32)
+    rates = np.arange(-240.0, 241.0, 60.0, dtype=np.float32)
+    emitters = [(float(freqs[317]), -180.0, 7000, 1.0),
+                (float(freqs[90]), 120.0, 2500, 0.6)]
+    needle, hay = _swept(emitters)
+    for fn, args in ((stein_rate_os_peak, ()), (rate_overlap_save_peak, ()),
+                     (stein_rate_os_peaks, (3,)),
+                     (rate_overlap_save_peaks, (3,))):
+        before = fs.LAUNCHES
+        got = fn(needle, hay, freqs, rates, FS, *args, device="cuda")
+        segmented = fn.__name__.startswith("stein")
+        assert fs.LAUNCHES - before == (1 if segmented else 0)
+        want = fn(needle, hay, freqs, rates, FS, *args, device="cpu")
+        if not args:
+            f0, rate, lag, _ = emitters[0]
+            assert got[:3] == want[:3] == (rate, f0, lag)
+            assert got[3] == pytest.approx(want[3], rel=1e-4)
+            continue
+        for g, w_ in zip(got[:3], want[:3]):
+            np.testing.assert_array_equal(g[:2], w_[:2])
+        np.testing.assert_allclose(got[3][:2], want[3][:2], rtol=1e-4)
+        assert [(float(r), float(f), int(l)) for r, f, l in
+                zip(*got[:3])][:2] == [(r, f, lag) for f, r, lag, _ in
+                                       emitters]
+    short = hay[6900:6900 + 2048]
+    got = rate_caf_peak(needle, short, freqs, rates, FS, device="cuda")
+    want = rate_caf_peak(needle, short, freqs, rates, FS, device="cpu")
+    assert got[:3] == want[:3]
+    assert got[3] == pytest.approx(want[3], rel=1e-4)
+
+
+def test_refiners_on_card(card):
+    """refine_peak on the ten goldens and refine_peak_rate on a swept
+    emitter, on the card: within the truth bounds of
+    ``tests/test_refine.py`` and of the CPU runs' (0.01 Hz, 0.1 samples;
+    0.05 Hz/s after the shared f64 polish)."""
+    from caf_cookoff_tpu_torch import refine_peak, refine_peak_rate
+    from caf_cookoff_tpu_torch.utils.io import parse_ground_truth
+
+    freqs = np.arange(-100, 100, 0.5, dtype=np.float32)
+    for n_path, h_path in ensure_fixtures(DATA):
+        needle, hay = load_c64(n_path), load_c64(h_path)
+        gt = parse_ground_truth(h_path)
+        f0, lag0, _ = caf_peak(needle, hay[:len(needle)], freqs, FS,
+                               backend="xla", device="cuda")
+        got = refine_peak(needle, hay, f0, lag0, FS, device="cuda")
+        cpu = refine_peak(needle, hay, f0, lag0, FS, device="cpu")
+        assert abs(got[0] - gt.freq_hz) <= 0.01
+        assert abs(got[1] - gt.lag_samples) <= 0.1
+        assert abs(got[0] - cpu[0]) <= 0.01 and abs(got[1] - cpu[1]) <= 0.01
+    needle, hay = _swept([(35.99, 3.7, 1234, 1.0)], n=4096)
+    got = refine_peak_rate(needle, hay, 36.0, 1234, FS, device="cuda")
+    cpu = refine_peak_rate(needle, hay, 36.0, 1234, FS, device="cpu")
+    assert abs(got[0] - 35.99) <= 0.01 and abs(got[1] - 3.7) <= 0.25
+    assert abs(got[2] - 1234) <= 0.01
+    assert abs(got[0] - cpu[0]) <= 1e-3 and abs(got[1] - cpu[1]) <= 0.05
+
+
+@pytest.mark.parametrize("rows,cols,sweeps", [(416, 8192, 64), (416, 8192, 1),
+                                              (3, 1000, 64), (1, 1, 1)])
+def test_epilogue_roofline_matches_plain_on_card(card, rows, cols, sweeps):
+    """K4 against its plain version, bit for bit, at the TPU script's
+    shape and at ragged ones (a row not a multiple of the block)."""
+    from caf_cookoff_tpu_torch.utils import roofline as rf
+
+    before = rf.LAUNCHES
+    got = rf.epilogue(rows, cols, sweeps, seed=0.5, device="cuda")
+    want = rf.epilogue_plain(rows, cols, sweeps, seed=0.5, device="cuda")
+    assert rf.LAUNCHES == before + 1
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError):
+        rf.epilogue(rows, cols, 7, device="cuda")
