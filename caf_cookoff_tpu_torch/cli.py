@@ -23,7 +23,10 @@ listed row) to continuous (freq, lag), ``--rate`` adds a doppler rate;
 ``--rate-grid`` searches trial rates (the rate engines) and refines the
 answer in (freq, rate, lag).  ``batch`` runs many pairs through the
 batched Stein engines (``--num-peaks``: a lattice per pair; ``--refine``:
-one batched zoom).  Every verb
+one batched zoom).  ``run`` and ``batch`` read raw ``.c64`` or SigMF
+recordings (either sidecar; ``run --segment N`` picks one capture
+segment); a recording's ``core:sample_rate`` replaces the default
+``--fs`` and is warned about when an explicit ``--fs`` disagrees.  Every verb
 that computes runs on the CUDA card unless ``--device cpu`` asks for the
 CPU; ``bench`` times the card only.
 """
@@ -56,8 +59,9 @@ def _add_grid_args(p: argparse.ArgumentParser) -> None:
                    help="doppler grid stop, exclusive (Hz)")
     p.add_argument("--freq-step", type=float, default=BENCH_GRID.step_hz,
                    help="doppler grid step (Hz)")
-    p.add_argument("--fs", type=float, default=DEFAULT_SAMPLE_RATE,
-                   help="sample rate (Hz)")
+    p.add_argument("--fs", type=float, default=None,
+                   help=f"sample rate (Hz; default {DEFAULT_SAMPLE_RATE:g},"
+                   " or the recording's core:sample_rate for SigMF input)")
 
 
 def _grid(args) -> FreqGrid:
@@ -71,6 +75,58 @@ def cmd_generate(args) -> int:
                                                 seed=args.seed):
         print(f"{needle}  +  {haystack}")
     return 0
+
+
+def _load_signal(path: str, segment: Optional[int] = None):
+    """Raw ``.c64`` samples or a SigMF recording (either sidecar):
+    ``(samples, meta_fs)``, ``meta_fs`` the recording's own
+    ``core:sample_rate`` (``None`` for ``.c64``, which carries none).
+    ``segment`` selects one capture segment of a multi-capture SigMF
+    recording (sample indices then count from that segment's start)."""
+    from caf_cookoff_tpu_torch.utils.io import load_c64
+
+    if ".sigmf" in path:
+        from caf_cookoff_tpu_torch.utils.sigmf import read_sigmf
+
+        rec = read_sigmf(path)
+        if segment is not None:
+            return rec.segment(segment), (rec.sample_rate or None)
+        if len(rec.captures) > 1:
+            print(f"note: {path} has {len(rec.captures)} capture "
+                  f"segments; processing the whole stream (use "
+                  f"--segment N to select one)", file=sys.stderr)
+        return rec.samples, (rec.sample_rate or None)
+    if segment not in (None, 0):
+        raise ValueError("--segment applies only to SigMF recordings")
+    return load_c64(path), None
+
+
+def _effective_fs(args, *meta_rates) -> float:
+    """``--fs`` reconciled with the recordings' sample rates: a recorded
+    rate overrides the default (with a note) and loses to an explicit
+    ``--fs`` it disagrees with (with a warning: the user may be
+    relabelling the axis), since a silently wrong fs gives a confidently
+    wrong doppler axis."""
+    explicit = args.fs is not None
+    fs = args.fs if explicit else DEFAULT_SAMPLE_RATE
+    rates = {float(r) for r in meta_rates if r}
+    if not rates:
+        return fs
+    if len(rates) > 1:
+        print(f"WARNING: needle/haystack recordings disagree on "
+              f"core:sample_rate ({sorted(rates)}); using fs={fs:g}",
+              file=sys.stderr)
+        return fs
+    meta = rates.pop()
+    if abs(meta - fs) <= 1e-6 * max(meta, fs):
+        return fs
+    if not explicit:
+        print(f"note: using the recording's core:sample_rate "
+              f"{meta:g} Hz (no explicit --fs given)", file=sys.stderr)
+        return meta
+    print(f"WARNING: --fs={fs:g} != recording core:sample_rate "
+          f"{meta:g}; doppler estimates use --fs", file=sys.stderr)
+    return fs
 
 
 def _rate_grid(spec: str):
@@ -195,7 +251,6 @@ def cmd_run(args) -> int:
     from caf_cookoff_tpu_torch.models.filterbank import caf_peak
     from caf_cookoff_tpu_torch.ops.peak import unwrap_lag
     from caf_cookoff_tpu_torch.ops.refine import refine_peak, refine_peak_rate
-    from caf_cookoff_tpu_torch.utils.io import load_c64
 
     rate_grid = None
     if args.rate_grid:
@@ -204,8 +259,9 @@ def cmd_run(args) -> int:
             print(f"error: --rate-grid wants START:STOP:STEP, got "
                   f"{args.rate_grid!r}", file=sys.stderr)
             return 2
-    needle = load_c64(args.needle)
-    haystack = load_c64(args.haystack)
+    needle, n_fs = _load_signal(args.needle)
+    haystack, h_fs = _load_signal(args.haystack, segment=args.segment)
+    args.fs = _effective_fs(args, n_fs, h_fs)
     n = len(needle)
     freqs = _grid(args).frequencies(np.float32)
     engine, snr_db = None, None
@@ -346,7 +402,6 @@ def cmd_batch(args) -> int:
         batched_stein_os_peak, batched_stein_peak)
     from caf_cookoff_tpu_torch.models.filterbank import caf_peak
     from caf_cookoff_tpu_torch.models.overlap_save import overlap_save_peak
-    from caf_cookoff_tpu_torch.utils.io import load_c64
 
     parsed = []
     for spec in args.pairs:
@@ -355,8 +410,14 @@ def cmd_batch(args) -> int:
                   file=sys.stderr)
             return 2
         parsed.append(spec.split(":", 1))
-    needles = [load_c64(n_path) for n_path, _ in parsed]
-    captures = [load_c64(c_path) for _, c_path in parsed]
+    needles, captures, rates = [], [], []
+    for n_path, c_path in parsed:
+        nd, n_fs = _load_signal(n_path)
+        cp, c_fs = _load_signal(c_path)
+        needles.append(nd)
+        captures.append(cp)
+        rates.extend([n_fs, c_fs])
+    args.fs = _effective_fs(args, *rates)
     n_lens = {len(nd) for nd in needles}
     if len(n_lens) != 1:
         print(f"error: needles must share one length, got {n_lens}",
@@ -514,7 +575,8 @@ def cmd_bench(args) -> int:
                                                    run_benchmarks)
 
     results = run_benchmarks(
-        grid=_grid(args), sample_rate=args.fs, rounds=args.rounds,
+        grid=_grid(args), sample_rate=args.fs or DEFAULT_SAMPLE_RATE,
+        rounds=args.rounds,
         backends=args.backends.split(","), data_dir=args.data,
         device=args.device)
     micro = (apply_shift_microbench(device=args.device) if args.micro
@@ -623,11 +685,12 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--seed", type=int, default=0)
     g.set_defaults(fn=cmd_generate)
 
-    r = sub.add_parser("run", help="CAF one (needle, haystack) .c64 pair "
-                       "(haystack truncated to the needle length unless "
-                       "--full-haystack)")
-    r.add_argument("needle", help=".c64 needle (signal of interest)")
-    r.add_argument("haystack", help=".c64 haystack (capture)")
+    r = sub.add_parser("run", help="CAF one (needle, haystack) pair, .c64 "
+                       "or SigMF (haystack truncated to the needle length "
+                       "unless --full-haystack)")
+    r.add_argument("needle", help=".c64 or .sigmf needle (signal of "
+                   "interest)")
+    r.add_argument("haystack", help=".c64 or .sigmf haystack (capture)")
     _add_grid_args(r)
     r.add_argument("--backend", choices=BACKENDS, default="auto",
                    help=_BACKEND_HELP)
@@ -653,13 +716,16 @@ def build_parser() -> argparse.ArgumentParser:
                    "scan as its fallback) with --full-haystack, and with "
                    "--num-peaks N the N strongest accelerating emitters; "
                    "then the joint (freq, rate, lag) refine")
+    r.add_argument("--segment", type=int, default=None,
+                   help="capture segment index for multi-capture SigMF "
+                   "recordings (lags count from the segment start)")
     r.add_argument("--device", default=None, help=_DEVICE_HELP)
     r.set_defaults(fn=cmd_run)
 
-    bt = sub.add_parser("batch", help="CAF many needle:capture .c64 pairs "
-                        "through the batched Stein engines")
+    bt = sub.add_parser("batch", help="CAF many needle:capture pairs (.c64 "
+                        "or SigMF) through the batched Stein engines")
     bt.add_argument("pairs", nargs="+", metavar="NEEDLE:CAPTURE",
-                    help="colon-separated .c64 path pairs")
+                    help="colon-separated .c64 / .sigmf path pairs")
     _add_grid_args(bt)
     bt.add_argument("--backend", choices=BACKENDS, default="auto",
                     help="backend of the per-pair fallback runs")

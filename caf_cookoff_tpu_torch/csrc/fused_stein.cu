@@ -4,12 +4,12 @@
 //
 // Replaces caf_cookoff_tpu/ops/pallas_stein.py::_fused_stein_kernel
 // in modes (a) one pair, (b) many pairs, (c) share_h bands, (d) windows
-// with a per-program lag bound, (c) with (d), and (e) want_top2 with any
-// of them; lags always computed.
+// with a per-program lag bound, (c) with (d), (e) want_top2 with any of
+// them and (f) rate-major synthesis rows (tall K); lags always computed.
 //
 // Program i of P_eff = P * S * W runs band-major, i = (pair*S + band)*W
 // + w (S = share_h, W = windows); it reads the needle operator
-// lmat[i / W] and the haystack slice h_ext[(i / (S*W))*W + i % W]:
+// lmat[i / W] and the haystack slice h[(i / (S*W))*W + i % W]:
 //
 //   G[i, r, tau] = sum_{e<D} lmat[i/W, r, e]     * h[0, (r mod B)*D + e + tau]
 //                          + lmat[i/W, r, D + e] * h[1, (r mod B)*D + e + tau]
@@ -18,50 +18,65 @@
 //
 // with bound_i = min(num_valid[i], num_lags) when num_valid is given,
 // else num_lags.  Lags at or past the bound read -1.0 inside the max (a
-// program with bound 0 returns -1.0 at lag 0), so a strong correlation
-// past a window's range cannot shadow the bin's in-range peak.
+// program with bound 0 returns -1.0 at lag 0).
 //
-// Precision is the Pallas kernel's: ws1, ws2, lmat and h_ext rounded to
-// bf16, G rounded to bf16, every sum accumulated in f32.
+// Precision is the Pallas kernel's: ws1, ws2, lmat and h rounded to bf16
+// (a first small launch writes ws1, ws2 as bf16 and lmat, h as f32
+// holding bf16 values, which stage A copies with cp.async as they are),
+// G rounded to bf16, every sum accumulated in f32.  Stage A sums each G
+// element in a fixed order (tap e of the real plane, then of the
+// imaginary plane, e ascending, one fmaf each), so G is the plain
+// version's bit for bit; stage B sums on the tensor cores in their own
+// order, so |R|^2 is held to an error bound, not bit for bit
+// (ops/fused_stein.py::stage_b_error_bound).
 //
-// What bounds it on this card: arithmetic.  At the main path's shape
-// (K = 400 bins, 2B = 128 segment rows, 8192 lags, one pair) the
-// synthesis is 2 x 400 x 128 x 8192 = 0.84 G multiply-adds, stage A
-// 0.13 G, while the inputs are ~0.5 MB and G is 2 MB in bf16 (it stays
-// in the 50 MB L2 between launches).
+// What bounds it on this card: operations.  Per lag a program needs 2 x
+// 2K x 2B multiply-adds of stage B and 2B x 2D of stage A (rate3: 323 +
+// 15 GFLOP against ~10 MB of operands, far past the 295 operations a
+// byte where the memory stops being the limit).  Stage B runs on the
+// bf16 tensor cores; stage A must sum each G element in a fixed f32 order
+// and so runs on the FMA pipe, at a fifteenth of their rate: on an H100
+// SXM (utils/k1_study.py split) stage A alone takes about half of config
+// 2's time (2K = 800, 2D = 128), three quarters of config 4's (2K = 384,
+// 2D = 256) and a quarter of rate3's (2K = 5508).
 //
-// Design.  The TPU kernel walks its lag tiles in order inside one
-// program and carries a running max in VMEM; Hopper blocks run in no
-// order, so the work is three launches on one stream:
-//   1. stein_stage_a: one block per (program, segment, 128-lag tile) stages
-//      the haystack window and the two needle-tap rows in shared memory
-//      and writes G (P, 2B, m_pad) in bf16.
-//   2. stein_stage_b: one block per (program, 64-bin tile, 128-lag tile);
-//      the synthesis weights and a G tile are staged 32 rows at a time,
-//      each thread keeps 4 bins x 8 lags of Rr and Ri in registers
-//      (64 f32 FMA per 16 shared-memory reads), and the |R|^2 epilogue
-//      reduces each bin to (max, lowest lag) for the tile: in order
-//      within a thread, then by warp shuffles.
-//   3. stein_reduce_tiles: per (program, bin), the tiles in ascending lag
-//      order with a strict '>', so the lowest lag survives exact ties.
-//      For want_top2, stein_reduce_top2 instead: one warp per (program,
-//      bin) takes slot 1, (max, lowest lag), from the tile partials; slot
-//      2 is the max over lags with |lag - lag1| > sep (lowest lag on
-//      ties; (-1.0, 0) when there is none).  A tile wholly outside that
-//      window gives its partial, a tile wholly inside gives nothing, and
-//      the at most two tiles that straddle an edge of the window are
-//      recomputed from G, ws1 and ws2 with stage B's own arithmetic (the
-//      same fmaf order and mag2_rn), so their |R|^2 are stage B's bit
-//      for bit.  This is exact for any separation > sep, where the TPU
-//      kernel's greedy merge of 512-lag tiles is exact only past 2*sep;
-//      the recompute is 2 x 128 lags of a bin's m_pad (3% of stage B at
-//      8192 lags) and needs no |R|^2 buffer.
+// Design.  One launch does the work of modes (a)-(d) and (f): a block
+// per (program, 128-lag tile, bin split).
+//   Stage A (FMA pipe): the block builds its G tile, 2B rows x 128 lags
+//     in bf16, straight into shared memory, laid out [lag][row] so stage
+//     B reads it as the mma B operand.  The haystack window and the taps
+//     of 8 segments at a time arrive by cp.async into a double buffer
+//     (the next 8 segments load while these compute); each warp takes a
+//     segment, each thread 4 consecutive lags, reusing haystack samples
+//     from a 4-slot register ring (one shared load a plane and tap) and
+//     the taps as float4 broadcasts; the window is stored with a skew
+//     (i + i/4) so the ring's loads hit 32 banks.
+//   Stage B (tensor pipe): mma.sync.m16n8k16 bf16 x bf16 -> f32, not yet
+//     wgmma.  2B is padded to a multiple of 16 with zeros (exact).  A
+//     warp owns 8 bins x 128 lags: its A operand interleaves ws1 and ws2
+//     by 8 rows (rows g = ws1[bin g], g + 8 = ws2[bin g]), so Rr and Ri
+//     of one (bin, lag) land in one thread's accumulators (c0/c2, c1/c3)
+//     and |R|^2 (mag2_rn, no fma contraction) needs no shuffle.  The
+//     epilogue masks past the bound and reduces each bin to (max, lowest
+//     lag) in ascending lag order, then across the 4 lanes of a group.
+//   Reduce: a 64-bit atomicMax on an order-preserving key (value bits
+//     mapped to unsigned, then ~lag) gives (max, lowest lag) whatever the
+//     order the blocks finish in; a small launch decodes the keys.  No G
+//     and no per-tile partials reach device memory.
+//   Fill: where programs x tiles leave SMs idle (config 1: 64 tiles),
+//     the wrapper splits the bins over blocks (grid y); stage A repeats
+//     per split, ~4 MFLOP a tile.
+// Mode (e) keeps per-tile partials: the same launch writes each tile's
+// (max, lowest lag) instead of the atomic; stein_reduce_top2 takes slot 1
+// from them and slot 2 from the tiles wholly outside [lag1 - sep, lag1 +
+// sep]; stein_recompute_top2 rebuilds the G tile of each tile that
+// straddles an edge of that window from the operands and runs the same
+// tile product (the same device functions, tile shape, bin-group rows
+// and k order), so its |R|^2 equal the tile pass's bit for bit and an
+// exact tie across a recomputed tile still goes to the lowest lag; keys
+// merge both, and a decode launch writes slot 2.
 // The program axis is the grid's z, capped at 65535 by the hardware:
-// launches 1 and 2 go out in chunks of at most that many programs; the
-// reduces index programs globally.
-// Plain FMA loops, no tensor cores: wgmma/TMA and keeping G out of
-// device memory are later work (G is (P_eff, 2B, m_pad) bf16 in device
-// memory: 134 MB at 64 pairs x 128 rows x 8192 lags).
+// the tile launches go out in chunks of at most that many programs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,25 +84,67 @@
 #include <algorithm>
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
-constexpr int kLagTile = 128;   // lags per block in launches 1 and 2
-constexpr int kBinTile = 64;    // bins per stage-B block
-constexpr int kRowChunk = 32;   // synthesis rows staged per step
-constexpr int kThreadsB = 256;  // 16 (bin groups) x 16 (lag lanes)
-constexpr int kBinsPerThread = kBinTile / 16;   // 4
-constexpr int kLagsPerThread = kLagTile / 16;   // 8
-constexpr int kGridZMax = 65535;                // programs per launch
-constexpr int kWarpsTop2 = 8;                   // (program, bin)s per block
+constexpr int kLagTile = 128;               // lags per block
+constexpr int kThreads = 256;               // 8 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kSegChunk = kWarps;           // stage-A segments per buffer
+constexpr int kLagsPerThread = kLagTile / 32;   // stage A: 4
+constexpr int kBinGroup = 8;                // bins per warp in stage B
+constexpr int kBinPass = kWarps * kBinGroup;    // bins per block pass: 64
+constexpr int kNTiles = kLagTile / 8;       // n8 tiles per warp: 16
+constexpr int kGridZMax = 65535;            // programs per launch
+constexpr int kWarpsTop2 = 8;               // (program, bin)s per block
 
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
+__host__ __device__ constexpr int skew(int i) { return i + (i >> 2); }
+
+__host__ __device__ constexpr int pad16(int x) { return (x + 15) / 16 * 16; }
+
+// Shared-memory layout of a tile block (floats unless noted).
+struct TileSmem {
+  int g_stride;   // bf16 elements per G lag row: 2B padded to 16, + 8
+  int hay_len;    // floats per haystack plane buffer (skewed, mult. of 4)
+  int buf_len;    // floats per stage-A buffer: 2 planes + 8 segments' taps
+  size_t bytes;
+  __host__ __device__ TileSmem(int b2, int sup) {
+    g_stride = pad16(b2) + 8;
+    hay_len = (skew(kSegChunk * sup + kLagTile - 2) + 1 + 3) / 4 * 4;
+    buf_len = 2 * hay_len + kSegChunk * 4 * sup;
+    bytes = static_cast<size_t>(kLagTile) * g_stride * 2 +
+            2 * static_cast<size_t>(buf_len) * sizeof(float);
+  }
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // |R|^2 with explicit roundings: nvcc may not contract it into an fma,
-// so stage B and the top-2 recompute round it alike, as the plain
-// version's rr * rr + ri * ri does.
+// so the tile pass and the top-2 recompute round it alike.
 __device__ __forceinline__ float mag2_rn(float rr, float ri) {
   return __fadd_rn(__fmul_rn(rr, rr), __fmul_rn(ri, ri));
 }
@@ -111,199 +168,313 @@ __device__ __forceinline__ void warp_best(float& best, int& arg) {
   }
 }
 
-// Launch 1.  grid (m_pad / kLagTile, B, programs in this chunk),
-// kLagTile threads; program p = p_base + blockIdx.z; thread t owns lag
-// tau = tile * kLagTile + t of segment rows blk and B + blk.
-__global__ void __launch_bounds__(kLagTile) stein_stage_a(
-    const __nv_bfloat16* __restrict__ lmat, const float* __restrict__ h_ext,
-    __nv_bfloat16* __restrict__ g, int num_blocks, int sup, int h_len,
-    int m_pad, int windows, int share_h, int p_base) {
-  extern __shared__ float smem[];
-  const int tile = blockIdx.x, blk = blockIdx.y, p = p_base + blockIdx.z;
+// Order-preserving key: a larger value, or an equal value at a lower
+// lag, gives a larger key.  0 is below every key.
+__device__ __forceinline__ unsigned long long rank_key(float v, int lag) {
+  unsigned u = __float_as_uint(v);
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return (static_cast<unsigned long long>(u) << 32) |
+         static_cast<unsigned>(~lag);
+}
+
+__device__ __forceinline__ void key_decode(unsigned long long key, float& v,
+                                           int& lag) {
+  const unsigned u = static_cast<unsigned>(key >> 32);
+  v = __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
+  lag = static_cast<int>(~static_cast<unsigned>(key & 0xffffffffu));
+}
+
+// Stage A: the G tile of program p, lags [tau0, tau0 + kLagTile), rows
+// [0, 2B) into gs ([lag][row] bf16, row stride g_stride); rows [2B,
+// pad16(2B)) are zero.  All threads of the block take part; ends with a
+// barrier.  lmat and h hold bf16 values in f32.
+__device__ void build_g_tile(const float* __restrict__ lmat,
+                             const float* __restrict__ h, int p,
+                             int num_blocks, int sup, int h_len, int windows,
+                             int share_h, int tau0, const TileSmem& lay,
+                             __nv_bfloat16* gs, float* bufs) {
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int b2 = 2 * num_blocks, b2p = pad16(b2);
   // The TPU kernel's BlockSpec index maps.
   const int op = p / windows;
   const int slice = (p / (share_h * windows)) * windows + p % windows;
-  const int b2 = 2 * num_blocks;
-  const int win = kLagTile + sup - 1;
-  float* h0 = smem;            // haystack window, real plane
-  float* h1 = h0 + win;        // imaginary plane
-  float* top = h1 + win;       // taps of row blk (Re G)
-  float* bot = top + 2 * sup;  // taps of row B + blk (Im G)
+  const float* hp = h + static_cast<size_t>(slice) * 2 * h_len;
+  const float* lp = lmat + static_cast<size_t>(op) * b2 * 2 * sup;
 
-  const int start = blk * sup + tile * kLagTile;
-  const float* hp = h_ext + static_cast<size_t>(slice) * 2 * h_len;
-  for (int i = threadIdx.x; i < win; i += blockDim.x) {
-    h0[i] = round_bf16(hp[start + i]);
-    h1[i] = round_bf16(hp[h_len + start + i]);
+  for (int i = tid; i < kLagTile * (b2p - b2); i += kThreads) {
+    const int lag = i / (b2p - b2), r = b2 + i % (b2p - b2);
+    gs[lag * lay.g_stride + r] = __float2bfloat16_rn(0.f);
   }
-  const __nv_bfloat16* lp = lmat + static_cast<size_t>(op) * b2 * 2 * sup;
-  for (int i = threadIdx.x; i < 2 * sup; i += blockDim.x) {
-    top[i] = __bfloat162float(lp[static_cast<size_t>(blk) * 2 * sup + i]);
-    bot[i] = __bfloat162float(
-        lp[static_cast<size_t>(num_blocks + blk) * 2 * sup + i]);
-  }
-  __syncthreads();
 
-  const int t = threadIdx.x;
-  float acc_top = 0.f, acc_bot = 0.f;
-  for (int e = 0; e < sup; ++e) {
-    const float a = h0[t + e], c = h1[t + e];
-    acc_top = fmaf(top[e], a, acc_top);
-    acc_top = fmaf(top[sup + e], c, acc_top);
-    acc_bot = fmaf(bot[e], a, acc_bot);
-    acc_bot = fmaf(bot[sup + e], c, acc_bot);
+  const int chunks = (num_blocks + kSegChunk - 1) / kSegChunk;
+  // Chunk c's haystack window: h[tau0 + c*8*D + i], i < ns*D + 127, into
+  // both planes (skewed); its taps: rows b and B + b, 2D each, per
+  // segment.
+  auto stage_chunk = [&](int c) {
+    float* buf = bufs + (c & 1) * lay.buf_len;
+    const int b0 = c * kSegChunk;
+    const int ns = min(kSegChunk, num_blocks - b0);
+    const int len = ns * sup + kLagTile - 1;
+    const float* src = hp + tau0 + b0 * sup;
+    for (int i = tid; i < len; i += kThreads) {
+      cp_async4(buf + skew(i), src + i);
+      cp_async4(buf + lay.hay_len + skew(i), src + h_len + i);
+    }
+    float* taps = buf + 2 * lay.hay_len;
+    const int vec = 2 * sup / 4;          // 16-byte pieces a tap row
+    for (int i = tid; i < ns * 2 * vec; i += kThreads) {
+      const int s = i / (2 * vec), half = (i / vec) % 2, v = i % vec;
+      const int row = half * num_blocks + b0 + s;
+      cp_async16(taps + (s * 2 + half) * 2 * sup + 4 * v,
+                 lp + static_cast<size_t>(row) * 2 * sup + 4 * v);
+    }
+    cp_async_commit();
+  };
+
+  stage_chunk(0);
+  for (int c = 0; c < chunks; ++c) {
+    if (c + 1 < chunks) {
+      stage_chunk(c + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* buf = bufs + (c & 1) * lay.buf_len;
+    const int b = c * kSegChunk + warp;
+    if (b < num_blocks) {
+      const float* t_top = buf + 2 * lay.hay_len + warp * 4 * sup;
+      const float* t_bot = t_top + 2 * sup;
+      // Window sample off + k of plane 0 sits at buf[skew(off + k)]; off
+      // is a multiple of 4, so for e0 a multiple of 4 sample off + e0 + c
+      // sits at hb[c + c/4], hb = buf + skew(off + e0): fixed offsets.
+      const int off = warp * sup + kLagsPerThread * lane;
+      float r0[4], r1[4];               // ring: sample off + k in slot k%4
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        r0[k] = buf[skew(off) + k];
+        r1[k] = buf[lay.hay_len + skew(off) + k];
+      }
+      float acc_top[kLagsPerThread], acc_bot[kLagsPerThread];
+#pragma unroll
+      for (int j = 0; j < kLagsPerThread; ++j) acc_top[j] = acc_bot[j] = 0.f;
+      for (int e0 = 0; e0 < sup; e0 += 4) {
+        const float4 tr = *reinterpret_cast<const float4*>(t_top + e0);
+        const float4 ti = *reinterpret_cast<const float4*>(t_top + sup + e0);
+        const float4 br = *reinterpret_cast<const float4*>(t_bot + e0);
+        const float4 bi = *reinterpret_cast<const float4*>(t_bot + sup + e0);
+        const float trv[4] = {tr.x, tr.y, tr.z, tr.w};
+        const float tiv[4] = {ti.x, ti.y, ti.z, ti.w};
+        const float brv[4] = {br.x, br.y, br.z, br.w};
+        const float biv[4] = {bi.x, bi.y, bi.z, bi.w};
+        const float* hb = buf + skew(off + e0);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int next = (u + 3) + ((u + 3) >> 2);   // sample off + e + 3
+          r0[(u + 3) % 4] = hb[next];
+          r1[(u + 3) % 4] = hb[lay.hay_len + next];
+#pragma unroll
+          for (int j = 0; j < kLagsPerThread; ++j) {
+            const float a = r0[(u + j) % 4], cc = r1[(u + j) % 4];
+            acc_top[j] = fmaf(trv[u], a, acc_top[j]);
+            acc_top[j] = fmaf(tiv[u], cc, acc_top[j]);
+            acc_bot[j] = fmaf(brv[u], a, acc_bot[j]);
+            acc_bot[j] = fmaf(biv[u], cc, acc_bot[j]);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kLagsPerThread; ++j) {
+        __nv_bfloat16* row = gs + (kLagsPerThread * lane + j) * lay.g_stride;
+        row[b] = __float2bfloat16_rn(acc_top[j]);
+        row[num_blocks + b] = __float2bfloat16_rn(acc_bot[j]);
+      }
+    }
+    __syncthreads();   // stage_chunk(c + 2) refills this buffer
   }
-  const int tau = tile * kLagTile + t;
-  __nv_bfloat16* gp = g + static_cast<size_t>(p) * b2 * m_pad;
-  gp[static_cast<size_t>(blk) * m_pad + tau] = __float2bfloat16_rn(acc_top);
-  gp[static_cast<size_t>(num_blocks + blk) * m_pad + tau] =
-      __float2bfloat16_rn(acc_bot);
 }
 
-// Launch 2.  grid (m_pad / kLagTile, ceil(K / kBinTile), programs in
-// this chunk), kThreadsB threads; program p = p_base + blockIdx.z;
-// thread (ty, tx) owns bins k0 + 4*ty + i (i < 4) and lags
-// tau0 + tx + 16*j (j < 8).  Writes part_val/part_lag[(p*K + k)*tiles + tile].
-// num_valid may be null (every program bounded by num_lags).
-__global__ void __launch_bounds__(kThreadsB) stein_stage_b(
+__device__ __forceinline__ void mma_bf16(float (&d)[4], unsigned a0,
+                                         unsigned a1, unsigned a2,
+                                         unsigned a3, unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Two bf16 weights (columns c, c + 1 of row k) as one register; zero
+// past the K bins or the 2B columns (2B is even).
+__device__ __forceinline__ unsigned load_w2(const __nv_bfloat16* w, int k,
+                                            int c, int num_bins, int b2) {
+  if (k >= num_bins || c >= b2) return 0u;
+  return __ldg(reinterpret_cast<const unsigned*>(
+      w + static_cast<size_t>(k) * b2 + c));
+}
+
+// Stage B for one warp: the 8 bins [kb8, kb8 + 8) against the whole G
+// tile, k ascending in steps of 16.  acc[nt] holds lags nt*8 + 2t, +1
+// (t = lane % 4) of bin kb8 + lane / 4: {Rr, Rr, Ri, Ri}.  The tile pass
+// and the top-2 recompute both call this, so their sums are the same.
+__device__ __forceinline__ void tile_product(
     const __nv_bfloat16* __restrict__ ws1,
-    const __nv_bfloat16* __restrict__ ws2,
-    const __nv_bfloat16* __restrict__ g, const int* __restrict__ num_valid,
-    float* __restrict__ part_val, int* __restrict__ part_lag, int num_bins,
-    int b2, int m_pad, int num_lags, int p_base) {
-  // +1 column: the transposing stores below hit distinct banks.
-  __shared__ float s_w1[kRowChunk][kBinTile + 1];
-  __shared__ float s_w2[kRowChunk][kBinTile + 1];
-  __shared__ float s_g[kRowChunk][kLagTile];
-
-  const int tile = blockIdx.x, p = p_base + blockIdx.z;
-  const int k0 = blockIdx.y * kBinTile, tau0 = tile * kLagTile;
-  const int bound = num_valid ? min(num_valid[p], num_lags) : num_lags;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const __nv_bfloat16* gp = g + static_cast<size_t>(p) * b2 * m_pad;
-
-  float rr[kBinsPerThread][kLagsPerThread];
-  float ri[kBinsPerThread][kLagsPerThread];
+    const __nv_bfloat16* __restrict__ ws2, int num_bins, int b2, int kb8,
+    const __nv_bfloat16* gs, int g_stride, float (&acc)[kNTiles][4]) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int k = kb8 + g, b2p = pad16(b2);
 #pragma unroll
-  for (int i = 0; i < kBinsPerThread; ++i)
+  for (int nt = 0; nt < kNTiles; ++nt)
+    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+  for (int k0 = 0; k0 < b2p; k0 += 16) {
+    const unsigned a0 = load_w2(ws1, k, k0 + 2 * t, num_bins, b2);
+    const unsigned a1 = load_w2(ws2, k, k0 + 2 * t, num_bins, b2);
+    const unsigned a2 = load_w2(ws1, k, k0 + 8 + 2 * t, num_bins, b2);
+    const unsigned a3 = load_w2(ws2, k, k0 + 8 + 2 * t, num_bins, b2);
+    const __nv_bfloat16* gb = gs + g * g_stride + k0 + 2 * t;
 #pragma unroll
-    for (int j = 0; j < kLagsPerThread; ++j) rr[i][j] = ri[i][j] = 0.f;
-
-  for (int r0 = 0; r0 < b2; r0 += kRowChunk) {
-    // Rows past b2 and bins past K stage as zeros.
-    for (int i = threadIdx.x; i < kRowChunk * kBinTile; i += kThreadsB) {
-      const int k = i / kRowChunk, r = i % kRowChunk;
-      float v1 = 0.f, v2 = 0.f;
-      if (k0 + k < num_bins && r0 + r < b2) {
-        const size_t o = static_cast<size_t>(k0 + k) * b2 + r0 + r;
-        v1 = __bfloat162float(ws1[o]);
-        v2 = __bfloat162float(ws2[o]);
-      }
-      s_w1[r][k] = v1;
-      s_w2[r][k] = v2;
+    for (int nt = 0; nt < kNTiles; ++nt) {
+      const __nv_bfloat16* gr = gb + nt * 8 * g_stride;
+      mma_bf16(acc[nt], a0, a1, a2, a3,
+               *reinterpret_cast<const unsigned*>(gr),
+               *reinterpret_cast<const unsigned*>(gr + 8));
     }
-    for (int i = threadIdx.x; i < kRowChunk * kLagTile; i += kThreadsB) {
-      const int r = i / kLagTile, t = i % kLagTile;
-      s_g[r][t] = (r0 + r < b2)
-                      ? __bfloat162float(
-                            gp[static_cast<size_t>(r0 + r) * m_pad + tau0 + t])
-                      : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int r = 0; r < kRowChunk; ++r) {
-      float w1[kBinsPerThread], w2[kBinsPerThread], gv[kLagsPerThread];
-#pragma unroll
-      for (int i = 0; i < kBinsPerThread; ++i) {
-        w1[i] = s_w1[r][kBinsPerThread * ty + i];
-        w2[i] = s_w2[r][kBinsPerThread * ty + i];
-      }
-#pragma unroll
-      for (int j = 0; j < kLagsPerThread; ++j) gv[j] = s_g[r][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < kBinsPerThread; ++i)
-#pragma unroll
-        for (int j = 0; j < kLagsPerThread; ++j) {
-          rr[i][j] = fmaf(w1[i], gv[j], rr[i][j]);
-          ri[i][j] = fmaf(w2[i], gv[j], ri[i][j]);
-        }
-    }
-    __syncthreads();
   }
+}
 
+// The tile launch.  grid (m_pad / kLagTile, bin splits, programs in this
+// chunk), kThreads threads; program p = p_base + blockIdx.z; bins
+// [blockIdx.y * bins_per_split, +bins_per_split).  keys != null: each
+// bin's (max, lowest lag) over the tile goes into keys[k * P + p] by
+// atomicMax; else into part_val/part_lag[(p*K + k)*tiles + tile].
+__global__ void __launch_bounds__(kThreads, 2) stein_tile(
+    const __nv_bfloat16* __restrict__ ws1,
+    const __nv_bfloat16* __restrict__ ws2, const float* __restrict__ lmat,
+    const float* __restrict__ h, const int* __restrict__ num_valid,
+    unsigned long long* __restrict__ keys, float* __restrict__ part_val,
+    int* __restrict__ part_lag, int num_programs, int num_bins,
+    int num_blocks, int sup, int h_len, int m_pad, int num_lags,
+    int windows, int share_h, int bins_per_split, int p_base) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int b2 = 2 * num_blocks;
+  const TileSmem lay(b2, sup);
+  __nv_bfloat16* gs = reinterpret_cast<__nv_bfloat16*>(smem);
+  float* bufs = reinterpret_cast<float*>(
+      smem + static_cast<size_t>(kLagTile) * lay.g_stride * 2);
+  const int tile = blockIdx.x, p = p_base + blockIdx.z;
+  const int tau0 = tile * kLagTile;
+  const int k_lo = blockIdx.y * bins_per_split;
+  const int k_hi = min(num_bins, k_lo + bins_per_split);
+  const int bound = num_valid ? min(num_valid[p], num_lags) : num_lags;
+
+  build_g_tile(lmat, h, p, num_blocks, sup, h_len, windows, share_h, tau0,
+               lay, gs, bufs);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
   const int n_tiles = m_pad / kLagTile;
+  for (int kp = k_lo; kp < k_hi; kp += kBinPass) {
+    const int kb8 = kp + warp * kBinGroup;
+    if (kb8 >= k_hi) continue;             // whole warp
+    float acc[kNTiles][4];
+    tile_product(ws1, ws2, num_bins, b2, kb8, gs, lay.g_stride, acc);
+    // Ascending lags: nt, then 2t, 2t + 1; strict '>' keeps the lowest.
+    float best = -INFINITY;
+    int arg = 0;
 #pragma unroll
-  for (int i = 0; i < kBinsPerThread; ++i) {
-    float best = -1.f;
-    int arg = tau0 + tx;
+    for (int nt = 0; nt < kNTiles; ++nt) {
 #pragma unroll
-    for (int j = 0; j < kLagsPerThread; ++j) {
-      const int tau = tau0 + tx + 16 * j;
-      // Lags past the bound read -1.0, as in the TPU kernel.
-      const float v = tau < bound ? mag2_rn(rr[i][j], ri[i][j]) : -1.f;
-      if (j == 0 || v > best) {  // ascending tau: ties keep the lowest
-        best = v;
-        arg = tau;
+      for (int q = 0; q < 2; ++q) {
+        const int tau = tau0 + nt * 8 + 2 * t + q;
+        // Lags past the bound read -1.0, as in the TPU kernel.
+        const float v = tau < bound ? mag2_rn(acc[nt][q], acc[nt][2 + q])
+                                    : -1.f;
+        if (v > best) {
+          best = v;
+          arg = tau;
+        }
       }
     }
-    // The 16 lanes with one ty hold one bin; xor offsets < 16 stay
-    // inside that half-warp.
 #pragma unroll
-    for (int off = 8; off > 0; off >>= 1) {
+    for (int off = 1; off < 4; off <<= 1) {
       const float ov = __shfl_xor_sync(0xffffffffu, best, off);
       const int ol = __shfl_xor_sync(0xffffffffu, arg, off);
-      if (ov > best || (ov == best && ol < arg)) {
-        best = ov;
-        arg = ol;
+      keep_better(ov, ol, best, arg);
+    }
+    const int k = kb8 + g;
+    if (t == 0 && k < k_hi) {
+      if (keys) {
+        atomicMax(keys + static_cast<size_t>(k) * num_programs + p,
+                  rank_key(best, arg));
+      } else {
+        const size_t o =
+            (static_cast<size_t>(p) * num_bins + k) * n_tiles + tile;
+        part_val[o] = best;
+        part_lag[o] = arg;
       }
     }
-    const int k = k0 + kBinsPerThread * ty + i;
-    if (tx == 0 && k < num_bins) {
-      const size_t o =
-          (static_cast<size_t>(p) * num_bins + k) * n_tiles + tile;
-      part_val[o] = best;
-      part_lag[o] = arg;
+  }
+}
+
+// The operands' bf16 roundings in one launch: ws1 and ws2 into ws_b
+// (2, K, 2B) bf16, lmat and h into f32 copies holding bf16 values.
+__global__ void stein_round_operands(const float* __restrict__ ws1,
+                                     const float* __restrict__ ws2,
+                                     const float* __restrict__ lmat,
+                                     const float* __restrict__ h,
+                                     __nv_bfloat16* __restrict__ ws_b,
+                                     float* __restrict__ lmat_r,
+                                     float* __restrict__ h_r, size_t n_ws,
+                                     size_t n_lmat, size_t n_h) {
+  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
+  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < 2 * n_ws + n_lmat + n_h; i += stride) {
+    if (i < n_ws) {
+      ws_b[i] = __float2bfloat16_rn(ws1[i]);
+    } else if (i < 2 * n_ws) {
+      ws_b[i] = __float2bfloat16_rn(ws2[i - n_ws]);
+    } else if (i < 2 * n_ws + n_lmat) {
+      const size_t j = i - 2 * n_ws;
+      lmat_r[j] = __bfloat162float(__float2bfloat16_rn(lmat[j]));
+    } else {
+      const size_t j = i - 2 * n_ws - n_lmat;
+      h_r[j] = __bfloat162float(__float2bfloat16_rn(h[j]));
     }
   }
 }
 
-// Launch 3.  One thread per (program, bin): tiles in ascending lag order,
-// strict '>' keeps the earliest (lowest-lag) maximum.
-__global__ void stein_reduce_tiles(const float* __restrict__ part_val,
-                                   const int* __restrict__ part_lag,
-                                   float* __restrict__ vals,
-                                   int* __restrict__ lags, int num_programs,
-                                   int num_bins, int n_tiles) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= num_programs * num_bins) return;
-  const int p = idx / num_bins, k = idx % num_bins;
-  const float* pv = part_val + static_cast<size_t>(idx) * n_tiles;
-  const int* pl = part_lag + static_cast<size_t>(idx) * n_tiles;
-  float best = pv[0];
-  int arg = pl[0];
-  for (int t = 1; t < n_tiles; ++t) {
-    if (pv[t] > best) {
-      best = pv[t];
-      arg = pl[t];
-    }
-  }
-  vals[static_cast<size_t>(k) * num_programs + p] = best;
-  lags[static_cast<size_t>(k) * num_programs + p] = arg;
+// keys (K, P) -> vals (K, P) f32, lags (K, P) int32.
+__global__ void stein_decode_keys(const unsigned long long* __restrict__ keys,
+                                  float* __restrict__ vals,
+                                  int* __restrict__ lags, size_t total) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  key_decode(keys[i], vals[i], lags[i]);
 }
 
-// Launch 3 of the top-2 mode.  grid ceil(P_eff*K / kWarpsTop2), one warp
-// per (program p, bin k), warp w of block x owns idx = x*kWarpsTop2 + w,
-// p = idx / K (the global program id).  sep < 0 means no window (slot 2
-// = slot 1, as |lag - lag1| <= sep never holds); the wrapper caps sep at
-// m_pad so lag1 +- sep cannot overflow.
+// The window [lo, hi] around slot 1 and the tiles that straddle its
+// edges (-1 where none): the tile holding lo - 1 and lo, and the one
+// holding hi and hi + 1.  sep < 0: no window.
+__device__ __forceinline__ void straddling_tiles(int a1, int sep, int m_pad,
+                                                 int& t_lo, int& t_hi) {
+  const int lo = a1 - sep, hi = a1 + sep;
+  t_lo = (sep >= 0 && lo >= 1 && lo % kLagTile) ? lo / kLagTile : -1;
+  t_hi = (sep >= 0 && hi + 1 < m_pad && (hi + 1) % kLagTile)
+             ? hi / kLagTile
+             : -1;
+}
+
+// Top-2 reduce.  grid ceil(P_eff*K / kWarpsTop2), one warp per (program
+// p, bin k), idx = p*K + k.  Slot 1: the tiles' (max, lowest lag); slot
+// 2 from the tiles wholly outside [lag1 - sep, lag1 + sep], as a key
+// that stein_recompute_top2 completes ((-1.0, 0) when there is none).
+// The wrapper caps sep at m_pad so lag1 +- sep cannot overflow.
 __global__ void __launch_bounds__(32 * kWarpsTop2) stein_reduce_top2(
-    const __nv_bfloat16* __restrict__ ws1,
-    const __nv_bfloat16* __restrict__ ws2,
-    const __nv_bfloat16* __restrict__ g, const int* __restrict__ num_valid,
     const float* __restrict__ part_val, const int* __restrict__ part_lag,
     float* __restrict__ vals, int* __restrict__ lags,
-    float* __restrict__ vals2, int* __restrict__ lags2, int num_programs,
-    int num_bins, int b2, int m_pad, int num_lags, int sep) {
+    unsigned long long* __restrict__ keys2, int num_programs, int num_bins,
+    int m_pad, int sep) {
   const int lane = threadIdx.x % 32;
   const size_t idx =
       static_cast<size_t>(blockIdx.x) * kWarpsTop2 + threadIdx.x / 32;
@@ -314,13 +485,11 @@ __global__ void __launch_bounds__(32 * kWarpsTop2) stein_reduce_top2(
   const float* pv = part_val + idx * n_tiles;
   const int* pl = part_lag + idx * n_tiles;
 
-  // Slot 1: the tiles' (max, lowest lag).
   float v1 = -INFINITY;
   int a1 = 0x7fffffff;
   for (int t = lane; t < n_tiles; t += 32) keep_better(pv[t], pl[t], v1, a1);
   warp_best(v1, a1);
 
-  // Slot 2 over the lags outside the window [lo, hi].
   const bool window = sep >= 0;
   const int lo = a1 - sep, hi = a1 + sep;
   float v2 = -1.f;
@@ -330,51 +499,88 @@ __global__ void __launch_bounds__(32 * kWarpsTop2) stein_reduce_top2(
     if (!window || t0 + kLagTile - 1 < lo || t0 > hi)
       keep_better(pv[t], pl[t], v2, a2);
   }
-  if (window) {
-    const int bound = num_valid ? min(num_valid[p], num_lags) : num_lags;
-    // The tile holding lo - 1 and lo, and the one holding hi and hi + 1.
-    const int t_lo = (lo >= 1 && lo % kLagTile) ? lo / kLagTile : -1;
-    const int t_hi =
-        (hi + 1 < m_pad && (hi + 1) % kLagTile) ? hi / kLagTile : -1;
-    const __nv_bfloat16* w1p = ws1 + static_cast<size_t>(k) * b2;
-    const __nv_bfloat16* w2p = ws2 + static_cast<size_t>(k) * b2;
-    for (int e = 0; e < 2; ++e) {
-      const int t = e ? t_hi : t_lo;
-      if (t < 0 || (e && t == t_lo)) continue;
-      const int t0 = t * kLagTile;
-      const __nv_bfloat16* gp =
-          g + static_cast<size_t>(p) * b2 * m_pad + t0 + lane;
-      constexpr int kLagsPerLane = kLagTile / 32;
-      float rr[kLagsPerLane], ri[kLagsPerLane];
-#pragma unroll
-      for (int j = 0; j < kLagsPerLane; ++j) rr[j] = ri[j] = 0.f;
-      // Stage B's order: rows ascending, one fmaf each.
-      for (int r = 0; r < b2; ++r) {
-        const float w1 = __bfloat162float(w1p[r]);
-        const float w2 = __bfloat162float(w2p[r]);
-        const __nv_bfloat16* gr = gp + static_cast<size_t>(r) * m_pad;
-#pragma unroll
-        for (int j = 0; j < kLagsPerLane; ++j) {
-          const float gv = __bfloat162float(gr[32 * j]);
-          rr[j] = fmaf(w1, gv, rr[j]);
-          ri[j] = fmaf(w2, gv, ri[j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kLagsPerLane; ++j) {
-        const int tau = t0 + lane + 32 * j;
-        const bool masked = tau >= bound || (tau >= lo && tau <= hi);
-        keep_better(masked ? -1.f : mag2_rn(rr[j], ri[j]), tau, v2, a2);
-      }
-    }
-  }
   warp_best(v2, a2);
   if (lane == 0) {
     const size_t o = static_cast<size_t>(k) * num_programs + p;
     vals[o] = v1;
     lags[o] = a1;
-    vals2[o] = v2;
-    lags2[o] = a2;
+    keys2[o] = rank_key(v2, a2);
+  }
+}
+
+// Top-2 recompute.  The tile launch's grid and bins; a block rebuilds
+// its G tile only when some bin of its split has slot 1's window edge in
+// this tile, then each warp whose 8 bins include such a bin runs the
+// tile product and merges the lags outside the window (and below the
+// bound) into keys2.
+__global__ void __launch_bounds__(kThreads, 2) stein_recompute_top2(
+    const __nv_bfloat16* __restrict__ ws1,
+    const __nv_bfloat16* __restrict__ ws2, const float* __restrict__ lmat,
+    const float* __restrict__ h, const int* __restrict__ num_valid,
+    const int* __restrict__ lags1, unsigned long long* __restrict__ keys2,
+    int num_programs, int num_bins, int num_blocks, int sup, int h_len,
+    int m_pad, int num_lags, int windows, int share_h, int bins_per_split,
+    int sep, int p_base) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int b2 = 2 * num_blocks;
+  const TileSmem lay(b2, sup);
+  __nv_bfloat16* gs = reinterpret_cast<__nv_bfloat16*>(smem);
+  float* bufs = reinterpret_cast<float*>(
+      smem + static_cast<size_t>(kLagTile) * lay.g_stride * 2);
+  const int tile = blockIdx.x, p = p_base + blockIdx.z;
+  const int tau0 = tile * kLagTile;
+  const int k_lo = blockIdx.y * bins_per_split;
+  const int k_hi = min(num_bins, k_lo + bins_per_split);
+
+  auto needs = [&](int k) {
+    if (k >= k_hi) return false;
+    int t_lo, t_hi;
+    straddling_tiles(lags1[static_cast<size_t>(k) * num_programs + p], sep,
+                     m_pad, t_lo, t_hi);
+    return t_lo == tile || t_hi == tile;
+  };
+  int any = 0;
+  for (int k = k_lo + threadIdx.x; k < k_hi; k += kThreads) any |= needs(k);
+  if (!__syncthreads_or(any)) return;      // whole block
+
+  build_g_tile(lmat, h, p, num_blocks, sup, h_len, windows, share_h, tau0,
+               lay, gs, bufs);
+
+  const int bound = num_valid ? min(num_valid[p], num_lags) : num_lags;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  for (int kp = k_lo; kp < k_hi; kp += kBinPass) {
+    const int kb8 = kp + warp * kBinGroup;
+    if (kb8 >= k_hi) continue;
+    const bool mine = lane < kBinGroup && needs(kb8 + lane);
+    if (!__any_sync(0xffffffffu, mine)) continue;
+    float acc[kNTiles][4];
+    tile_product(ws1, ws2, num_bins, b2, kb8, gs, lay.g_stride, acc);
+    const int k = kb8 + g;
+    const int lo = k < k_hi
+        ? lags1[static_cast<size_t>(k) * num_programs + p] - sep : 0;
+    const int hi = lo + 2 * sep;
+    float best = -1.f;
+    int arg = 0;
+#pragma unroll
+    for (int nt = 0; nt < kNTiles; ++nt) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int tau = tau0 + nt * 8 + 2 * t + q;
+        const bool masked = tau >= bound || (tau >= lo && tau <= hi);
+        keep_better(masked ? -1.f : mag2_rn(acc[nt][q], acc[nt][2 + q]),
+                    tau, best, arg);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, best, off);
+      const int ol = __shfl_xor_sync(0xffffffffu, arg, off);
+      keep_better(ov, ol, best, arg);
+    }
+    if (t == 0 && needs(k))
+      atomicMax(keys2 + static_cast<size_t>(k) * num_programs + p,
+                rank_key(best, arg));
   }
 }
 
@@ -384,77 +590,114 @@ extern "C" {
 
 int caf_fused_stein_lag_tile() { return kLagTile; }
 
+int caf_fused_stein_bin_pass() { return kBinPass; }
+
+// Dynamic shared memory of a tile block (bytes).
+long long caf_fused_stein_smem_bytes(int b2, int sup) {
+  return static_cast<long long>(TileSmem(b2, sup).bytes);
+}
+
 const char* caf_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Shapes (row-major, contiguous): ws1, ws2 (K, 2B) bf16; lmat
-// (P_eff / W, 2B, 2D) bf16; h_ext (P_eff / S, 2, h_len) f32; num_valid
-// (P_eff,) int32 or null; g (P_eff, 2B, m_pad) bf16 scratch;
-// part_val/part_lag (P_eff, K, m_pad / kLagTile) f32/int32 scratch;
-// vals/lags (K, P_eff) f32/int32 out; vals2/lags2 (K, P_eff) f32/int32
-// out, or both null (no top-2 mode; then sep is unused).  m_pad is a
-// multiple of kLagTile, h_len >= (B - 1) * D + m_pad + D - 1 and
-// sep <= m_pad.  Enqueues the launches on `stream`, on the calling
-// thread's current device (the operands' card); returns the first CUDA
-// error (0 on success).
+// Shapes (row-major, contiguous): ws1, ws2 (K, 2B) f32; lmat (P_eff /
+// W, 2B, 2D) f32; h (P_eff / S, 2, h_len) f32; ws_b (2, K, 2B) bf16,
+// lmat_r and h_r (lmat's and h's shapes) f32 scratch for their bf16
+// roundings; num_valid (P_eff,) int32 or null; keys (K, P_eff) 64-bit
+// scratch; part_val/part_lag (P_eff, K, m_pad / kLagTile) f32/int32
+// scratch of the top-2 mode (else null); vals/lags (K, P_eff) f32/int32
+// out; vals2/lags2 (K, P_eff) f32/int32 out, or both null (no top-2
+// mode; then sep is unused).  m_pad is a multiple of kLagTile, D a
+// multiple of 4, h_len >= (B - 1) * D + m_pad + D - 1, sep <= m_pad and
+// bins_per_split a multiple of kBinPass.  Enqueues the work on `stream`,
+// on the calling thread's current device (the operands' card); returns
+// the first CUDA error (0 on success).
 int caf_fused_stein_rank(const void* ws1, const void* ws2, const void* lmat,
-                         const void* h_ext, const void* num_valid, void* g,
-                         void* part_val, void* part_lag, void* vals,
-                         void* lags, void* vals2, void* lags2,
-                         int num_programs, int num_bins, int num_blocks,
-                         int sup, int h_len, int num_lags, int m_pad,
-                         int windows, int share_h, int sep, void* stream) {
+                         const void* h, void* ws_b, void* lmat_r, void* h_r,
+                         const void* num_valid, void* keys, void* part_val,
+                         void* part_lag, void* vals, void* lags, void* vals2,
+                         void* lags2, int num_programs, int num_bins,
+                         int num_blocks, int sup, int h_len, int num_lags,
+                         int m_pad, int windows, int share_h, int sep,
+                         int bins_per_split, void* stream) {
   cudaError_t err = cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_tiles = m_pad / kLagTile;
-  const int b2 = 2 * num_blocks;
-  const int bin_tiles = (num_bins + kBinTile - 1) / kBinTile;
+  const int splits = (num_bins + bins_per_split - 1) / bins_per_split;
+  const size_t smem = TileSmem(2 * num_blocks, sup).bytes;
+  const bool top2 = vals2 != nullptr;
+  const size_t n_ws = static_cast<size_t>(num_bins) * 2 * num_blocks;
+  const size_t n_lmat = static_cast<size_t>(num_programs / windows) * 2 *
+                        num_blocks * 2 * sup;
+  const size_t n_h =
+      static_cast<size_t>(num_programs / share_h) * 2 * h_len;
+  const auto* w1 = static_cast<const __nv_bfloat16*>(ws_b);
+  const auto* w2 = w1 + n_ws;
+  const auto* lm = static_cast<const float*>(lmat_r);
+  const auto* hh = static_cast<const float*>(h_r);
+  const auto* nv = static_cast<const int*>(num_valid);
+  auto* ks = static_cast<unsigned long long*>(keys);
+  const size_t total = static_cast<size_t>(num_programs) * num_bins;
 
-  const size_t smem_a = (2 * (kLagTile + sup - 1) + 4 * sup) * sizeof(float);
-  if (smem_a > 48 * 1024) {
-    err = cudaFuncSetAttribute(stein_stage_a,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem_a));
+  const size_t n_round = 2 * n_ws + n_lmat + n_h;
+  stein_round_operands<<<static_cast<unsigned>(
+                             std::min<size_t>((n_round + 255) / 256, 4096)),
+                         256, 0, s>>>(
+      static_cast<const float*>(ws1), static_cast<const float*>(ws2),
+      static_cast<const float*>(lmat), static_cast<const float*>(h),
+      static_cast<__nv_bfloat16*>(ws_b), static_cast<float*>(lmat_r),
+      static_cast<float*>(h_r), n_ws, n_lmat, n_h);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  err = cudaFuncSetAttribute(stein_tile,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(stein_recompute_top2,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  if (!top2) {
+    err = cudaMemsetAsync(keys, 0, total * sizeof(unsigned long long), s);
     if (err != cudaSuccess) return err;
   }
   for (int p0 = 0; p0 < num_programs; p0 += kGridZMax) {
     const int chunk = std::min(kGridZMax, num_programs - p0);
-    stein_stage_a<<<dim3(n_tiles, num_blocks, chunk), kLagTile, smem_a, s>>>(
-        static_cast<const __nv_bfloat16*>(lmat),
-        static_cast<const float*>(h_ext), static_cast<__nv_bfloat16*>(g),
-        num_blocks, sup, h_len, m_pad, windows, share_h, p0);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    stein_stage_b<<<dim3(n_tiles, bin_tiles, chunk), kThreadsB, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(ws1),
-        static_cast<const __nv_bfloat16*>(ws2),
-        static_cast<const __nv_bfloat16*>(g),
-        static_cast<const int*>(num_valid), static_cast<float*>(part_val),
-        static_cast<int*>(part_lag), num_bins, b2, m_pad, num_lags, p0);
+    stein_tile<<<dim3(n_tiles, splits, chunk), kThreads, smem, s>>>(
+        w1, w2, lm, hh, nv, top2 ? nullptr : ks,
+        static_cast<float*>(part_val), static_cast<int*>(part_lag),
+        num_programs, num_bins, num_blocks, sup, h_len, m_pad, num_lags,
+        windows, share_h, bins_per_split, p0);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-
-  const int total = num_programs * num_bins;
-  if (vals2 != nullptr) {
-    stein_reduce_top2<<<(total + kWarpsTop2 - 1) / kWarpsTop2,
-                        32 * kWarpsTop2, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(ws1),
-        static_cast<const __nv_bfloat16*>(ws2),
-        static_cast<const __nv_bfloat16*>(g),
-        static_cast<const int*>(num_valid),
-        static_cast<const float*>(part_val),
-        static_cast<const int*>(part_lag), static_cast<float*>(vals),
-        static_cast<int*>(lags), static_cast<float*>(vals2),
-        static_cast<int*>(lags2), num_programs, num_bins, b2, m_pad,
-        num_lags, sep);
+  const unsigned decode_blocks = static_cast<unsigned>((total + 255) / 256);
+  if (!top2) {
+    stein_decode_keys<<<decode_blocks, 256, 0, s>>>(
+        ks, static_cast<float*>(vals), static_cast<int*>(lags), total);
     return cudaGetLastError();
   }
-  stein_reduce_tiles<<<(total + 255) / 256, 256, 0, s>>>(
+  stein_reduce_top2<<<static_cast<unsigned>(
+                          (total + kWarpsTop2 - 1) / kWarpsTop2),
+                      32 * kWarpsTop2, 0, s>>>(
       static_cast<const float*>(part_val),
       static_cast<const int*>(part_lag), static_cast<float*>(vals),
-      static_cast<int*>(lags), num_programs, num_bins, n_tiles);
+      static_cast<int*>(lags), ks, num_programs, num_bins, m_pad, sep);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  for (int p0 = 0; p0 < num_programs; p0 += kGridZMax) {
+    const int chunk = std::min(kGridZMax, num_programs - p0);
+    stein_recompute_top2<<<dim3(n_tiles, splits, chunk), kThreads, smem, s>>>(
+        w1, w2, lm, hh, nv, static_cast<const int*>(lags), ks, num_programs,
+        num_bins, num_blocks, sup, h_len, m_pad, num_lags, windows, share_h,
+        bins_per_split, sep, p0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  stein_decode_keys<<<decode_blocks, 256, 0, s>>>(
+      ks, static_cast<float*>(vals2), static_cast<int*>(lags2), total);
   return cudaGetLastError();
 }
 

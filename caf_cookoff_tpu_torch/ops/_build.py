@@ -103,14 +103,17 @@ def load_library() -> ctypes.CDLL:
         return _LIB
     lib = ctypes.CDLL(str(build_library()))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    # ws1, ws2, lmat, h_ext, num_valid (may be null), g, part_val,
-    # part_lag, vals, lags, vals2, lags2 (both null without top-2);
-    # programs, K, B, D, h_len, num_lags, m_pad, windows, share_h, sep;
-    # stream
-    lib.caf_fused_stein_rank.argtypes = [vp] * 12 + [ci] * 10 + [vp]
+    # ws1, ws2, lmat, h, ws_b, lmat_r, h_r, num_valid (may be null),
+    # keys, part_val, part_lag (both null without top-2), vals, lags,
+    # vals2, lags2 (both null without top-2); programs, K, B, D, h_len,
+    # num_lags, m_pad, windows, share_h, sep, bins_per_split; stream
+    lib.caf_fused_stein_rank.argtypes = [vp] * 15 + [ci] * 11 + [vp]
     lib.caf_fused_stein_rank.restype = ci
-    lib.caf_fused_stein_lag_tile.argtypes = []
-    lib.caf_fused_stein_lag_tile.restype = ci
+    for fn in (lib.caf_fused_stein_lag_tile, lib.caf_fused_stein_bin_pass):
+        fn.argtypes = []
+        fn.restype = ci
+    lib.caf_fused_stein_smem_bytes.argtypes = [ci, ci]
+    lib.caf_fused_stein_smem_bytes.restype = ctypes.c_longlong
     # needle, n, h_br, tw, rates, k, m, outputs..., stream
     lib.caf_filterbank_peak.argtypes = [vp, ci, vp, vp, vp, ci, ci, vp, vp,
                                         vp]

@@ -21,8 +21,11 @@ bounds each program's lags.
   applies the kernel's roundings (inputs and G to bf16, f32 sums, stage
   A summed in the kernel's order so that G is the kernel's bit for bit);
   :func:`coarse_surface_plain` with ``emulate_bf16=True`` also sums stage
-  B row by row in the kernel's order, so every |R|^2 is the kernel's
-  bit for bit.
+  B row by row (the CPU route's |R|^2).  The kernel sums stage B on the
+  tensor cores in their own order, so it is held to an error bound
+  instead: :func:`stage_b_error_bound` (the f64 stage B on the plain
+  version's G and the bound of each |R|^2) and :func:`rank_bound_check`
+  (a kernel answer against it).
 * ``want_top2=True`` (K1 mode (e)) adds, per (program, bin), the
   strongest lag more than ``sep`` from the first (:func:`top2_separated`:
   value -1.0 and lag 0 when there is none) — exact for any separation
@@ -34,23 +37,35 @@ bounds each program's lags.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
 import torch
 
-from caf_cookoff_tpu_torch.errors import VmemBudgetError
+from caf_cookoff_tpu_torch.errors import EligibilityError, VmemBudgetError
 
 SUPER = 128       # haystack-extension padding quantum (operand contract)
 FUSED_TILE = 512  # lag quantum of fused_span's G width (operand contract)
 SPAN_QUANTUM = 4 * SUPER  # quantum of fused_span's staircase span (operand
                           # contract: four Hankel chunks of the JAX kernel)
 LAG_TILE = 128    # the CUDA kernel's lag tile (csrc kLagTile)
+BIN_PASS = 64     # bins a kernel block ranks per pass (csrc kBinPass)
+# The error bound's gamma = BOUND_C * 2B * 2^-23 for stage B's f32 sums
+# of 2B exact bf16 products: each addition rounds by at most 2^-23 of
+# its result when it truncates (round to nearest: 2^-24), and the tensor
+# cores add 16 products and the accumulator at a time, aligned to the
+# largest before truncating, which can lose up to 17 such units a step
+# of 16 rows; 2 covers both with room.
+BOUND_C = 2.0
 _SMEM_PER_BLOCK = 232_448  # bytes of shared memory one Hopper block may use
 _GRID_YZ_MAX = 65_535
 # Programs per step of the plain version: bounds its (programs, K, lags)
 # intermediates.
 _PLAIN_CHUNK = 8
+# Programs per step of rank_bound_check: its f64 (programs, K, lags)
+# intermediates are ~0.7 GB a program at rate3's shape.
+_BOUND_CHUNK = 4
 _BIG_IDX = 2 ** 30  # "no lag" in the top-2 argmins
 
 LAUNCHES = 0
@@ -135,10 +150,10 @@ def _stage_a_in_kernel_order(lm, h, sup: int, span: int):
     return co
 
 
-def _stage_b_in_kernel_order(ws1, ws2, g):
-    """(n, K, m_pad) ``(ws1 @ G, ws2 @ G)`` summed row by row in the
-    kernel's order.  With bf16-exact operands every product is exact in
-    f32, so each partial sum rounds as the kernel's ``fmaf`` chain does."""
+def _stage_b_row_by_row(ws1, ws2, g):
+    """(n, K, m_pad) ``(ws1 @ G, ws2 @ G)`` summed row by row, one f32
+    rounding a row (bf16-exact operands make every product exact): one
+    f32 summation order of the many the error bound allows."""
     n, b2, m_pad = g.shape
     rr = g.new_zeros(n, ws1.shape[0], m_pad)
     ri = g.new_zeros(n, ws1.shape[0], m_pad)
@@ -148,10 +163,11 @@ def _stage_b_in_kernel_order(ws1, ws2, g):
     return rr, ri
 
 
-def _surface_chunk(ws1, ws2, lmat, h_ext, b: int, sup: int, num_lags: int,
-                   progs, windows: int, share_h: int, num_valid,
-                   emulate_bf16: bool, stage_b_in_kernel_order: bool):
-    """(n, K, m_pad) masked ``|R|^2`` of the programs ``progs``."""
+def _plain_g(lmat, h_ext, b: int, sup: int, num_lags: int, progs,
+             windows: int, share_h: int, emulate_bf16: bool):
+    """(n, 2B, m_pad) segment correlations G of the programs ``progs``;
+    with ``emulate_bf16`` summed in the kernel's order and rounded to
+    bf16, so they are the kernel's bit for bit."""
     li, hi = program_maps(progs, windows, share_h)
     lm, h = lmat[li], h_ext[hi]
     n = len(progs)
@@ -166,20 +182,148 @@ def _surface_chunk(ws1, ws2, lmat, h_ext, b: int, sup: int, num_lags: int,
     # Staircase un-shear: G[i, r, tau] = co[i, r, (r mod b)*sup + tau].
     cols = ((torch.arange(2 * b, device=co.device) % b) * sup)[:, None] \
         + torch.arange(m_pad, device=co.device)[None, :]
-    g = torch.gather(co, 2, cols.expand(n, -1, -1))     # (n, 2B, m_pad)
-    if stage_b_in_kernel_order:
-        rr, ri = _stage_b_in_kernel_order(ws1, ws2, g)
+    return torch.gather(co, 2, cols.expand(n, -1, -1))
+
+
+def _valid_lags(progs, m_pad: int, num_lags: int, num_valid):
+    """(n, 1, m_pad) mask of the lags each program ranks."""
+    dev = progs.device
+    if num_valid is None:
+        bound = torch.full((len(progs), 1, 1), num_lags, device=dev)
+    else:
+        nv = torch.as_tensor(num_valid, device=dev).to(torch.int64)
+        bound = torch.clamp(nv[progs], max=num_lags)[:, None, None]
+    return torch.arange(m_pad, device=dev)[None, None, :] < bound
+
+
+def _surface_chunk(ws1, ws2, lmat, h_ext, b: int, sup: int, num_lags: int,
+                   progs, windows: int, share_h: int, num_valid,
+                   emulate_bf16: bool, stage_b_row_by_row: bool):
+    """(n, K, m_pad) masked ``|R|^2`` of the programs ``progs``."""
+    g = _plain_g(lmat, h_ext, b, sup, num_lags, progs, windows, share_h,
+                 emulate_bf16)
+    if stage_b_row_by_row:
+        rr, ri = _stage_b_row_by_row(ws1, ws2, g)
     else:
         rr = torch.einsum("kb,pbm->pkm", ws1, g)
         ri = torch.einsum("kb,pbm->pkm", ws2, g)
     mag2 = rr * rr + ri * ri
-    if num_valid is None:
-        bound = torch.full((n, 1, 1), num_lags, device=mag2.device)
-    else:
-        nv = torch.as_tensor(num_valid, device=mag2.device).to(torch.int64)
-        bound = torch.clamp(nv[progs], max=num_lags)[:, None, None]
-    valid = torch.arange(m_pad, device=mag2.device)[None, None, :] < bound
+    valid = _valid_lags(progs, g.shape[-1], num_lags, num_valid)
     return torch.where(valid, mag2, torch.full_like(mag2, -1.0))
+
+
+def stage_b_error_bound(ws1, ws2, g):
+    """The f64 reference of stage B on a bf16 G, and the error bound of
+    each |R|^2 the kernel may return: ``(v, e)``, each (n, K, lags) f64.
+
+    ``v = Rr^2 + Ri^2`` with ``Rr = ws1 @ G``, ``Ri = ws2 @ G`` in f64
+    (exact for bf16 operands at these sizes), and ``e = 2 gamma (|Rr| A_r
+    + |Ri| A_i) + gamma^2 (A_r^2 + A_i^2) + 2^-22 v`` with ``A_r = |ws1|
+    @ |G|``, ``A_i = |ws2| @ |G|`` and ``gamma = BOUND_C * 2B * 2^-23``: any
+    f32 summation of the 2B exact products moves ``Rr`` by at most
+    ``gamma A_r`` (so ``Rr^2`` by ``2 gamma |Rr| A_r + gamma^2 A_r^2``),
+    and |R|^2's two products and one sum in f32 add at most ``2^-22 v``.
+    ``ws1``, ``ws2`` (K, 2B) and ``g`` (n, 2B, lags) hold bf16 values."""
+    w1, w2, gd = ws1.double(), ws2.double(), g.double()
+    ga = gd.abs()
+    rr = torch.einsum("kb,pbm->pkm", w1, gd)
+    ri = torch.einsum("kb,pbm->pkm", w2, gd)
+    ar = torch.einsum("kb,pbm->pkm", w1.abs(), ga)
+    ai = torch.einsum("kb,pbm->pkm", w2.abs(), ga)
+    gamma = BOUND_C * g.shape[1] * 2.0 ** -23
+    v = rr * rr + ri * ri
+    e = (2.0 * gamma * (rr.abs() * ar + ri.abs() * ai)
+         + gamma * gamma * (ar * ar + ai * ai) + 2.0 ** -22 * v)
+    return v, e
+
+
+def _ratio(num, den):
+    """max of num / den, where den is 0 only for exact cells (masked
+    lags, an all-zero G): there any difference is infinitely off."""
+    r = torch.where(den > 0, num / den.clamp(min=1e-300),
+                    torch.where(num == 0, 0.0, math.inf))
+    return float(r.max()) if r.numel() else 0.0
+
+
+def _lowest_argmax(x):
+    """(max, lowest lag attaining it) over the last axis."""
+    m = x.amax(dim=-1, keepdim=True)
+    lag = torch.arange(x.shape[-1], device=x.device)
+    return m[..., 0], torch.where(x >= m, lag, _BIG_IDX).amin(dim=-1)
+
+
+def _slot_check(v, e, kv, ki):
+    """One slot of a kernel answer (values ``kv``, lags ``ki``, each (n,
+    K)) against the f64 surface ``v`` and bound ``e`` (n, K, lags):
+    (largest |value - v*(lag)| / e(lag), largest (v*max - v*(lag)) /
+    (e(lag) + e(f64 argmax)), largest |value - v*(lag)|)."""
+    ki = ki.long().clamp(0, v.shape[-1] - 1)
+    vk = torch.gather(v, 2, ki[..., None])[..., 0]
+    ek = torch.gather(e, 2, ki[..., None])[..., 0]
+    vmax, amax = _lowest_argmax(v)
+    emax = torch.gather(e, 2, amax[..., None])[..., 0]
+    err = (kv.double() - vk).abs()
+    return (_ratio(err, ek), _ratio(vmax - vk, ek + emax),
+            float(err.max()) if err.numel() else 0.0)
+
+
+def rank_bound_check(got, ws1, ws2, lmat, h_ext, b: int, sup: int,
+                     num_lags: int, windows: int = 1, share_h: int = 1,
+                     num_valid=None, sep=None) -> dict:
+    """The kernel's answer ``got`` ((K, P_eff) values and lags; with
+    ``sep`` the top-2 mode's four fields) against :func:`stage_b_error_bound`
+    on the plain version's G (the kernel's bit for bit), ``_BOUND_CHUNK``
+    programs at a time.  Masked lags must read -1.0 exactly.  Returns
+    ``ratio`` (largest |err| / e over the slots), ``max_abs_err`` (the
+    largest |err| itself), ``lag_ratio`` (the
+    largest gap between the f64 max and v* at the kernel's lag, over the
+    sum of their bounds), ``lags_off_f32`` (lags that differ from the
+    plain f32 surface's, which may be non-zero only at near-ties), ``n``
+    (slots checked) and ``ok`` (both ratios at most 1, every lag in
+    range, slot 2 outside the window or the (-1.0, 0) sentinel)."""
+    ws1, ws2, lmat, h_ext = map(_bf16, (ws1, ws2, lmat, h_ext))
+    p_eff = lmat.shape[0] * windows
+    out = {"ratio": 0.0, "lag_ratio": 0.0, "max_abs_err": 0.0,
+           "lags_off_f32": 0, "n": 0, "ok": True}
+    for p0 in range(0, p_eff, _BOUND_CHUNK):
+        progs = torch.arange(p0, min(p0 + _BOUND_CHUNK, p_eff),
+                             device=lmat.device)
+        g = _plain_g(lmat, h_ext, b, sup, num_lags, progs, windows, share_h,
+                     True)
+        v, e = stage_b_error_bound(ws1, ws2, g)
+        valid = _valid_lags(progs, g.shape[-1], num_lags, num_valid)
+        v = torch.where(valid, v, -1.0)
+        e = torch.where(valid, e, 0.0)
+        rr = torch.einsum("kb,pbm->pkm", ws1, g)
+        ri = torch.einsum("kb,pbm->pkm", ws2, g)
+        f32 = torch.where(valid, rr * rr + ri * ri, -1.0)
+        fields = [t[:, p0:p0 + len(progs)].T for t in got]
+        kv, ki = fields[0], fields[1].long()
+        slots = [(v, e, kv, ki, _lowest_argmax(f32)[1])]
+        in_range = bool(((ki >= 0) & (ki < num_lags)).all())
+        if sep is not None:
+            kv2, ki2 = fields[2], fields[3].long()
+            lag = torch.arange(v.shape[-1], device=v.device)
+            outside = (lag - ki[..., None]).abs() > sep
+            v2 = torch.where(outside, v, -1.0)
+            e2 = torch.where(outside, e, 0.0)
+            f32_2 = top2_separated(f32, sep)[3]
+            none = kv2 == -1.0
+            # No lag outside the window: slot 2 is the (-1.0, 0) sentinel.
+            in_range &= bool(((ki2 >= 0) & (ki2 < num_lags)).all()
+                             and (ki2[none] == 0).all()
+                             and (v2.amax(dim=-1)[none] == -1.0).all())
+            slots.append((v2, e2, kv2, ki2, f32_2))
+        for sv, se, skv, ski, fl in slots:
+            r, lr, err = _slot_check(sv, se, skv, ski)
+            out["ratio"] = max(out["ratio"], r)
+            out["lag_ratio"] = max(out["lag_ratio"], lr)
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            out["lags_off_f32"] += int((ski != fl.long()).sum())
+            out["n"] += ski.numel()
+        out["ok"] &= in_range
+    out["ok"] &= out["ratio"] <= 1.0 and out["lag_ratio"] <= 1.0
+    return out
 
 
 def coarse_surface_plain(ws1, ws2, lmat, h_ext, b: int, sup: int,
@@ -188,9 +332,9 @@ def coarse_surface_plain(ws1, ws2, lmat, h_ext, b: int, sup: int,
                          num_valid=None):
     """(P_eff, K, m_pad) masked ``|R|^2`` of the coarse rank, in plain
     PyTorch: lags at or past ``num_lags`` (or past ``num_valid[i]`` when
-    given, capped at ``num_lags``) read -1.0.  ``emulate_bf16`` sums
-    stage B in the kernel's order too, so the surface is the kernel's
-    bit for bit."""
+    given, capped at ``num_lags``) read -1.0.  ``emulate_bf16`` applies
+    the kernel's roundings, sums stage A in its order (G is the
+    kernel's bit for bit) and stage B row by row."""
     if emulate_bf16:
         ws1, ws2, lmat, h_ext = map(_bf16, (ws1, ws2, lmat, h_ext))
     progs = torch.arange(lmat.shape[0] * windows, device=lmat.device)
@@ -327,11 +471,29 @@ def fused_stein_rank(ws1, ws2, lmat, h_ext, num_blocks: int, sup: int,
     return vals, idxs
 
 
-def _stage_a_smem_bytes(sup: int) -> int:
-    """Dynamic shared memory of the kernel's stage-A block: two haystack
-    windows of ``LAG_TILE + sup - 1`` samples and two tap rows of
-    ``2*sup``, in f32."""
-    return (2 * (LAG_TILE + sup - 1) + 4 * sup) * 4
+def _tile_smem_bytes(b2: int, sup: int) -> int:
+    """Dynamic shared memory of the kernel's tile block (csrc
+    ``TileSmem``): the bf16 G tile, ``LAG_TILE`` lags x (2B padded to
+    16, + 8) rows, and two stage-A buffers, each the skewed haystack
+    window of 8 segments in both planes and their 8 x 2 tap rows, f32."""
+    b2p = -(-b2 // 16) * 16
+    last = 8 * sup + LAG_TILE - 2
+    hay = -(-(last + (last >> 2) + 1) // 4) * 4
+    return LAG_TILE * (b2p + 8) * 2 + 2 * (2 * hay + 32 * sup) * 4
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _bins_per_split(k: int, tiles: int, sms: int) -> int:
+    """Bins per block (a multiple of ``BIN_PASS``): all of them unless
+    programs x lag tiles leave SMs idle, then the fewest splits that
+    give every SM a block — each split repeats stage A for its tile."""
+    passes = -(-k // BIN_PASS)
+    splits = min(passes, max(1, -(-sms // tiles)))
+    return -(-passes // splits) * BIN_PASS
 
 
 def _launch(ws1, ws2, lmat, h_ext, num_blocks, sup, num_lags, windows,
@@ -343,51 +505,60 @@ def _launch(ws1, ws2, lmat, h_ext, num_blocks, sup, num_lags, windows,
     b2 = lmat.shape[1]
     p_eff = lmat.shape[0] * windows
     k = ws1.shape[0]
-    if _stage_a_smem_bytes(sup) > _SMEM_PER_BLOCK:
+    if sup % 4:
+        raise EligibilityError(f"fused Stein kernel: block_len {sup} is not "
+                               "a multiple of 4")
+    smem = _tile_smem_bytes(b2, sup)
+    if smem > _SMEM_PER_BLOCK:
         raise VmemBudgetError(
-            f"fused Stein kernel: block_len {sup} needs "
-            f"{_stage_a_smem_bytes(sup)} B of shared memory per block, "
-            f"past the card's {_SMEM_PER_BLOCK} B; use the unfused path")
-    # The library tiles the program axis (grid z) across launches.
-    if max(num_blocks, -(-k // 64)) > _GRID_YZ_MAX:
-        raise ValueError(f"fused Stein kernel: grid too large "
-                         f"(B={num_blocks}, K={k})")
+            f"fused Stein kernel: 2B = {b2} rows and block_len {sup} need "
+            f"{smem} B of shared memory per block, past the card's "
+            f"{_SMEM_PER_BLOCK} B; use the unfused path")
     m_pad = -(-num_lags // LAG_TILE) * LAG_TILE
     h_len = h_ext.shape[-1]
     if h_len < (num_blocks - 1) * sup + m_pad + sup - 1:
         raise ValueError(f"h_ext length {h_len} too short for the kernel")
     lib = _build.load_library()
-    if lib.caf_fused_stein_lag_tile() != LAG_TILE:
-        raise RuntimeError("csrc lag tile disagrees with LAG_TILE")
+    if (lib.caf_fused_stein_lag_tile(), lib.caf_fused_stein_bin_pass(),
+            lib.caf_fused_stein_smem_bytes(b2, sup)) != (LAG_TILE, BIN_PASS,
+                                                         smem):
+        raise RuntimeError("csrc tile shape disagrees with the wrapper's")
     dev = ws1.device
-    bf16 = torch.bfloat16
-    ws1b = ws1.to(bf16).contiguous()
-    ws2b = ws2.to(bf16).contiguous()
-    lmatb = lmat.to(bf16).contiguous()
-    h = h_ext.to(torch.float32).contiguous()
+    f32 = torch.float32
+    ws1, ws2, lmat, h = (t.to(f32).contiguous()
+                         for t in (ws1, ws2, lmat, h_ext))
+    # The kernel's first launch writes the operands' bf16 roundings here.
+    ws_b = torch.empty((2, k, b2), dtype=torch.bfloat16, device=dev)
+    lmat_r, h_r = torch.empty_like(lmat), torch.empty_like(h)
     n_tiles = m_pad // LAG_TILE
-    g = torch.empty((p_eff, b2, m_pad), dtype=bf16, device=dev)
-    part_val = torch.empty((p_eff, k, n_tiles), dtype=torch.float32,
-                           device=dev)
-    part_lag = torch.empty((p_eff, k, n_tiles), dtype=torch.int32,
-                           device=dev)
+    # The program axis (grid z) goes out in chunks of 65535 programs.
+    per_split = _bins_per_split(k, min(p_eff, _GRID_YZ_MAX) * n_tiles,
+                                _sm_count(dev))
+    keys = torch.empty((k, p_eff), dtype=torch.int64, device=dev)
+    part_val = part_lag = None
+    if sep is not None:
+        part_val = torch.empty((p_eff, k, n_tiles), dtype=f32, device=dev)
+        part_lag = torch.empty((p_eff, k, n_tiles), dtype=torch.int32,
+                               device=dev)
     outs = [torch.empty((k, p_eff), dtype=dt, device=dev)
-            for dt in (torch.float32, torch.int32) * (1 if sep is None
-                                                       else 2)]
+            for dt in (f32, torch.int32) * (1 if sep is None else 2)]
     top2 = outs[2:] if sep is not None else (None, None)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     # The launches go to the operands' card; the caller's current card
     # is restored afterwards.
     with torch.cuda.device(dev):
         rc = lib.caf_fused_stein_rank(
-            ws1b.data_ptr(), ws2b.data_ptr(), lmatb.data_ptr(), h.data_ptr(),
-            None if num_valid is None else num_valid.contiguous().data_ptr(),
-            g.data_ptr(), part_val.data_ptr(), part_lag.data_ptr(),
-            outs[0].data_ptr(), outs[1].data_ptr(),
-            *(None if t is None else t.data_ptr() for t in top2),
+            *(t.data_ptr() for t in (ws1, ws2, lmat, h, ws_b, lmat_r, h_r)),
+            ptr(None if num_valid is None else num_valid.contiguous()),
+            keys.data_ptr(), ptr(part_val), ptr(part_lag),
+            outs[0].data_ptr(), outs[1].data_ptr(), *map(ptr, top2),
             p_eff, k, num_blocks, sup, h_len, num_lags, m_pad, windows,
             share_h,
             # |lag - lag1| <= sep means the same for every sep >= m_pad.
-            0 if sep is None else min(int(sep), m_pad),
+            0 if sep is None else min(int(sep), m_pad), per_split,
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused Stein kernel launch failed: "

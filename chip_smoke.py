@@ -11,10 +11,14 @@ Phases, each reported on its own line:
    process per source, all at once, then one link, printing ``-Xptxas
    -v`` (registers, shared memory, spills).
 3. kernel — each kernel against its plain PyTorch version on the card:
-   K1, the fused Stein rank (same bf16 roundings; every lag the plain
-   surface's lowest-lag argmax), at chirp_0's main-path shape (400 bins,
-   N = 4096, M = 8192, D = 64), a random two-pair shape and the
-   cross-tile tie case (lowest lag wins); K2, the fused
+   K1, the fused Stein rank, held to ``rank_bound_check`` (its stage B
+   sums on the tensor cores in their own order: each value within its
+   error bound of the f64 stage B on the plain version's G, which is the
+   kernel's bit for bit, each lag's f64 value within the bounds of the
+   bin's f64 max; the largest |err|/e and the lags off the plain f32
+   argmax printed), at chirp_0's main-path shape (400 bins, N = 4096,
+   M = 8192, D = 64), a random two-pair shape and the cross-tile tie
+   case (lowest lag wins, exactly); K2, the fused
    filterbank peak rows, at chirp_0's 400 x 8192, a random K = 37,
    M = 2048 shape, N = 5000 (M = 16384) and an all-zero input (every lag
    ties: lag 0 wins); K3, the fused filterbank surface, at 400 x 8192.
@@ -27,8 +31,8 @@ Phases, each reported on its own line:
    ``caf_surface(backend="pallas")`` (K3) against ``backend="xla"``.
 5. modes  — K1 in modes (c) ``share_h`` (6 bands), (d) ``windows`` +
    ``num_valid`` (8 windows, the last one cut to half its lags) and (c+d)
-   (48 programs) against its plain version, at config 3's full shape as
-   its engine builds the operands.
+   (48 programs) held to its bound, at config 3's full shape as its
+   engine builds the operands.
 6. configs — ``bench_configs.py`` configs 2-4 at full size through the
    public engines on the card, each gated as that script gates it:
    config 2 (64 pairs x 400 bins x 8192 lags, ``batched_stein_peak``)
@@ -37,13 +41,13 @@ Phases, each reported on its own line:
    pairs x 1024 bins x 32768 lags, 6 bands x 4 windows) through
    ``batched_stein_os_peak`` must recover every injected (freq, lag).
    K1's launch count, set to 0 before each config, must rise.
-7. kernel — K1's top-2 mode (e) against its plain version with the same
-   bf16 roundings and stage B summed in the kernel's order, at the
+7. kernel — K1's top-2 mode (e) held to its bound in both slots, at the
    lattice shapes of phase 8 and in adversarial cases: a same-bin pair
    1.5 sep apart across a tile edge with the stronger's skirt in the
-   other tile, an exact tie between a recomputed tile and a stage-B
-   tile, a window bounded to 0 lags and a sep past every lag.  Values
-   within 1e-5, both lag slots identical.
+   other tile, exact ties between a recomputed tile and a tile-pass
+   tile (at 2B = 8, and at 2B = 128 with the partner below and above:
+   the lower lag wins, exactly), a window bounded to 0 lags and a sep
+   past every lag.
 8. lattices — the multi-emitter lattices at full width: config 2's shape
    (64 pairs x 400 bins x 8192 circular lags, two emitters a pair in
    bins 200 apart) through ``batched_stein_peaks`` (K1 (b+e), 64
@@ -56,8 +60,8 @@ Phases, each reported on its own line:
    ``batched_overlap_save_peaks_local``.  K1's launch count, set to 0
    before each path, must rise.
 9. rate   — K1 mode (f) (rate-major synthesis rows, 9 rates x 306-bin
-   bands = 2754 rows, 56 programs) at rate3's full shape against its
-   plain version, in (c+d+f) and (c+d+e+f), every lag identical; then
+   bands = 2754 rows, 56 programs) at rate3's full shape held to its
+   bound, in (c+d+f) and (c+d+e+f); then
    the rate workloads through the public engines: rate3
    (``docs/bench_rate.py``'s recipe) through ``stein_rate_os_peak`` and
    the serial ``rate_overlap_save_peak``, both exact, then
@@ -73,9 +77,12 @@ Phases, each reported on its own line:
    count, set to 0 before, must rise).
 12. times  — CUDA-event medians, after warm-up, of each kernel's wrapper,
    its plain version and its library yardstick at the main path's
-   shape, of K1 at each config's shape (where it is first held against
-   its plain version as in phase 3), of K1(e) at both lattice shapes,
-   of K1 (f) and (e+f) at rate3's, of K4, and of whole ``caf_peak``,
+   shape (K1's: stage B alone as one bf16 ``torch.matmul``, at every K1
+   shape; K1's device time from ``torch.profiler`` too), of K1 at each
+   config's shape (where it is first held to its bound as in phase 3),
+   of K1(e) at both lattice shapes, of K1 (f) and (e+f) at rate3's, of
+   K4 (bound: its non-fma operations at half the f32 peak), and of
+   whole ``caf_peak``,
    config, lattice, rate-engine and refine calls and the cuFFT
    yardsticks (host included), each printed beside the card's name and
    power limit.
@@ -100,11 +107,9 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 DEVICE = "cuda"
 FS = 48_000.0
-# K1 vs plain version with the same bf16 roundings: both sum the same
-# bf16-exact products in f32 and differ only in the order of the sums
-# (1.2e-7 measured on the H100).  A kernel that skips a rounding, sums in
-# bf16 or drops a segment is off by 1e-3 or more.
-RTOL = 1e-5
+# K1 is held to ops/fused_stein.rank_bound_check: its stage B sums on
+# the tensor cores in their own order, so each |R|^2 is held to the f64
+# stage B on the plain version's G within a stated error bound.
 # K2/K3 vs plain versions: two f32 FFT algorithms (the kernel's radix-2,
 # cuFFT) that differ in the order of their sums (5.3e-7 rel and 3.4e-7 x
 # max measured on the H100), so near-ties may order differently.
@@ -220,47 +225,49 @@ def random_operands(rng, p, n, k, m, d, device):
 
 
 def surface_plain(ops, b, sup, m, **modes):
-    """K1's plain version as every check here uses it (and every plain
-    time here times it): the masked (P_eff, K, m_pad) surface with the
-    kernel's bf16 roundings and sums in the kernel's order, so |R|^2 is
-    the kernel's bit for bit."""
+    """K1's plain version as every plain time here times it: the masked
+    (P_eff, K, m_pad) surface with the kernel's bf16 roundings, G summed
+    in the kernel's order (bit for bit), stage B row by row."""
     from caf_cookoff_tpu_torch.ops import fused_stein as fs
 
     return fs.coarse_surface_plain(*ops, b, sup, m, emulate_bf16=True,
                                    **modes)
 
 
-def compare(label, ops, b, sup, m, **modes):
-    """K1 vs :func:`surface_plain` on one operand set (``modes``:
-    windows, share_h, num_valid); returns the max absolute value
-    error."""
+def bound_check(label, got, ops, b, sup, m, sep=None, **modes):
+    """K1's answer ``got`` held to ``rank_bound_check``: the f64 stage B
+    on the plain version's G (the kernel's bit for bit), each value
+    within its bound e of v* at the kernel's lag, and v* there within the
+    two lags' bounds of the bin's f64 max (slot 2: outside the window
+    around slot 1's lag, or the (-1.0, 0) sentinel).  Prints the largest
+    |err| / e and the lags off the plain f32 surface's (non-zero only at
+    near-ties); returns the max absolute value error."""
     import torch
 
     from caf_cookoff_tpu_torch.ops import fused_stein as fs
 
-    kv, ki = fs.fused_stein_rank(*ops, b, sup, m, **modes)
-    surf = surface_plain(ops, b, sup, m, **modes)
     torch.cuda.synchronize()
-    pv = surf.amax(dim=-1)
-    # The kernel's rule: the lowest lag attaining the maximum.
-    lag = torch.arange(surf.shape[-1], dtype=torch.int32, device=surf.device)
-    pi = torch.where(surf == pv[..., None], lag, surf.shape[-1]).amin(dim=-1)
-    pv, pi = pv.T, pi.T
-    check(bool(torch.isfinite(kv).all()), f"{label}: non-finite values")
-    rel = ((kv - pv).abs() / pv).max().item()
-    at = torch.gather(surf, 2, ki.T.long()[..., None])[..., 0].T
-    lag_ok = bool((at >= (1 - RTOL) * pv).all())
-    off = int((ki != pi).sum())
-    err = (kv - pv).abs().max().item()
-    print(f"[kernel] {label}: K={kv.shape[0]} P={kv.shape[1]} M={m}: "
-          f"max rel err {rel:.3e} (tol {RTOL}), max abs err {err:.4g}, "
-          f"plain value at kernel lag >= (1-{RTOL}) x max: {lag_ok}, "
-          f"lags off the plain lowest-lag argmax {off} of {ki.numel()} "
-          f"(want 0)")
-    check(rel <= RTOL, f"{label}: kernel values off the plain version")
-    check(lag_ok, f"{label}: kernel lag not a (near-)maximum")
-    check(off == 0, f"{label}: kernel lags not the plain argmax")
-    return err
+    check(all(bool(torch.isfinite(t).all()) for t in got[::2]),
+          f"{label}: non-finite values")
+    r = fs.rank_bound_check(got, *ops, b, sup, m, sep=sep, **modes)
+    top2 = "" if sep is None else f" sep={sep} (both slots)"
+    print(f"[kernel] {label}: K={got[0].shape[0]} P={got[0].shape[1]} "
+          f"M={m}{top2}: largest |err|/e {r['ratio']:.3e} (bound c = "
+          f"{fs.BOUND_C:g}, want <= 1), lag gap / bounds "
+          f"{r['lag_ratio']:.3e} (want <= 1), max abs err "
+          f"{r['max_abs_err']:.4g}; lags off the plain f32 argmax "
+          f"{r['lags_off_f32']} of {r['n']}")
+    check(r["ok"], f"{label}: kernel off its error bound")
+    return r["max_abs_err"]
+
+
+def compare(label, ops, b, sup, m, **modes):
+    """K1 on one operand set (``modes``: windows, share_h, num_valid)
+    through :func:`bound_check`; returns the max absolute value error."""
+    from caf_cookoff_tpu_torch.ops import fused_stein as fs
+
+    return bound_check(label, fs.fused_stein_rank(*ops, b, sup, m, **modes),
+                       ops, b, sup, m, **modes)
 
 
 def phase_kernel_stein(pairs):
@@ -642,6 +649,27 @@ def cuda_median_ms(fn, runs: int, warmup: int = 10) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, runs: int = 20) -> float:
+    """Device time a call of ``fn``: the kernels' and memsets' time in a
+    ``torch.profiler`` trace of ``runs`` calls (after warm-up), over
+    ``runs``; the host's launch time is not in it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+             for e in prof.key_averages())
+    check(us > 0, "torch.profiler saw no device time")
+    return us / 1e3 / runs
+
+
 def recompute_tiles(lag1, sep, m):
     """K1(e)'s recomputed 128-lag tiles in this run (a diagnostic: work
     the kernel repeats, not work the rank needs): per (bin, program), the
@@ -683,15 +711,34 @@ def stein_bound_ms(ops, m, modes=None, top2=False):
             "operations" if t_ops >= t_bytes else "bytes", flops / 1e9)
 
 
+def stage_b_matmul_ms(ops, m, modes=None):
+    """K1's library yardstick at one shape: stage B's product alone as
+    one bf16 ``torch.matmul``, [ws1; ws2] (2K, 2B) @ G (P_eff, 2B,
+    m_pad) on a random G (the port never calls it)."""
+    import torch
+
+    ws1, ws2, lmat, _ = ops
+    p = lmat.shape[0] * (modes or {}).get("windows", 1)
+    ws = torch.cat([ws1, ws2]).to(torch.bfloat16)
+    g = torch.randn(p, lmat.shape[1], -(-m // 128) * 128, device=DEVICE
+                    ).to(torch.bfloat16)
+    ms = cuda_median_ms(lambda: torch.matmul(ws, g), 10, 3)
+    del g
+    torch.cuda.empty_cache()
+    return ms
+
+
 def k4_bound_ms():
     """K4: the (416, 8192) f32 pair swept 64 times, 6 operations an
     element and sweep (2 offset adds, |R|^2's 2 mul and 1 add, 1 max),
-    at the f32 peak, against its (416,) output written once at the HBM
-    rate (nothing is read).  Returns (ms, what bounds it, GOP)."""
+    none an fma, at the card's rate for non-fma f32 operations (half
+    its 67 TFLOP/s, which counts an fma as two), against its
+    (416,) output written once at the HBM rate (nothing is read).
+    Returns (ms, what bounds it, GOP)."""
     from caf_cookoff_tpu_torch.utils import roofline as rf
 
     ops = rf.KP * rf.M * rf.REPEAT * float(rf.OPS_PER_ELEM)
-    t_ops, t_bytes = ops / F32_FLOPS, rf.KP * 4 / HBM_BYTES
+    t_ops, t_bytes = ops / (F32_FLOPS / 2), rf.KP * 4 / HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, (
         "operations" if t_ops >= t_bytes else "bytes"), ops / 1e9
 
@@ -724,6 +771,8 @@ def phase_times(head, fb_head, inputs, card):
     t = {}
     t["k1"] = cuda_median_ms(
         lambda: fs.fused_stein_rank(*ops, b, sup, m, want_idxs=False), 100)
+    t["k1_device"] = device_ms(
+        lambda: fs.fused_stein_rank(*ops, b, sup, m, want_idxs=False))
     t["k1_plain"] = cuda_median_ms(
         lambda: surface_plain(ops, b, sup, m).max(dim=-1), 20)
     # Stage B's product alone, [ws1; ws2] (2K, 2B) @ G (2B, m_pad), bf16.
@@ -761,8 +810,10 @@ def phase_times(head, fb_head, inputs, card):
                          device=DEVICE), 50)
     fb = "400x8192"
     for what, ms in (
-            (f"K1 fused_stein_rank wrapper (bf16 casts + 3 launches), "
-             f"{shape}", t["k1"]),
+            (f"K1 fused_stein_rank wrapper (rounding, tile and decode "
+             f"launches), {shape}", t["k1"]),
+            (f"K1 device time a call (torch.profiler, its launches and "
+             f"memset), {shape}", t["k1_device"]),
             (f"K1 plain version (surface with the kernel's roundings and "
              f"sums + max), {shape}", t["k1_plain"]),
             (f"K1 reference: stage B's product alone, bf16 torch.matmul "
@@ -813,9 +864,11 @@ def phase_config_times(cfgs, launches, card):
         else:
             call = cuda_median_ms(lambda: batched_stein_os_peak(
                 needles, hays, freqs, FS, num_lags=lags, device=DEVICE), 5, 1)
+        library = stage_b_matmul_ms(ops, m, modes)
         rows[name] = {"shape": shape, "launches": launches[name],
-                      "max_abs_err": err, "ms": k1, "plain_ms": plain, "bound_ms": bound,
-                      "bound_by": by, "gflop": gflop, "call_ms": call,
+                      "max_abs_err": err, "ms": k1, "plain_ms": plain,
+                      "bound_ms": bound, "bound_by": by, "gflop": gflop,
+                      "library_ms": library, "call_ms": call,
                       "pairs": needles.shape[0]}
         for what, ms in ((f"K1 fused_stein_rank wrapper, {name}: {shape}",
                           k1),
@@ -823,6 +876,8 @@ def phase_config_times(cfgs, launches, card):
                           f"roundings and sums + max), {name}", plain),
                          (f"K1 bound ({by}, {gflop:.1f} GFLOP), {name}",
                           bound),
+                         (f"K1 library yardstick: stage B alone as one bf16 "
+                          f"torch.matmul, {name}", library),
                          (f"{name} whole engine call ({needles.shape[0]} "
                           f"pairs, host included)", call)):
             print(f"[times] {what}: {ms:.4f} ms  [{card}]")
@@ -839,38 +894,20 @@ def top2_plain(ops, b, sup, m, sep, **modes):
 
 
 def compare_top2(label, ops, b, sup, m, sep, **modes):
-    """K1(e) vs :func:`top2_plain`: values of both slots within RTOL,
-    both lag slots identical.  Returns (the kernel's four fields, max
-    abs err)."""
-    import torch
-
+    """K1(e) through :func:`bound_check`, both slots.  Returns (the
+    kernel's four fields, max abs err)."""
     from caf_cookoff_tpu_torch.ops import fused_stein as fs
 
     got = fs.fused_stein_rank(*ops, b, sup, m, want_top2=True, sep=sep,
                               **modes)
-    want = top2_plain(ops, b, sup, m, sep, **modes)
-    torch.cuda.synchronize()
-    rel = max(((got[i] - want[i]).abs() / want[i].abs()).max().item()
-              for i in (0, 2))
-    err = max((got[i] - want[i]).abs().max().item() for i in (0, 2))
-    same = [int((got[i] == want[i]).sum().item()) for i in range(4)]
-    n = got[0].numel()
-    print(f"[kernel] {label}: K={got[0].shape[0]} P={got[0].shape[1]} "
-          f"M={m} sep={sep}: max rel err {rel:.3e} (tol {RTOL}), max abs "
-          f"err {err:.4g}; identical slot-1/slot-2 lags {same[1]}/{same[3]} "
-          f"of {n}; bit-identical slot-1/slot-2 values {same[0]}/{same[2]}")
-    check(bool(torch.isfinite(got[0]).all() and torch.isfinite(got[2]).all()),
-          f"{label}: non-finite values")
-    check(rel <= RTOL, f"{label}: kernel values off the plain version")
-    check(same[1] == n and same[3] == n,
-          f"{label}: kernel lags off the plain version")
-    return got, err
+    return got, bound_check(label, got, ops, b, sup, m, sep=sep, **modes)
 
 
-def spike_operands(spikes, n, d, k, v, needle=None):
+def spike_operands(spikes, n, d, k, v, needle=None, span_hz=100.0):
     """One program of K1 on a capture of needle copies ``(lag, amp)`` (an
     impulse needle by default: |R|^2 is then the squared amplitude at
-    each lag, flat over the bins), linear window slices."""
+    each lag, flat over the bins), linear window slices, ``k`` bins over
+    +-``span_hz``."""
     import torch
 
     from caf_cookoff_tpu_torch.models.batched_stein import (
@@ -889,7 +926,7 @@ def spike_operands(spikes, n, d, k, v, needle=None):
     h_ext = _os_window_extensions(ht.real, ht.imag, v, 1,
                                   fs.fused_span(n // d, sup, v))
     ws1, ws2 = fs.stein_synthesis_weights(
-        torch.linspace(-100.0, 100.0, k, device=DEVICE), FS, n // d, d)
+        torch.linspace(-span_hz, span_hz, k, device=DEVICE), FS, n // d, d)
     return (ws1, ws2, lmat, h_ext), n // d, sup, v
 
 
@@ -934,6 +971,25 @@ def phase_kernel_top2(lcfgs):
     lags = (got[1].unique().tolist(), got[3].unique().tolist())
     print(f"[kernel] K1(e) tie: slot lags {lags} (want ([1000], [1310]))")
     check(lags == ([1000], [1310]), "K1(e) tie did not keep the lower lag")
+    # At 2B = 128 (a 1024-sample needle, D = 16), where a sum's order
+    # shows in its rounding: a copy at 2890, in the tile straddling the
+    # lower edge of the window around a stronger copy at 4000 (sep 1100),
+    # ties a copy from the tile pass at 1000 or at 7000, in 64 bins over
+    # +-10 Hz (within the needle's mainlobe, so every bin peaks at the
+    # copies).  A recompute summed otherwise than the tile pass loses one
+    # of the two ties.
+    needle = (rng.standard_normal(1024)
+              + 1j * rng.standard_normal(1024)).astype(np.complex64)
+    for partner in (1000, 7000):
+        got, _ = compare_top2(
+            f"K1(e) tie across a recomputed tile, 2B=128, partner {partner}",
+            *spike_operands([(4000, 2.0), (2890, 1.0), (partner, 1.0)], 1024,
+                            16, 64, 8192, needle, 10.0), sep=1100)
+        lags = (got[1].unique().tolist(), got[3].unique().tolist())
+        want = ([4000], [min(2890, partner)])
+        print(f"[kernel] K1(e) tie, 2B=128, partner {partner}: slot lags "
+              f"{lags} (want {want})")
+        check(lags == want, "K1(e) tie did not keep the lower lag")
     # A window bounded to 0 lags, and a sep past every lag.
     ops, b, sup, m, modes, _ = config_operands(lcfgs["lattice4"])
     cut = modes["num_valid"].clone()
@@ -1130,9 +1186,10 @@ def phase_lattice_times(lcfgs, shapes, launches, card):
                 exclude_freq=ef, exclude_lag=el, device=DEVICE), 3, 1) / 2
             yard = "batched_overlap_save_peaks_local"
         pairs = needles.shape[0]
+        library = stage_b_matmul_ms(ops, m, modes)
         rows[name] = {"shape": shape, "sep": sep, "launches": launches[name],
                       "ms": k1, "plain_ms": plain, "bound_ms": bound,
-                      "bound_by": by, "gflop": gflop,
+                      "bound_by": by, "gflop": gflop, "library_ms": library,
                       "recomputed_tiles": recompute_tiles(lag1, sep, m),
                       "call_ms": call, "pairs": pairs,
                       "cufft_lattice_ms_per_pair": scan}
@@ -1143,6 +1200,8 @@ def phase_lattice_times(lcfgs, shapes, launches, card):
                  f"kernel's roundings and sums + top2_separated), {name}",
                  plain),
                 (f"K1(e) bound ({by}, {gflop:.1f} GFLOP), {name}", bound),
+                (f"K1 library yardstick: stage B alone as one bf16 "
+                 f"torch.matmul, {name}", library),
                 (f"{name} whole lattice call ({pairs} pairs x {num} slots, "
                  f"host included)", call),
                 (f"{name} yardstick {yard}, per pair", scan)):
@@ -1224,15 +1283,14 @@ def rate_operands(cfg):
     p_eff = modes["share_h"] * windows
     return (ws1, ws2) + ops[2:], b, sup, m, modes, (
         f"R={len(rates)} x Kb={len(rel)} = {k} rows, S={modes['share_h']} "
-        f"W={windows} P_eff={p_eff} M={m} D={d}; grid y {-(-k // 64)} "
-        f"bin tiles, partials {p_eff * k * (m // 128) * 8 / 1e6:.1f} MB, "
-        f"P_eff*K = {p_eff * k} (int)")
+        f"W={windows} P_eff={p_eff} M={m} D={d}; {-(-k // 64)} bin passes "
+        f"a tile, top-2 partials {p_eff * k * (m // 128) * 8 / 1e6:.1f} MB "
+        f"(none without top-2), P_eff*K = {p_eff * k}")
 
 
 def phase_kernel_rate(rcfgs):
-    """K1 mode (f) at rate3's full shape against its plain version with
-    the kernel's roundings: single (c+d+f) and top-2 (c+d+e+f); values
-    within RTOL, every lag identical."""
+    """K1 mode (f) at rate3's full shape held to its error bound: single
+    (c+d+f) and top-2 (c+d+e+f)."""
     from caf_cookoff_tpu_torch.ops.peak import resolution_cell
 
     cfg = rcfgs["rate3"]
@@ -1418,10 +1476,12 @@ def phase_rate_times(rcfgs, rshape, rate_launches, refine_inputs, card):
         max_rate_hz_per_s=float(rates[1] - rates[0]),
         coarse_step_hz=float(freqs[1] - freqs[0]), device=DEVICE), 20, 3)
     top2_bound = stein_bound_ms(ops, m, modes, top2=True)
+    t["library"] = stage_b_matmul_ms(ops, m, modes)
     rows = {"shape": shape, "sep": sep, "launches": rate_launches,
             "ms": t["k1"], "ms_three_launches_918_rows": t["k1_three"],
             "plain_ms": t["k1_plain"], "bound_ms": bound, "bound_by": by,
-            "gflop": gflop, "top2_ms": t["k1_top2"],
+            "gflop": gflop, "library_ms": t["library"],
+            "top2_ms": t["k1_top2"],
             "top2_plain_ms": t["k1_top2_plain"],
             "top2_bound_ms": top2_bound[0],
             "recomputed_tiles": recompute_tiles(lag1, sep, m),
@@ -1436,6 +1496,8 @@ def phase_rate_times(rcfgs, rshape, rate_launches, refine_inputs, card):
             ("K1 (c+d+f) plain version (surface with the kernel's roundings "
              "and sums + max), rate3", t["k1_plain"]),
             (f"K1 (c+d+f) bound ({by}, {gflop:.1f} GFLOP), rate3", bound),
+            ("K1 library yardstick: stage B alone as one bf16 torch.matmul, "
+             "rate3", t["library"]),
             (f"K1 (c+d+e+f) wrapper, rate3 sep={sep}", t["k1_top2"]),
             ("K1 (c+d+e+f) plain version (+ top2_separated), rate3",
              t["k1_top2_plain"]),
@@ -1489,6 +1551,7 @@ def main() -> int:
     rates["max_abs_err"] = err_rate
     import torch
 
+    from caf_cookoff_tpu_torch.ops import fused_stein as fs
     from caf_cookoff_tpu_torch.utils import roofline as rf
 
     k4_plain = cuda_median_ms(lambda: rf.epilogue_plain(device=DEVICE), 10, 2)
@@ -1503,8 +1566,8 @@ def main() -> int:
     bound2, by2 = filterbank_bound_ms(k, n, fb_head[3], surface=False)
     bound3, by3 = filterbank_bound_ms(k, n, fb_head[3], surface=True)
     bound4, by4, gop4 = k4_bound_ms()
-    print(f"[bounds] K4: {bound4:.6f} ms ({by4}, {gop4:.3f} G f32 "
-          f"operations at the published H100 peak); measured "
+    print(f"[bounds] K4: {bound4:.6f} ms ({by4}, {gop4:.3f} G non-fma f32 "
+          f"operations at half the published H100 f32 peak); measured "
           f"{k4['ops_per_s'] / 1e12:.3f} T ops/s, epilogue floor "
           f"{k4['epilogue_floor_us']:.3f} us  [{card}]")
     src = "caf_cookoff_tpu_torch/csrc/"
@@ -1517,8 +1580,11 @@ def main() -> int:
                      + sum(rate_launches.values())),
         "max_abs_err": err1,
         "ms": t["k1"], "plain_ms": t["k1_plain"],
-        "bound_ms": bound1, "bound_by": by1, "library_ms": None,
-        "stage_b_bf16_matmul_ms": t["k1_matmul"],
+        "bound_ms": bound1, "bound_by": by1, "library_ms": t["k1_matmul"],
+        "library": "stage B alone as one bf16 torch.matmul (no one call "
+                   "ranks)",
+        "device_ms": t["k1_device"],
+        "bound_c": fs.BOUND_C,
         "modes": "(a) one pair, (b) pairs, (c) share_h, (d) windows + "
                  "num_valid, (c+d), (e) want_top2 with (b) and (c+d), "
                  "(f) rate-major synthesis rows with (c+d) and (c+d+e)",

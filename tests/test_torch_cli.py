@@ -441,3 +441,142 @@ def test_batch_refine_matches_jax_cli(fixture_pairs, capsys, full):
             assert abs(rec["refined_lag_samples"] - gt.lag_samples) <= 0.1
     txt = _both([a for a in argv if a != "--json"], capsys)
     assert all("  refined " in ln for out in txt for ln in out.splitlines())
+
+
+# ---------------------------------------------------------------------------
+# SigMF input on run and batch
+# ---------------------------------------------------------------------------
+
+WIDE = ["--freq-start", "-200", "--freq-stop", "200", "--freq-step", "0.25",
+        "--backend", "xla"]
+
+
+def _as_sigmf(tmp_path, pairs, rate, dtype="cf32"):
+    """The fixture pairs rewritten as SigMF recordings at ``rate`` (the
+    same samples, so at 96 kHz every doppler doubles): [(needle base,
+    haystack base)]."""
+    import numpy as np
+
+    from caf_cookoff_tpu_torch.utils.io import load_c64
+    from caf_cookoff_tpu_torch.utils.sigmf import write_sigmf
+
+    out = []
+    for i, pair in enumerate(pairs):
+        bases = []
+        for tag, path in zip(("n", "h"), pair):
+            x = load_c64(str(path))
+            if dtype == "cf64":
+                x = x.astype(np.complex128)
+            base = str(tmp_path / f"{tag}{i}_{int(rate)}_{dtype}")
+            write_sigmf(base, x, rate)
+            bases.append(base)
+        out.append(tuple(bases))
+    return out
+
+
+def _run_both(argv, capsys):
+    assert jcli.main(argv) == 0
+    want = capsys.readouterr()
+    assert tcli.main(argv + ["--device", "cpu"]) == 0
+    got = capsys.readouterr()
+    return got, want
+
+
+@pytest.mark.parametrize("rate,dtype,ext", [
+    (48_000.0, "cf32", ".sigmf-meta"), (48_000.0, "cf32", ".sigmf-data"),
+    (96_000.0, "cf32", ".sigmf-meta"), (96_000.0, "cf64", ".sigmf-data")])
+def test_run_sigmf_matches_jax_cli(fixture_pairs, tmp_path, capsys, rate,
+                                   dtype, ext):
+    """``run`` on SigMF recordings (either sidecar, cf32 or cf64) prints
+    the JAX CLI's result lines; at 96 kHz both read the recording's rate
+    (chirp_0's 69.25 Hz doubles) with the JAX CLI's note."""
+    (n_base, h_base), = _as_sigmf(tmp_path, fixture_pairs[:1], rate, dtype)
+    got, want = _run_both(["run", n_base + ext, h_base + ext, *WIDE], capsys)
+    for prefix in ("Frequency offset:", "Time offset:"):
+        assert _lines(got.out, prefix) == _lines(want.out, prefix)
+    scale = rate / 48_000.0
+    assert _lines(got.out, "Frequency offset:") == [
+        f"Frequency offset: {69.25 * scale:.3f} Hz"]
+    assert _lines(got.out, "Time offset:") == [
+        f"Time offset: 202 samples ({202 / rate * 1e3:.4f} ms)"]
+    assert _value(got.out) == pytest.approx(_value(want.out), rel=1e-4)
+    note = "note: using the recording's core:sample_rate 96000 Hz"
+    assert (note in got.err) == (note in want.err) == (rate == 96_000.0)
+
+
+@pytest.mark.parametrize("full", [False, True])
+def test_batch_sigmf_matches_jax_cli(fixture_pairs, tmp_path, capsys, full):
+    """``batch`` over two SigMF pairs at 96 kHz (meta and data sidecars
+    mixed): the JAX CLI's records, lag_ms at the recording's rate."""
+    pairs = _as_sigmf(tmp_path, (fixture_pairs[0], fixture_pairs[3]),
+                      96_000.0)
+    specs = [f"{pairs[0][0]}.sigmf-meta:{pairs[0][1]}.sigmf-data",
+             f"{pairs[1][0]}.sigmf-data:{pairs[1][1]}.sigmf-meta"]
+    argv = ["batch", *specs, "--json", *WIDE[:-2]] + (
+        ["--full-haystack"] if full else [])
+    got, want = _run_both(argv, capsys)
+    got, want = json.loads(got.out), json.loads(want.out)
+    assert [(r["freq_hz"], r["lag_samples"], r["lag_ms"]) for r in got] == \
+        [(r["freq_hz"], r["lag_samples"], r["lag_ms"]) for r in want] == \
+        [(138.5, 202, 202 / 96.0), (-152.5, 151, 151 / 96.0)]
+    for g, w in zip(got, want):
+        assert g["peak_value"] == pytest.approx(w["peak_value"], rel=1e-4)
+
+
+def test_run_sigmf_segment_matches_jax_cli(fixture_pairs, tmp_path, capsys):
+    """``--segment 1`` of a two-capture recording (noise, then chirp_0's
+    haystack) searches that segment alone, lags counted from its start,
+    as the JAX CLI does; without it both note the segments and search
+    the whole stream; ``--segment`` on a .c64 path is refused by both."""
+    import numpy as np
+
+    from caf_cookoff_tpu_torch.utils.io import load_c64
+    from caf_cookoff_tpu_torch.utils.sigmf import write_sigmf
+
+    needle_path, hay_path = map(str, fixture_pairs[0])
+    hay = load_c64(hay_path)
+    rng = np.random.default_rng(4)
+    noise = (0.05 * (rng.standard_normal(3000)
+                     + 1j * rng.standard_normal(3000))).astype(np.complex64)
+    base = str(tmp_path / "two")
+    write_sigmf(base, np.concatenate([noise, hay]), 48_000.0,
+                captures=[{"core:sample_start": 0},
+                          {"core:sample_start": 3000}])
+    argv = ["run", needle_path, base + ".sigmf-meta", *NARROW, "--backend",
+            "xla"]
+    got, want = _run_both(argv + ["--segment", "1"], capsys)
+    for prefix in ("Frequency offset:", "Time offset:"):
+        assert _lines(got.out, prefix) == _lines(want.out, prefix)
+    assert _lines(got.out, "Time offset:") == [
+        "Time offset: 202 samples (4.2083 ms)"]
+    got, want = _run_both(argv, capsys)
+    assert "has 2 capture segments" in got.err
+    assert "has 2 capture segments" in want.err
+    for prefix in ("Frequency offset:", "Time offset:"):
+        assert _lines(got.out, prefix) == _lines(want.out, prefix)
+    for main in (jcli.main, tcli.main):
+        with pytest.raises(ValueError, match="only to SigMF"):
+            main(["run", needle_path, hay_path, "--segment", "1",
+                  "--device", "cpu"] if main is tcli.main else
+                 ["run", needle_path, hay_path, "--segment", "1"])
+
+
+def test_run_sigmf_explicit_fs_conflict(fixture_pairs, tmp_path, capsys):
+    """An explicit ``--fs`` that disagrees with the recording wins, with
+    the JAX CLI's warning; one that agrees is silent; .c64 input keeps
+    the 48 kHz default."""
+    (n_base, h_base), = _as_sigmf(tmp_path, fixture_pairs[:1], 96_000.0)
+    paths = [n_base + ".sigmf-meta", h_base + ".sigmf-meta"]
+    got, want = _run_both(["run", *paths, *WIDE, "--fs", "48000"], capsys)
+    warn = ("WARNING: --fs=48000 != recording core:sample_rate 96000; "
+            "doppler estimates use --fs")
+    assert warn in got.err and warn in want.err
+    assert _lines(got.out, "Frequency offset:") == _lines(
+        want.out, "Frequency offset:") == ["Frequency offset: 69.250 Hz"]
+    got, want = _run_both(["run", *paths, *WIDE, "--fs", "96000"], capsys)
+    assert "core:sample_rate" not in got.err + want.err
+    assert _lines(got.out, "Frequency offset:") == [
+        "Frequency offset: 138.500 Hz"]
+    got, _ = _run_both(["run", *map(str, fixture_pairs[0]), *WIDE], capsys)
+    assert _lines(got.out, "Frequency offset:") == [
+        "Frequency offset: 69.250 Hz"]

@@ -4,8 +4,9 @@ version against the JAX package.
 The JAX side runs as the JAX package's own tests run it on the CPU: the
 Pallas kernel in interpret mode and its XLA twin ``_coarse_rank_xla``.
 Operands built by the JAX package are carried into tensors with
-``utils/convert``.  The CUDA kernel itself is held against the plain
-version on the card (``tests/test_torch_cuda.py`` and ``chip_smoke.py``).
+``utils/convert``.  The CUDA kernel itself is held to the error bound of
+``rank_bound_check`` on the card (``tests/test_torch_cuda.py`` and
+``chip_smoke.py``); the bound itself is tested here.
 """
 
 import pathlib
@@ -314,3 +315,118 @@ def test_zero_lag_bound_reads_minus_one_at_lag_zero():
     assert int(pi[:, 2].max()) < 100
     np.testing.assert_array_equal(pi.numpy(), np.asarray(ki))
     np.testing.assert_allclose(pv.numpy(), np.asarray(kv), rtol=2e-2)
+
+
+# ---------------------------------------------------------------------------
+# The error bound the CUDA kernel is held to (its stage B sums on the
+# tensor cores in their own order): stage_b_error_bound, rank_bound_check
+# ---------------------------------------------------------------------------
+
+_BOUND_SHAPES = [(128, 32, 2048),     # 2B = 8
+                 (2048, 32, 2048),    # 2B = 128
+                 (1024, 8, 2048)]     # 2B = 256
+
+
+def _bound_operands(n, d, m, k=37, seed=5):
+    """Port operands on the CPU rounded to bf16, and the plain version's
+    G (the kernel's bit for bit)."""
+    needles, hays = _pairs(np.random.default_rng(seed), 1, n)
+    nt, ht = torch.from_numpy(needles), torch.from_numpy(hays)
+    b = n // d
+    lmat, sup = tbs._needle_operator(nt.real, nt.imag, d)
+    h_ext = tbs._haystack_extension(ht.real, ht.imag, m,
+                                    tfs.fused_span(b, sup, m))
+    ws1, ws2 = tfs.stein_synthesis_weights(torch.linspace(-300, 300, k), FS,
+                                           b, d)
+    ops = tuple(map(tfs._bf16, (ws1, ws2, lmat, h_ext)))
+    g = tfs._plain_g(ops[2], ops[3], b, sup, m, torch.arange(1), 1, 1, True)
+    return ops, b, sup, g
+
+
+def _kernel_order_ratio(ws1, ws2, g, v, e):
+    rr, ri = tfs._stage_b_row_by_row(ws1, ws2, g)
+    return tfs._ratio(((rr * rr + ri * ri).double() - v).abs(), e)
+
+
+@pytest.mark.parametrize("n,d,m", _BOUND_SHAPES)
+def test_kernel_order_surface_within_bound(n, d, m):
+    """The plain f32 surface, stage B summed row by row, sits well within
+    the bound of the f64 surface at 2B = 8, 128 and 256; the CPU route's
+    answer passes ``rank_bound_check`` in both modes."""
+    ops, b, sup, g = _bound_operands(n, d, m)
+    assert g.shape[1] == 2 * b
+    v, e = tfs.stage_b_error_bound(ops[0], ops[1], g)
+    assert v.dtype == e.dtype == torch.float64
+    assert bool((e >= 0).all()) and bool((e > 0).any())
+    assert _kernel_order_ratio(ops[0], ops[1], g, v, e) < 0.1
+    got = tfs.fused_stein_rank(*ops, b, sup, m)
+    r = tfs.rank_bound_check(got, *ops, b, sup, m)
+    assert r["ok"] and r["ratio"] < 0.1 and r["lags_off_f32"] == 0, r
+    got = tfs.fused_stein_rank(*ops, b, sup, m, want_top2=True, sep=4)
+    r = tfs.rank_bound_check(got, *ops, b, sup, m, sep=4)
+    assert r["ok"] and r["n"] == 2 * got[0].numel(), r
+
+
+@pytest.mark.parametrize("n,d,m", _BOUND_SHAPES)
+def test_one_bf16_ulp_in_g_breaks_bound(n, d, m):
+    """G summed in another order lands single entries one bf16 ulp
+    apart; one such entry (the largest, moved away from zero) takes the
+    surface past the bound."""
+    ops, b, sup, g = _bound_operands(n, d, m)
+    v, e = tfs.stage_b_error_bound(ops[0], ops[1], g)
+    flat = g.clone().view(-1)
+    i = int(flat.abs().argmax())
+    bits = flat[i:i + 1].to(torch.bfloat16).view(torch.int16) + 1
+    flat[i] = bits.view(torch.bfloat16).float()[0]
+    assert abs(float(flat[i])) > abs(float(g.view(-1)[i]))
+    assert _kernel_order_ratio(ops[0], ops[1], flat.view(g.shape), v, e) > 1
+
+
+def test_rank_bound_check_flags_wrong_answers():
+    """A lag moved off the bin's max, a value moved past its bound, and a
+    slot-2 lag inside slot 1's window each fail the check."""
+    ops, b, sup, g = _bound_operands(1024, 32, 1024)
+    vals, lags = tfs.fused_stein_rank(*ops, b, sup, 1024)
+    assert tfs.rank_bound_check((vals, lags), *ops, b, sup, 1024)["ok"]
+    moved = lags.clone()
+    moved[5, 0] = (moved[5, 0] + 37) % 1024
+    assert not tfs.rank_bound_check((vals, moved), *ops, b, sup, 1024)["ok"]
+    off = vals.clone()
+    off[3, 0] *= 1 + 1e-3
+    r = tfs.rank_bound_check((off, lags), *ops, b, sup, 1024)
+    assert not r["ok"] and r["ratio"] > 1
+    top2 = list(tfs.fused_stein_rank(*ops, b, sup, 1024, want_top2=True,
+                                     sep=8))
+    assert tfs.rank_bound_check(top2, *ops, b, sup, 1024, sep=8)["ok"]
+    top2[3] = top2[1] + 1
+    assert not tfs.rank_bound_check(top2, *ops, b, sup, 1024, sep=8)["ok"]
+
+
+def test_tile_shape_mirrors_the_kernel():
+    """The wrapper's shared-memory and bin-split arithmetic (csrc
+    ``TileSmem``, ``kBinPass``): a config-1 shape splits its 400 bins so
+    every SM gets a block, a config-2 shape takes every bin in one
+    block, and 2B past the card's shared memory is refused up front."""
+    assert tfs._tile_smem_bytes(128, 64) == 128 * 136 * 2 + 2 * (
+        2 * 800 + 32 * 64) * 4
+    assert tfs._tile_smem_bytes(64, 128) <= tfs._SMEM_PER_BLOCK
+    assert tfs._tile_smem_bytes(1024, 8) > tfs._SMEM_PER_BLOCK
+    assert tfs._bins_per_split(400, 64, 132) == 192
+    assert tfs._bins_per_split(400, 64 * 64, 132) == 448
+    assert tfs._bins_per_split(2754, 56 * 64, 132) == 2754 + 62
+
+
+def test_k1_study_edits_find_their_sites():
+    """Every mutant and stage-split edit of ``utils/k1_study`` finds its
+    site in ``csrc/fused_stein.cu`` exactly once, so the studies edit the
+    kernel they name."""
+    from caf_cookoff_tpu_torch.utils import k1_study
+
+    src = (pathlib.Path(tfs.__file__).resolve().parents[1] / "csrc"
+           / "fused_stein.cu").read_text()
+    edits = list(k1_study.MUTANTS.values()) + [
+        e for e in k1_study.SPLITS.values() if e is not None]
+    assert len(edits) == 6
+    for old, new in edits:
+        assert src.count(old) == 1
+        assert src.replace(old, new) != src
