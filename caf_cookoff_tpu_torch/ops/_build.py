@@ -114,13 +114,16 @@ def load_library() -> ctypes.CDLL:
         fn.restype = ci
     lib.caf_fused_stein_smem_bytes.argtypes = [ci, ci]
     lib.caf_fused_stein_smem_bytes.restype = ctypes.c_longlong
-    # needle, n, h_br, tw, rates, k, m, outputs..., stream
-    lib.caf_filterbank_peak.argtypes = [vp, ci, vp, vp, vp, ci, ci, vp, vp,
-                                        vp]
+    # needle, n, h_k, tw, rates, k, m, c, outputs..., stream
+    lib.caf_filterbank_peak.argtypes = [vp, ci, vp, vp, vp, ci, ci, ci, vp,
+                                        vp, vp]
     lib.caf_filterbank_peak.restype = ci
-    lib.caf_filterbank_surface.argtypes = [vp, ci, vp, vp, vp, ci, ci, vp,
-                                           vp]
+    lib.caf_filterbank_surface.argtypes = [vp, ci, vp, vp, vp, ci, ci, ci,
+                                           vp, vp]
     lib.caf_filterbank_surface.restype = ci
+    # surface, m, c, blocks per SM (out), clusters (out)
+    lib.caf_filterbank_occupancy.argtypes = [ci, ci, ci, vp, vp]
+    lib.caf_filterbank_occupancy.restype = ci
     # out, rows, cols, sweeps, seed, stream
     lib.caf_epilogue_roofline.argtypes = [vp, ci, ci, ci, ctypes.c_float, vp]
     lib.caf_epilogue_roofline.restype = ci

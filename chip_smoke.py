@@ -20,15 +20,23 @@ Phases, each reported on its own line:
    M = 8192, D = 64), a random two-pair shape and the cross-tile tie
    case (lowest lag wins, exactly); K2, the fused
    filterbank peak rows, at chirp_0's 400 x 8192, a random K = 37,
-   M = 2048 shape, N = 5000 (M = 16384) and an all-zero input (every lag
-   ties: lag 0 wins); K3, the fused filterbank surface, at 400 x 8192.
+   M = 2048 shape, N = 5000 (M = 16384), an all-zero input (every lag
+   ties: lag 0 wins, also at M = 16, one thread a bin), the grid M in
+   {2, 8, 16, 1024, 8192, 16384, 32768, 131072} x K in {1, 8, 400}
+   (K x M <= 400 x 32768; one thread, or 1 to 16 blocks, a bin),
+   the refine tier's K = 8 and ties at 1, 2, 8 and 16 blocks a bin
+   (all-zero: lag 0; two needle copies that different blocks hold: one
+   of them); K3, the fused filterbank surface, at 400 x 8192 and the
+   same grid.
 4. main   — the ten golden fixtures through ``caf_peak(device="cuda")``
    with ``backend="stein"`` (K1) and ``pallas``, ``pallas-bf16``,
    ``pallas-refine`` (K2): every answer exact, and each kernel's launch
    count, set to 0 just before and read just after, shows the path went
    through it; chirp_0 also through the cuFFT filterbank
    (``backend="xla"``) and the CPU route, and chirp_0's
-   ``caf_surface(backend="pallas")`` (K3) against ``backend="xla"``.
+   ``caf_surface(backend="pallas")`` (K3) against ``backend="xla"``; a
+   16384-sample needle (M = 32768) through every ``pallas*`` backend and
+   ``caf_surface(backend="pallas")``, against ``backend="xla"``.
 5. modes  — K1 in modes (c) ``share_h`` (6 bands), (d) ``windows`` +
    ``num_valid`` (8 windows, the last one cut to half its lags) and (c+d)
    (48 programs) held to its bound, at config 3's full shape as its
@@ -82,7 +90,10 @@ Phases, each reported on its own line:
    config's shape (where it is first held to its bound as in phase 3),
    of K1(e) at both lattice shapes, of K1 (f) and (e+f) at rate3's, of
    K4 (bound: its non-fma operations at half the f32 peak), and of
-   whole ``caf_peak``,
+   K2/K3's launches alone (ten back to back from Python) and as device
+   time (replays of a CUDA graph of ten), both also for K2 at the refine
+   tier's K = 8, K2's device time at one full wave of bins, K2/K3's
+   blocks a SM, cluster size and waves at 400 x 8192, whole ``caf_peak``,
    config, lattice, rate-engine and refine calls and the cuFFT
    yardsticks (host included), each printed beside the card's name and
    power limit.
@@ -110,9 +121,9 @@ FS = 48_000.0
 # K1 is held to ops/fused_stein.rank_bound_check: its stage B sums on
 # the tensor cores in their own order, so each |R|^2 is held to the f64
 # stage B on the plain version's G within a stated error bound.
-# K2/K3 vs plain versions: two f32 FFT algorithms (the kernel's radix-2,
-# cuFFT) that differ in the order of their sums (5.3e-7 rel and 3.4e-7 x
-# max measured on the H100), so near-ties may order differently.
+# K2/K3 vs plain versions: two f32 FFT algorithms (the kernel's
+# register-radix passes, cuFFT) that differ in the order of their sums,
+# so near-ties may order differently.
 LAG_SHARE = 0.99    # K2: least share of bins whose lag equals the plain one
 FB_RTOL = 1e-5      # per-bin peak values; the plain value at the kernel's lag
 FB_SURF_TOL = 1e-5  # surface max abs error, as a share of the surface max
@@ -131,6 +142,8 @@ GOLDEN = [          # (chirp index, (start, stop, step) Hz, freq, lag)
     (8, (-100.0, 100.0, 0.25), -46.25, 80),
     (9, (-100.0, 100.0, 0.5), 61.5, 176),
 ]
+# K2's tie cases: (M, K) at clusters of 1, 2, 8 and 16 blocks a bin.
+TIE_SHAPES = ((2048, 17), (16384, 8), (65536, 2), (131072, 1))
 # Launches of the pallas* filterbank kernel per caf_peak call.
 PALLAS_LAUNCHES = {"pallas": 1, "pallas-bf16": 1, "pallas-refine": 2}
 
@@ -369,19 +382,90 @@ def phase_kernel_filterbank(pairs):
     print(f"[kernel] K2 all-lags tie: lags {sorted(set(zi.tolist()))} "
           f"(want [0])")
     check(zi.tolist() == [0] * 9, "K2 tie did not resolve to the lowest lag")
+    # Rows under 32 points (one thread a bin, 70 bins: two blocks).
+    zero = torch.zeros(8, dtype=torch.complex64, device=DEVICE)
+    _, zi = pc.pallas_peak_rows(zero, zero, freqs[:70], FS, 16)
+    print(f"[kernel] K2 all-lags tie at M=16: lags {sorted(set(zi.tolist()))} "
+          f"(want [0])")
+    check(zi.tolist() == [0] * 70,
+          "K2 tie at M=16 did not resolve to the lowest lag")
+    # The design's grid: rows of one thread (M < 32) and of 1 to 16 blocks
+    # a bin (clusters past 8192 points), K x M capped at 400 x 32768.
+    for mm in (2, 8, 16, 1024, 8192, 16384, 32768, 131072):
+        for kk in (1, 8, 400):
+            if kk * mm > 400 * 32768:
+                continue
+            compare_peak_rows(
+                f"K2 grid (C={pc.cluster_size(mm)})",
+                *random_pair(rng, mm // 2, 37 + mm // 7, DEVICE),
+                torch.linspace(-300.0, 300.0, kk, device=DEVICE), mm)
+            compare_surface(f"K3 grid (C={pc.cluster_size(mm)})",
+                            *random_pair(rng, mm // 2, 11 + mm // 5, DEVICE),
+                            torch.linspace(-300.0, 300.0, kk,
+                                           device=DEVICE), mm)
+    # The refine tier's second launch: chirp_0's 8 bins nearest its peak.
+    near = torch.argsort((freqs - 69.25).abs())[:8].sort().values
+    compare_peak_rows(f"K2 refine shape (C={pc.cluster_size(m)})",
+                      needle, hay, freqs[near], m)
+    phase_filterbank_ties(pc)
+    err_surf = compare_surface("K3 chirp_0 headline", *head)
+    return head, err_peak, err_surf
+
+
+def compare_surface(label, needle, hay, freqs, m):
+    """K3 vs its plain version on the card; returns the max absolute
+    error."""
+    import torch
+
+    from caf_cookoff_tpu_torch.ops import pallas_caf as pc
 
     ks = pc.pallas_surface(needle, hay, freqs, FS, m)
     ps = pc.caf_surface_plain(needle, hay, freqs, FS, m)
     torch.cuda.synchronize()
-    err_surf = (ks - ps).abs().max().item()
-    share = err_surf / ps.max().item()
-    print(f"[kernel] K3 chirp_0 headline: K={ks.shape[0]} M={ks.shape[1]}: "
-          f"max abs err {err_surf:.4g} = {share:.3e} x surface max "
-          f"(tol {FB_SURF_TOL})")
+    err = (ks - ps).abs().max().item()
+    share = err / ps.max().item()
+    print(f"[kernel] {label}: K={ks.shape[0]} M={ks.shape[1]}: max abs err "
+          f"{err:.4g} = {share:.3e} x surface max (tol {FB_SURF_TOL})")
     check(ks.shape == ps.shape and bool(torch.isfinite(ks).all()),
-          "K3 surface shape or values")
-    check(share <= FB_SURF_TOL, "K3 surface off the plain version")
-    return head, err_peak, err_surf
+          f"{label}: surface shape or values")
+    check(share <= FB_SURF_TOL, f"{label}: surface off the plain version")
+    return err
+
+
+def phase_filterbank_ties(pc):
+    """Ties at one block a bin and in bins split over clusters of 2, 8
+    and 16 blocks: the all-zero input (every lag ties; each block's own
+    lowest lag differs, the bin's is 0) and two needle copies at lags
+    that different blocks hold (a near-tie: the lag is one of them, its
+    plain value within FB_RTOL of the maximum)."""
+    import torch
+
+    rng = np.random.default_rng(11)
+    for m, k in TIE_SHAPES:
+        c = pc.cluster_size(m)
+        freqs = 12.5 * (torch.arange(k, device=DEVICE) - k // 2)
+        zero = torch.zeros(m // 2, dtype=torch.complex64, device=DEVICE)
+        _, zi = pc.pallas_peak_rows(zero, zero, freqs, FS, m)
+        lo, hi = 100, 100 + (m // c + m // c // c if c > 1 else m // 4)
+        n = min(512, m // 8)
+        needle = (rng.standard_normal(n)
+                  + 1j * rng.standard_normal(n)).astype(np.complex64)
+        hay = np.zeros(m, np.complex64)
+        hay[lo:lo + n] = needle
+        hay[hi:hi + n] = needle
+        nt = torch.from_numpy(needle).to(DEVICE)
+        ht = torch.from_numpy(hay).to(DEVICE)
+        _, li = pc.pallas_peak_rows(nt, ht, freqs, FS, m)
+        rows = pc._mag2(pc._rows_plain(nt, ht, freqs, FS, m))
+        mid = k // 2
+        lag = int(li[mid])
+        near = float(rows[mid, lag]) >= (1 - FB_RTOL) * float(rows[mid].max())
+        print(f"[kernel] K2 ties M={m} K={k} C={c}: all-zero lags "
+              f"{sorted(set(zi.tolist()))} (want [0]); copies at {lo} and "
+              f"{hi}: lag {lag}, near the plain max: {near}")
+        check(zi.tolist() == [0] * k,
+              "K2 tie did not resolve to the lowest lag")
+        check(lag in (lo, hi) and near, "K2 near-tie lag")
 
 
 def golden_inputs(pairs):
@@ -469,7 +553,44 @@ def phase_main_pallas(inputs, fb):
           f"caf_surface launches: {surface_launches}")
     check(surface_launches == 1, "caf_surface did not launch the kernel")
     check(bad == 0, "pallas surface disagrees with xla")
+    phase_long_needle()
     return peak_launches, surface_launches
+
+
+def phase_long_needle():
+    """A 16384-sample needle (M = 32768: a cluster of blocks a bin, past
+    the 16384 points one block held before) through ``caf_peak`` with
+    every pallas backend and ``caf_surface(backend="pallas")``, against
+    ``backend="xla"`` with the bounds above."""
+    from caf_cookoff_tpu_torch import caf_peak, caf_surface
+
+    rng = np.random.default_rng(8)
+    n, lag, f_hz, m = 16384, 4321, 37.0, 32768
+    needle = (rng.standard_normal(n)
+              + 1j * rng.standard_normal(n)).astype(np.complex64)
+    hay = (np.roll(needle, lag) * np.exp(2j * np.pi * f_hz * np.arange(n)
+                                         / FS)).astype(np.complex64)
+    freqs = np.arange(-100.0, 100.0, 1.0, dtype=np.float32)
+    want = caf_peak(needle, hay, freqs, FS, backend="xla", device=DEVICE)
+    for backend in PALLAS_LAUNCHES:
+        got = caf_peak(needle, hay, freqs, FS, backend=backend,
+                       device=DEVICE)
+        ratio = got[2] / (want[2] * m * m)
+        print(f"[main] {backend} 16384-sample needle (M = {m}): "
+              f"{got[0]:+.3f} Hz, lag {got[1]} (xla {want[0]:+.3f} Hz, lag "
+              f"{want[1]}; want {f_hz:+.3f}, {lag}), value / (M^2 x xla) = "
+              f"{ratio:.7f}")
+        check(got[:2] == want[:2] == (f_hz, lag)
+              and abs(ratio - 1.0) <= 1e-4, f"{backend} at M = {m}")
+    got = caf_surface(needle, hay, freqs, FS, backend="pallas",
+                      device=DEVICE)
+    ref = caf_surface(needle, hay, freqs, FS, backend="xla", device=DEVICE)
+    bad = ((got - ref).abs() > 1e-3 * ref.abs()
+           + 1e-4 * ref.max()).sum().item()
+    print(f"[main] caf_surface pallas vs xla at M = {m}: {got.shape[0]}x"
+          f"{got.shape[1]}, cells off rtol 1e-3 + atol 1e-4 x max: {bad}")
+    check(got.shape == ref.shape and bad == 0,
+          f"pallas surface disagrees with xla at M = {m}")
 
 
 def rand_pair(n, lag, f_hz, seed):
@@ -649,6 +770,25 @@ def cuda_median_ms(fn, runs: int, warmup: int = 10) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, burst: int = 10, rounds: int = 20) -> float:
+    """Device ms of one call of ``fn``: CUDA-event medians of replays of
+    a CUDA graph of ``burst`` calls, so no host time sits between the
+    launches."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()                             # warm-up, outside the graph
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(burst):
+            fn()
+    return cuda_median_ms(graph.replay, rounds, 3) / burst
+
+
 def device_ms(fn, runs: int = 20) -> float:
     """Device time a call of ``fn``: the kernels' and memsets' time in a
     ``torch.profiler`` trace of ``runs`` calls (after warm-up), over
@@ -756,6 +896,30 @@ def filterbank_bound_ms(k, n, m, surface: bool):
         "operations" if t_ops >= t_bytes else "bytes")
 
 
+def filterbank_occupancy(k, m, surface: bool):
+    """K2's or K3's launch at (k, m): blocks a SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), the wrapper's
+    cluster size, clusters the card holds at once, waves of the grid."""
+    import ctypes
+
+    import torch
+
+    from caf_cookoff_tpu_torch.ops import _build
+    from caf_cookoff_tpu_torch.ops import pallas_caf as pc
+
+    c = pc.cluster_size(m)
+    blocks, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    rc = _build.load_library().caf_filterbank_occupancy(
+        int(surface), m, c, ctypes.byref(blocks), ctypes.byref(clusters))
+    check(rc == 0 and blocks.value > 0, "filterbank occupancy query")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    slots = blocks.value * sms
+    return {"blocks_per_sm": blocks.value, "cluster": c,
+            "max_active_clusters": clusters.value, "blocks": k * c,
+            "waves": math.ceil(k * c / slots),
+            "last_wave_fill": round(((k * c - 1) % slots + 1) / slots, 4)}
+
+
 def phase_times(head, fb_head, inputs, card):
     import torch
 
@@ -791,14 +955,39 @@ def phase_times(head, fb_head, inputs, card):
     t["k2_library"] = cuda_median_ms(
         lambda: mag2(_surface_rows(needle, hay, freqs, FS, mf)).max(dim=-1),
         50)
-    # The launches alone, ten back to back on prepared operands.
+    # The launches alone on prepared operands: ten back to back from
+    # Python (CUDA events around the ten, the script's measure from its
+    # first version), and device time (replays of a CUDA graph of ten, no
+    # host between them).
     kops = pc._kernel_operands(needle, hay, freqs, FS, mf)
-    t["k2_alone"] = cuda_median_ms(
-        lambda: [pc._run_kernel("peak", *kops, mf) for _ in range(10)],
-        20) / 10
-    t["k3_alone"] = cuda_median_ms(
-        lambda: [pc._run_kernel("surface", *kops, mf) for _ in range(10)],
-        20) / 10
+    # The refine tier's second launch: the 8 bins nearest chirp_0's peak.
+    near = torch.argsort((freqs - 69.25).abs())[:8].sort().values
+    kops8 = pc._kernel_operands(needle, hay, freqs[near], FS, mf)
+
+    def alone(which, ops_):
+        return cuda_median_ms(
+            lambda: [pc._run_kernel(which, *ops_, mf) for _ in range(10)],
+            20) / 10
+
+    def device(which, ops_):
+        return graph_ms(lambda: pc._run_kernel(which, *ops_, mf))
+
+    t["k2_alone"], t["k2_device"] = alone("peak", kops), device("peak", kops)
+    t["k3_alone"], t["k3_device"] = (alone("surface", kops),
+                                     device("surface", kops))
+    t["k2_alone_k8"], t["k2_device_k8"] = (alone("peak", kops8),
+                                           device("peak", kops8))
+    # K2 at one full wave (blocks a SM x SMs bins, 396 on a 132-SM card):
+    # what the 400-bin launch's part-filled second wave costs.
+    occ = filterbank_occupancy(freqs.shape[0], mf, surface=False)
+    k_wave = occ["blocks_per_sm"] * torch.cuda.get_device_properties(
+        0).multi_processor_count // occ["cluster"]
+    t["k_wave"] = k_wave
+    t["k2_device_wave"] = None
+    if k_wave < freqs.shape[0]:
+        kops_w = kops._replace(rates=kops.rates[:k_wave])
+        t["k2_device_wave"] = graph_ms(
+            lambda: pc._run_kernel("peak", *kops_w, mf))
     t["k3"] = cuda_median_ms(
         lambda: pc.pallas_surface(needle, hay, freqs, FS, mf), 100)
     t["k3_plain"] = cuda_median_ms(
@@ -820,17 +1009,30 @@ def phase_times(head, fb_head, inputs, card):
              f"(800x128 @ 128x8192)", t["k1_matmul"]),
             ("caf_peak stein main path, 400x8192, per surface incl. host",
              t["stein_main"]),
-            (f"K2 pallas_peak_rows wrapper (H by cuFFT + 1 launch), {fb}",
+            (f"K2 pallas_peak_rows wrapper (H by cuFFT + gather + 1 "
+             f"launch), {fb}",
              t["k2"]),
-            (f"K2 launch alone (prepared operands, 10 back to back), {fb}",
-             t["k2_alone"]),
+            (f"K2 launch alone (prepared operands, 10 back to back from "
+             f"Python), {fb}", t["k2_alone"]),
+            (f"K2 launch, device time (prepared operands, a CUDA graph of "
+             f"10), {fb}", t["k2_device"]),
+            (f"K2 launch, device time at one full wave, K={k_wave} M={mf}",
+             t["k2_device_wave"] if t["k2_device_wave"] is not None
+             else float("nan")),
             (f"K2 caf_peak_rows_plain (torch.fft), {fb}", t["k2_plain"]),
             (f"K2 library: cuFFT filterbank rows + |.|^2 + per-bin max "
              f"(several PyTorch calls), {fb}", t["k2_library"]),
-            (f"K3 pallas_surface wrapper (H by cuFFT + 1 launch), {fb}",
+            (f"K2 launch alone at the refine tier's K=8 (C={kops8.c}, 10 "
+             f"back to back from Python), M=8192", t["k2_alone_k8"]),
+            (f"K2 launch at the refine tier's K=8, device time, M=8192",
+             t["k2_device_k8"]),
+            (f"K3 pallas_surface wrapper (H by cuFFT + gather + 1 "
+             f"launch), {fb}",
              t["k3"]),
-            (f"K3 launch alone (prepared operands, 10 back to back), {fb}",
-             t["k3_alone"]),
+            (f"K3 launch alone (prepared operands, 10 back to back from "
+             f"Python), {fb}", t["k3_alone"]),
+            (f"K3 launch, device time (prepared operands, a CUDA graph of "
+             f"10), {fb}", t["k3_device"]),
             (f"K3 caf_surface_plain (torch.fft), {fb}", t["k3_plain"]),
             (f"K3 library: cuFFT filterbank rows + |.|^2 (several PyTorch "
              f"calls), {fb}", t["k3_library"]),
@@ -1562,6 +1764,9 @@ def main() -> int:
             ("K4 plain version (torch, 64 sweeps)", k4_plain)):
         print(f"[times] {what}: {ms:.4f} ms  [{card}]")
     k, n = fb_head[2].shape[0], len(inputs[0][0])
+    occ2 = filterbank_occupancy(k, fb_head[3], surface=False)
+    occ3 = filterbank_occupancy(k, fb_head[3], surface=True)
+    print(f"[occupancy] K2 at {k}x{fb_head[3]}: {occ2}; K3: {occ3}  [{card}]")
     bound1, by1, _ = stein_bound_ms(head[0], head[3])
     bound2, by2 = filterbank_bound_ms(k, n, fb_head[3], surface=False)
     bound3, by3 = filterbank_bound_ms(k, n, fb_head[3], surface=True)
@@ -1604,6 +1809,13 @@ def main() -> int:
         "bound_ms": bound2, "bound_by": by2, "library_ms": t["k2_library"],
         "library": "cuFFT filterbank rows + |.|^2 + per-bin max",
         "launch_alone_ms": t["k2_alone"],
+        "launch_device_ms": t["k2_device"],
+        "launch_alone_k8_ms": t["k2_alone_k8"],
+        "launch_device_k8_ms": t["k2_device_k8"],
+        "launch_device_one_wave_ms": t["k2_device_wave"],
+        "one_wave_bins": t["k_wave"],
+        "blocks_per_sm": occ2["blocks_per_sm"], "cluster": occ2["cluster"],
+        "waves": occ2["waves"],
     }, {
         "name": "caf_surface", "route": "cuda",
         "source": src + "caf_filterbank.cu",
@@ -1613,6 +1825,9 @@ def main() -> int:
         "bound_ms": bound3, "bound_by": by3, "library_ms": t["k3_library"],
         "library": "cuFFT filterbank rows + |.|^2",
         "launch_alone_ms": t["k3_alone"],
+        "launch_device_ms": t["k3_device"],
+        "blocks_per_sm": occ3["blocks_per_sm"], "cluster": occ3["cluster"],
+        "waves": occ3["waves"],
     }, {
         "name": "epilogue_roofline", "route": "cuda",
         "source": src + "roofline_epilogue.cu",

@@ -28,9 +28,8 @@ pytestmark = pytest.mark.cuda
 
 FS = 48_000.0
 LAG_SHARE = 0.99   # least share of bins whose lag equals the plain argmax
-# K2/K3 vs plain versions: two f32 FFT algorithms (the kernel's radix-2,
-# cuFFT) that differ in the order of their sums (5.3e-7 and 3.4e-7 x max
-# measured on the H100).
+# K2/K3 vs plain versions: two f32 FFT algorithms (the kernel's
+# register-radix passes, cuFFT) that differ in the order of their sums.
 FB_RTOL = 1e-5
 FB_SURF_TOL = 1e-5
 DATA = pathlib.Path(__file__).resolve().parents[1] / "data"
@@ -164,12 +163,19 @@ def _signal_pair(rng, n, lag):
     return torch.from_numpy(needle).cuda(), torch.from_numpy(hay).cuda()
 
 
-@pytest.mark.parametrize("m", [1024, 8192, 16384])
-@pytest.mark.parametrize("k", [1, 5, 400])
+# K x M capped at 400 x 32768 so the plain (K, M) rows fit comfortably;
+# M = 2, 8, 16: rows under 32 points, one thread a bin.
+FB_SHAPES = [(m, k) for m in (2, 8, 16, 1024, 8192, 16384, 32768, 131072)
+             for k in (1, 8, 400) if k * m <= 400 * 32768]
+
+
+@pytest.mark.parametrize("m,k", FB_SHAPES)
 def test_filterbank_kernels_match_plain_on_card(card, m, k):
     """K2: values within FB_RTOL, the plain value at the kernel's lag
     within FB_RTOL of the bin maximum, lags the plain argmax in all but
-    near-tied bins; K3: max abs error within FB_SURF_TOL x max."""
+    near-tied bins; K3: max abs error within FB_SURF_TOL x max.  Each
+    shape's cluster size is the wrapper's (1 to 16 blocks a bin; under
+    32 points one thread a bin)."""
     needle, hay = _signal_pair(np.random.default_rng(m + k), m // 2, 37)
     freqs = torch.linspace(-300.0, 300.0, k, device="cuda")
     before = (pc.PEAK_LAUNCHES, pc.SURFACE_LAUNCHES)
@@ -185,42 +191,121 @@ def test_filterbank_kernels_match_plain_on_card(card, m, k):
     at = torch.gather(rows, 1, ki.long()[:, None])[:, 0]
     assert bool((at >= (1 - FB_RTOL) * pv).all())
     assert (ki == pi.to(torch.int32)).float().mean().item() >= LAG_SHARE
+    del rows
     ps = pc.caf_surface_plain(needle, hay, freqs, FS, m)
     assert ks.shape == (k, m)
     assert (ks - ps).abs().max().item() <= FB_SURF_TOL * ps.max().item()
 
 
-def test_filterbank_tie_break_on_card(card):
+@pytest.mark.parametrize("m", [2, 8, 16])
+def test_filterbank_short_rows_tie_on_card(card, m):
+    """Rows under 32 points, one thread a bin (70 bins: two blocks): the
+    all-zero input ties every lag of every bin, and lag 0 wins."""
+    zero = torch.zeros(m // 2, dtype=torch.complex64, device="cuda")
+    freqs = torch.linspace(-100.0, 100.0, 70, device="cuda")
+    vals, lags = pc.pallas_peak_rows(zero, zero, freqs, FS, m)
+    assert lags.tolist() == [0] * 70
+    assert vals.tolist() == [0.0] * 70
+
+
+@pytest.mark.parametrize("m,k", [(2048, 17), (16384, 8), (65536, 2),
+                                 (131072, 1)])
+def test_filterbank_tie_break_on_card(card, m, k):
     """An FFT gives no bit-identical values at two different lags of
     nonzero data, so the exact tie is the all-zero input: every lag of
-    every bin ties and the lowest lag, 0, wins.  Two needle copies give
+    every bin ties and the lowest lag, 0, wins, also when a cluster of
+    2, 8 or 16 blocks splits the bin (each block's own lowest lag is
+    another).  Two needle copies at lags that different blocks hold give
     a near-tie: the kernel's lag is one of them, within FB_RTOL of the
     plain maximum."""
-    zero = torch.zeros(1024, dtype=torch.complex64, device="cuda")
-    freqs = torch.linspace(-100.0, 100.0, 17, device="cuda")
-    _, lags = pc.pallas_peak_rows(zero, zero, freqs, FS, 2048)
-    assert lags.tolist() == [0] * 17
+    zero = torch.zeros(m // 2, dtype=torch.complex64, device="cuda")
+    freqs = 12.5 * (torch.arange(k, device="cuda") - k // 2)   # 0 Hz: k // 2
+    _, lags = pc.pallas_peak_rows(zero, zero, freqs, FS, m)
+    assert lags.tolist() == [0] * k
+    c = pc.cluster_size(m)
+    # Block b of a cluster holds the lags t + L j, t in [b L/C, (b+1) L/C).
+    lo, hi = 100, 100 + (m // c + m // c // c if c > 1 else m // 4)
     rng = np.random.default_rng(11)
-    n, m = 512, 4096
+    n = min(512, m // 8)
     needle = (rng.standard_normal(n)
               + 1j * rng.standard_normal(n)).astype(np.complex64)
-    hay = np.zeros(3172 + n, np.complex64)
-    hay[100:100 + n] = needle
-    hay[3172:3172 + n] = needle
+    hay = np.zeros(m, np.complex64)
+    hay[lo:lo + n] = needle
+    hay[hi:hi + n] = needle
     nt, ht = torch.from_numpy(needle).cuda(), torch.from_numpy(hay).cuda()
     vals, lags = pc.pallas_peak_rows(nt, ht, freqs, FS, m)
-    assert int(lags[8]) in (100, 3172)
     rows = pc._mag2(pc._rows_plain(nt, ht, freqs, FS, m))
-    assert float(rows[8, lags[8]]) >= (1 - FB_RTOL) * float(rows[8].max())
+    mid = k // 2
+    assert int(lags[mid]) in (lo, hi)
+    assert float(rows[mid, lags[mid]]) >= (1 - FB_RTOL) * float(
+        rows[mid].max())
 
 
 def test_filterbank_refuses_rows_past_shared_memory_on_card(card):
-    needle = torch.ones(16384, dtype=torch.complex64, device="cuda")
-    with pytest.raises(VmemBudgetError, match="16384"):
-        pc.pallas_peak_rows(needle, needle, [0.0], FS, 32768)
+    """A 16384-sample needle (M = 32768, a cluster of 4 blocks a bin)
+    runs and holds to the plain version; the card refuses only past
+    MAX_FFT_LEN = 131072 points."""
+    needle, hay = _signal_pair(np.random.default_rng(5), 16384, 777)
+    freqs = torch.linspace(-50.0, 50.0, 9, device="cuda")
+    kv, ki = pc.pallas_peak_rows(needle, hay, freqs, FS, 32768)
+    pv, pi = pc.caf_peak_rows_plain(needle, hay, freqs, FS, 32768)
+    torch.testing.assert_close(kv, pv, rtol=FB_RTOL, atol=0)
+    assert torch.equal(ki, pi)
+    big = torch.ones(131072, dtype=torch.complex64, device="cuda")
+    with pytest.raises(VmemBudgetError, match="131072"):
+        pc.pallas_peak_rows(big, big, [0.0], FS, 262144)
     with pytest.raises(VmemBudgetError, match="shared memory"):
-        caf_peak(needle, needle, [0.0, 1.0], FS, backend="pallas",
-                 device="cuda")
+        caf_peak(big, big, [0.0, 1.0], FS, backend="pallas", device="cuda")
+
+
+@pytest.mark.parametrize("backend", ["pallas", "pallas-bf16",
+                                     "pallas-refine"])
+def test_long_needle_pallas_backends_on_card(card, backend):
+    """``caf_peak`` / ``caf_surface`` with the pallas backends at a
+    16384-sample needle (M = 32768) agree with ``backend="xla"``: the
+    same (freq, lag), M^2 times its value, and the surface within the
+    JAX package's bound (rtol 1e-3 + atol 1e-4 x max)."""
+    rng = np.random.default_rng(8)
+    n = 16384
+    needle = (rng.standard_normal(n)
+              + 1j * rng.standard_normal(n)).astype(np.complex64)
+    hay = (np.roll(needle, 4321) * np.exp(2j * np.pi * 37.0 * np.arange(n)
+                                          / FS)).astype(np.complex64)
+    freqs = np.arange(-100.0, 100.0, 1.0, dtype=np.float32)
+    want = caf_peak(needle, hay, freqs, FS, backend="xla", device="cuda")
+    got = caf_peak(needle, hay, freqs, FS, backend=backend, device="cuda")
+    assert got[:2] == want[:2] == (37.0, 4321)
+    assert got[2] == pytest.approx(want[2] * 32768.0 ** 2, rel=1e-4)
+    if backend == "pallas":
+        from caf_cookoff_tpu_torch import caf_surface
+
+        s = caf_surface(needle, hay, freqs, FS, backend="pallas",
+                        device="cuda")
+        x = caf_surface(needle, hay, freqs, FS, backend="xla", device="cuda")
+        assert s.shape == x.shape == (200, 32768)
+        assert int(((s - x).abs() > 1e-3 * x.abs() + 1e-4 * x.max()).sum()
+                   ) == 0
+
+
+def test_filterbank_occupancy_on_card(card):
+    """Every (M, C) the wrapper launches, and the one-block and 16-block
+    splits where they apply, fits the card: at least one block a SM, and
+    clusters the card can hold."""
+    import ctypes
+
+    from caf_cookoff_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    for m in (2, 16, 32, 1024, 8192, 16384, 32768, 131072):
+        takes = {c for c in (1, 2, 4, 8, 16) if 32 <= m // c <= 8192} or {1}
+        for c in sorted({1, pc.cluster_size(m), 16} & takes):
+            for surface in (0, 1):
+                blocks, clusters = ctypes.c_int(0), ctypes.c_int(0)
+                assert lib.caf_filterbank_occupancy(
+                    surface, m, c, ctypes.byref(blocks),
+                    ctypes.byref(clusters)) == 0
+                assert blocks.value >= 1
+                assert c == 1 or clusters.value >= 1
 
 
 @pytest.mark.parametrize("idx,grid,want_freq,want_lag", GOLDEN)
