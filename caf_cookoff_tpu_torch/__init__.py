@@ -25,10 +25,14 @@ multi-emitter lattices and detection (``find_peaks``, ``merge_peaks``,
 ``batched_stein_os_peaks``); the rate engines (``rate_caf_peak``,
 ``rate_overlap_save_peak[s]``, ``stein_rate_os_peak[s]``) and the zoom
 refinement (``refine_peak``, ``refine_peak_rate``, ``refine_peaks``);
-and the CLI verbs ``generate``, ``run`` (with ``--full-haystack``,
-``--num-peaks``, ``--refine``, ``--rate`` and ``--rate-grid``),
-``batch`` (with ``--refine``), ``bench``, ``selftest`` and ``info``.  ROADMAP.md lists what is still to
-be ported.
+the chunk-at-a-time engine ``StreamingCAF`` (cuFFT steps, or K1 once a
+chunk with ``backend="stein"``); and the CLI verbs ``generate``, ``run``
+(with ``--full-haystack``, ``--num-peaks``, ``--refine``, ``--rate``,
+``--rate-grid``, ``--dump-surface``, ``--plot`` and ``--annotate``),
+``stream``, ``capture``, ``batch`` (with ``--refine``), ``bench``,
+``selftest`` and ``info``, with the utilities behind them
+(``utils/profiling``, ``utils/pulses``, ``utils/native``).  ROADMAP.md
+lists what is still to be ported: ``parallel/``.
 """
 
 from caf_cookoff_tpu_torch.config import (BENCH_GRID, CafConfig, FreqGrid,
@@ -68,6 +72,7 @@ from caf_cookoff_tpu_torch.models.rate import (rate_caf_peak,
 from caf_cookoff_tpu_torch.models.stein import (stein_caf_peak,
                                                 stein_caf_surface,
                                                 stein_overlap_save_peak)
+from caf_cookoff_tpu_torch.models.streaming import StreamingCAF
 from caf_cookoff_tpu_torch.ops.peak import (
     apply_detection_threshold,
     detection_threshold_db,
@@ -90,6 +95,7 @@ __all__ = [
     "FilterbankCAF",
     "FreqGrid",
     "SpanError",
+    "StreamingCAF",
     "VmemBudgetError",
     "amb_surf",
     "apply_detection_threshold",

@@ -1,5 +1,5 @@
-"""Command-line interface (``generate``, ``run``, ``batch``, ``bench``,
-``selftest``, ``info``).
+"""Command-line interface (``generate``, ``run``, ``stream``, ``capture``,
+``batch``, ``bench``, ``selftest``, ``info``).
 
   python -m caf_cookoff_tpu_torch generate --out DIR
   python -m caf_cookoff_tpu_torch run NEEDLE.c64 HAYSTACK.c64 [--backend stein]
@@ -7,16 +7,23 @@
   python -m caf_cookoff_tpu_torch run NEEDLE.c64 CAPTURE.c64 [--full-haystack] --num-peaks 3
   python -m caf_cookoff_tpu_torch run NEEDLE.c64 CAPTURE.c64 [--refine] [--rate]
   python -m caf_cookoff_tpu_torch run NEEDLE.c64 CAPTURE.c64 [--full-haystack] --rate-grid=-300:300:150 [--num-peaks 2]
+  python -m caf_cookoff_tpu_torch run NEEDLE.c64 HAYSTACK.c64 [--dump-surface S.npy] [--plot S.png] [--annotate]
+  python -m caf_cookoff_tpu_torch stream NEEDLE.c64 CAPTURE.c64 [--chunk 4096] [--backend stein] [--num-peaks 3] [--follow]
+  python -m caf_cookoff_tpu_torch capture OUT [--seconds 5] [--device INDEX]
   python -m caf_cookoff_tpu_torch batch N1.c64:C1.c64 N2.c64:C2.c64 [--full-haystack] [--num-peaks 3] [--refine]
   python -m caf_cookoff_tpu_torch bench [--backends xla,pallas-refine,stein]
   python -m caf_cookoff_tpu_torch selftest [--backend pallas-refine]
   python -m caf_cookoff_tpu_torch info
 
 ``run`` truncates the haystack to the needle length, as the reference
-does, and prints the reference's two result lines; ``--full-haystack``
-searches the whole capture (the segmented long-capture engine, or the
-overlap-save scan where that engine is ineligible) and names the engine
-that answered.  ``--num-peaks N`` also lists the N strongest emitters
+does, and prints the reference's two result lines, a bracketed line
+(the peak over the surface's median; ms a surface and surfaces a
+second, from a second call when the first took under 2 s; the backend)
+and the engine that answered; ``--dump-surface``, ``--plot`` and
+``--annotate`` write the surface, its image and a SigMF annotation;
+``--full-haystack`` searches the whole capture (the segmented
+long-capture engine, or the overlap-save scan where that engine is
+ineligible).  ``--num-peaks N`` also lists the N strongest emitters
 (non-maximum suppressed lattices, each slot held to a detection
 threshold, ``--min-snr-db``).  ``--refine`` zooms the answer (and each
 listed row) to continuous (freq, lag), ``--rate`` adds a doppler rate;
@@ -26,9 +33,13 @@ batched Stein engines (``--num-peaks``: a lattice per pair; ``--refine``:
 one batched zoom).  ``run`` and ``batch`` read raw ``.c64`` or SigMF
 recordings (either sidecar; ``run --segment N`` picks one capture
 segment); a recording's ``core:sample_rate`` replaces the default
-``--fs`` and is warned about when an explicit ``--fs`` disagrees.  Every verb
+``--fs`` and is warned about when an explicit ``--fs`` disagrees.
+``stream`` runs a capture chunk by chunk through ``StreamingCAF``
+(``--follow`` tails a growing SigMF recording); ``capture`` records one
+from a sound card (the optional ``sounddevice`` package).  Every verb
 that computes runs on the CUDA card unless ``--device cpu`` asks for the
-CPU; ``bench`` times the card only.
+CPU; ``bench`` times the card only, and ``capture --device`` is the
+sound card's input index (it touches no torch device).
 """
 
 from __future__ import annotations
@@ -36,6 +47,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 from typing import Optional
 
 import numpy as np
@@ -46,6 +58,9 @@ from caf_cookoff_tpu_torch.errors import EngineError
 
 _DEVICE_HELP = ("torch device (default: the CUDA card; without one the "
                 "command fails unless --device cpu asks for the CPU)")
+# run --full-haystack: surfaces up to this many cells are computed whole
+# for the artifacts, larger ones as a needle-length window at the peak.
+FULL_SURFACE_CELLS = 2 ** 26
 _BACKEND_HELP = ("auto/xla/matmul*: filterbank on torch.fft; pallas "
                  "(-refine, -bf16): fused filterbank kernel, every tier "
                  "in f32; stein: segmented engine with the fused rank "
@@ -182,16 +197,16 @@ def _print_lattice(rows, num_peaks: int, min_snr, min_snr_arg,
         print(line + (refine_fn(i) if refine_fn is not None else ""))
 
 
-def _run_lattice(needle, haystack, freqs, full: bool, args) -> None:
+def _run_lattice(needle, haystack, freqs, full: bool, surface,
+                 args) -> None:
     """``run --num-peaks``: over the whole capture the fused lattice
     engine (the lattice scan when it raises an ``EngineError``), else
-    ``find_peaks`` on the truncated pair's circular surface, whose floor
-    is the surface mean; lags signed as the result lines'.  ``--refine``
-    adds each row's zoom estimate."""
+    ``find_peaks`` on the truncated pair's circular ``surface``, whose
+    floor is the surface mean; lags signed as the result lines'.
+    ``--refine`` adds each row's zoom estimate."""
     from caf_cookoff_tpu_torch.config import xcor_length
     from caf_cookoff_tpu_torch.models.batched_stein import (
         batched_stein_os_peaks)
-    from caf_cookoff_tpu_torch.models.filterbank import caf_surface
     from caf_cookoff_tpu_torch.models.overlap_save import overlap_save_peaks
     from caf_cookoff_tpu_torch.ops.peak import (apply_detection_threshold,
                                                 find_peaks, resolution_cell,
@@ -221,8 +236,6 @@ def _run_lattice(needle, haystack, freqs, full: bool, args) -> None:
                         snr.tolist()))
     else:
         n = len(needle)
-        surface = caf_surface(needle, haystack[:n], freqs, args.fs,
-                              backend=args.backend, device=args.device)
         # Circular surface: the lag period keeps a wrap-around skirt
         # from taking a slot.
         pks = find_peaks(surface, args.num_peaks, lag_period=surface.shape[-1],
@@ -247,10 +260,12 @@ def _run_lattice(needle, haystack, freqs, full: bool, args) -> None:
 
 
 def cmd_run(args) -> int:
-    from caf_cookoff_tpu_torch.config import xcor_length
+    from caf_cookoff_tpu_torch.config import resolve_backend, xcor_length
     from caf_cookoff_tpu_torch.models.filterbank import caf_peak
     from caf_cookoff_tpu_torch.ops.peak import unwrap_lag
     from caf_cookoff_tpu_torch.ops.refine import refine_peak, refine_peak_rate
+    from caf_cookoff_tpu_torch.utils.profiling import (RunReport, Stopwatch,
+                                                       peak_to_floor_db)
 
     rate_grid = None
     if args.rate_grid:
@@ -259,27 +274,65 @@ def cmd_run(args) -> int:
             print(f"error: --rate-grid wants START:STOP:STEP, got "
                   f"{args.rate_grid!r}", file=sys.stderr)
             return 2
+    backend = resolve_backend(args.backend)
     needle, n_fs = _load_signal(args.needle)
     haystack, h_fs = _load_signal(args.haystack, segment=args.segment)
     args.fs = _effective_fs(args, n_fs, h_fs)
     n = len(needle)
     freqs = _grid(args).frequencies(np.float32)
-    engine, snr_db = None, None
     full = args.full_haystack and len(haystack) > n
-    if full:
-        freq, lag, value, engine, snr_db = _full_haystack_peak(
-            needle, haystack, freqs, args)
-    else:
-        freq, lag, value = caf_peak(needle, haystack[:n], freqs,
-                                    args.fs, backend=args.backend,
-                                    device=args.device)
-    print(f"Frequency offset: {freq:.3f} Hz")
-    print(f"Time offset: {lag} samples ({lag / args.fs * 1e3:.4f} ms)")
-    if snr_db is not None:
-        print(f"[peak/floor {snr_db:.1f} dB]")
+    # The engine that answered, and the scan's SNR where one ran.
+    state = {"engine": f"filterbank[{backend}]", "snr_db": None,
+             "noted": False}
+
+    def solve():
+        if full:
+            out = _full_haystack_peak(needle, haystack, freqs, args,
+                                      quiet=state["noted"])
+            state["noted"] = True
+            state["engine"], state["snr_db"] = out[3:]
+            return out[:3]
+        return caf_peak(needle, haystack[:n], freqs, args.fs,
+                        backend=args.backend, device=args.device)
+
+    with Stopwatch() as sw0:
+        freq, lag, value = solve()      # the first call pays the build
+    elapsed_ms = None
+    if sw0.ms < 2_000.0:
+        # A second call times the steady state; a multi-second search is
+        # not worth doubling for it.
+        with Stopwatch() as sw:
+            solve()
+        elapsed_ms = sw.ms
+    surface, lag_origin = _run_surface(needle, haystack, freqs, full, lag,
+                                       backend, args)
+    surface_np = None if surface is None else surface.cpu().numpy()
+    report = RunReport(
+        freq_hz=freq, lag_samples=lag, peak_value=value, sample_rate=args.fs,
+        num_doppler_bins=len(freqs), xcor_len=xcor_length(n),
+        elapsed_ms=elapsed_ms,
+        peak_to_floor_db=(peak_to_floor_db(surface_np, value)
+                          if surface_np is not None else state["snr_db"]),
+        backend=backend)
+    print(report.result_lines())
     print(f"Peak value: {value:.6g}")
-    if engine is not None:
-        print(f"Engine: {engine}")
+    print(f"Engine: {state['engine']}")
+    if lag_origin:
+        print(f"note: surface-derived outputs cover a {n}-sample window "
+              f"at lag {lag_origin} (capture too large for the full "
+              f"surface)", file=sys.stderr)
+    if args.annotate and ".sigmf" in args.haystack:
+        from caf_cookoff_tpu_torch.utils.sigmf import (annotate_detection,
+                                                       caf_annotation)
+
+        # With --segment the lag is segment-relative; annotate_detection
+        # rebases it to that capture's absolute index.
+        annotate_detection(args.haystack, caf_annotation(
+            lag, n, freq, value, needle_id=args.needle),
+            segment=args.segment)
+        print(f"annotation -> {args.haystack}"
+              + (f" (segment {args.segment})"
+                 if args.segment is not None else ""))
     # The refiners take signed capture offsets: the truncated path's raw
     # circular xcor index unwraps first.  They read the whole capture.
     signed = lag if full else unwrap_lag(lag, xcor_length(n), n)
@@ -301,8 +354,72 @@ def cmd_run(args) -> int:
         print(f"Second-order estimate: {f2:+.4f} Hz {r2:+.3f} Hz/s @ "
               f"{t2:.4f} samples")
     if args.num_peaks > 1 and not rate_lattice:
-        _run_lattice(needle, haystack, freqs, full, args)
+        _run_lattice(needle, haystack, freqs, full, surface, args)
+    if args.dump_surface:
+        from caf_cookoff_tpu_torch.utils.io import dump_surf, save_npy
+
+        if args.dump_surface.endswith(".npy"):
+            save_npy(args.dump_surface, surface_np)
+        else:
+            # The Go reference's raw little-endian f64 rows.
+            dump_surf(args.dump_surface, surface_np.astype(np.float64))
+        origin = f", lag axis offset +{lag_origin}" if lag_origin else ""
+        print(f"surface ({surface_np.shape[0]}x{surface_np.shape[1]}) -> "
+              f"{args.dump_surface}{origin}")
+    if args.plot:
+        _plot_surface(surface_np, freqs, args.plot, lag_origin=lag_origin)
     return 0
+
+
+def _run_surface(needle, haystack, freqs, full: bool, lag: int, backend,
+                 args):
+    """The surface behind ``run``'s peak/floor and artifacts, as a tensor,
+    and its lag origin.  Truncated pairs: the pair's surface, always.
+    ``--full-haystack``, only when an artifact needs one (the lattice
+    scans the capture itself): the whole overlap-save surface when
+    ``K x lags <= FULL_SURFACE_CELLS``, else the needle-length window
+    around the found lag, whose lags start at ``lag_origin`` — never the
+    truncated prefix, which could contradict the reported peak."""
+    from caf_cookoff_tpu_torch.models.filterbank import caf_surface
+    from caf_cookoff_tpu_torch.models.overlap_save import overlap_save_surface
+
+    n = len(needle)
+    if not full:
+        return caf_surface(needle, haystack[:n], freqs, args.fs,
+                           backend=backend, device=args.device), 0
+    if not (args.dump_surface or args.plot):
+        return None, 0
+    if len(freqs) * (len(haystack) - n + 1) <= FULL_SURFACE_CELLS:
+        return overlap_save_surface(needle, haystack, freqs, args.fs,
+                                    device=args.device), 0
+    origin = max(0, min(lag - 64, len(haystack) - n))
+    return caf_surface(needle, haystack[origin:origin + n], freqs, args.fs,
+                       backend=backend, device=args.device), origin
+
+
+def _plot_surface(surface: np.ndarray, freqs: np.ndarray, out_path: str,
+                  lag_origin: int = 0) -> None:
+    """imshow of the delay-doppler surface (matplotlib, Agg)."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    kmax, tmax = np.unravel_index(surface.argmax(), surface.shape)
+    fig, ax = plt.subplots(figsize=(8, 6))
+    extent = (lag_origin, lag_origin + surface.shape[1],
+              float(freqs[-1]), float(freqs[0]))
+    ax.imshow(10 * np.log10(surface + 1e-20), aspect="auto", extent=extent,
+              cmap="viridis")
+    ax.plot(lag_origin + tmax + 0.5, freqs[kmax], "rx", markersize=12)
+    ax.set_xlabel("lag (samples)")
+    ax.set_ylabel("doppler (Hz)")
+    ax.set_title(f"CAF surface — peak {freqs[kmax]:+.2f} Hz @ "
+                 f"{lag_origin + tmax} samp")
+    fig.tight_layout()
+    fig.savefig(out_path, dpi=120)
+    plt.close(fig)
+    print(f"plot -> {out_path}")
 
 
 def _run_rate_grid(needle, haystack, freqs, full: bool, rates, rate_step,
@@ -369,11 +486,12 @@ def _run_rate_grid(needle, haystack, freqs, full: bool, rates, rate_step,
           f"samples")
 
 
-def _full_haystack_peak(needle, haystack, freqs, args):
+def _full_haystack_peak(needle, haystack, freqs, args, quiet=False):
     """The whole capture, as the JAX CLI searches it: the segmented
     long-capture engine for ``auto``/``stein*``, the overlap-save scan
     (with its peak-to-floor SNR) otherwise or when that engine raises an
-    ``EngineError``.  Returns ``(freq, lag, value, engine, snr_db)``."""
+    ``EngineError`` (noted once, unless ``quiet``).  Returns ``(freq,
+    lag, value, engine, snr_db)``."""
     from caf_cookoff_tpu_torch.models.overlap_save import overlap_save_peak
     from caf_cookoff_tpu_torch.models.stein import stein_overlap_save_peak
 
@@ -385,11 +503,101 @@ def _full_haystack_peak(needle, haystack, freqs, args):
             return out + ("stein-os (segmented long-capture)", None)
         except EngineError as exc:
             # Only the typed envelope conditions reroute.
-            print(f"note: segmented engine ineligible ({exc}); using the "
-                  f"overlap-save scan", file=sys.stderr)
+            if not quiet:
+                print(f"note: segmented engine ineligible ({exc}); using "
+                      f"the overlap-save scan", file=sys.stderr)
     freq, lag, value, snr_db = overlap_save_peak(
         needle, haystack, freqs, args.fs, with_snr=True, device=args.device)
     return freq, lag, value, "overlap-save scan", snr_db
+
+
+def cmd_stream(args) -> int:
+    """A capture chunk by chunk through ``StreamingCAF``; ``--follow``
+    tails a growing SigMF recording."""
+    from caf_cookoff_tpu_torch.config import resolve_backend
+    from caf_cookoff_tpu_torch.models.streaming import StreamingCAF
+    from caf_cookoff_tpu_torch.ops.refine import refine_peak
+
+    backend = resolve_backend(args.backend)
+    needle, n_fs = _load_signal(args.needle)
+    if args.follow:
+        from caf_cookoff_tpu_torch.utils.sigmf import _base, follow_sigmf
+
+        # Only the small .sigmf-meta is read here: the data file, which
+        # may still be growing, streams chunk by chunk below.
+        with open(_base(args.capture) + ".sigmf-meta") as f:
+            c_fs = json.load(f).get("global", {}).get(
+                "core:sample_rate") or None
+        chunks = follow_sigmf(args.capture, chunk=args.chunk,
+                              idle_timeout_s=args.idle_timeout)
+    else:
+        capture, c_fs = _load_signal(args.capture, segment=args.segment)
+        chunks = (capture[s:s + args.chunk]
+                  for s in range(0, len(capture), args.chunk))
+    args.fs = _effective_fs(args, n_fs, c_fs)
+    freqs = _grid(args).frequencies(np.float32)
+    engine = StreamingCAF(needle, freqs, args.fs, chunk_len=args.chunk,
+                          backend=backend, num_peaks=args.num_peaks,
+                          device=args.device)
+    t0 = time.perf_counter()
+    start = 0
+    for chunk in chunks:
+        freq, lag, value = engine.process(chunk)
+        if args.verbose:
+            print(f"chunk @{start:>10d}: local peak {freq:+8.2f} Hz "
+                  f"@ lag {lag:>8d}  ({value:.4g})")
+        start += len(chunk)
+    elapsed = time.perf_counter() - t0
+    freq, lag, value = engine.best()
+    print(f"Frequency offset: {freq:.3f} Hz")
+    print(f"Time offset: {lag} samples ({lag / args.fs * 1e3:.4f} ms)")
+    print(f"Peak value: {value:.6g}")
+    # The refiners read the capture around each lag, which --follow does
+    # not keep.
+    refine = args.refine and not args.follow
+    if args.refine and args.follow:
+        print("note: --refine needs the capture bytes around each lag; "
+              "--follow discards consumed chunks, so refine is skipped",
+              file=sys.stderr)
+    if refine:
+        f_ref, t_ref, _ = refine_peak(needle, capture, freq, lag, args.fs,
+                                      coarse_step_hz=args.freq_step,
+                                      device=args.device)
+        print(f"Refined estimate: {f_ref:+.4f} Hz, {t_ref:.4f} samples "
+              f"({t_ref / args.fs * 1e3:.6f} ms)")
+    if args.num_peaks > 1:
+        min_snr = _parse_min_snr(args.min_snr_db)
+        fr, lg, vv, snr = engine.peaks(min_snr_db=min_snr, with_snr=True)
+        rows = [(float(fr[i]), int(lg[i]), float(vv[i]), float(snr[i]))
+                for i in range(args.num_peaks)]
+
+        def refine_fn(i):
+            f_ref, t_ref, _ = refine_peak(
+                needle, capture, rows[i][0], rows[i][1], args.fs,
+                coarse_step_hz=args.freq_step, device=args.device)
+            return f"  refined {f_ref:+9.4f} Hz @ {t_ref:.4f}"
+
+        _print_lattice(rows, args.num_peaks, min_snr, args.min_snr_db,
+                       refine_fn if refine else None)
+    print(f"[{engine.samples_seen} samples "
+          f"({engine.samples_seen / args.fs * 1e3:.0f} ms of capture) in "
+          f"{elapsed:.2f} s, chunk={args.chunk}, {backend}]")
+    return 0
+
+
+def cmd_capture(args) -> int:
+    """Record a live audio-band capture to SigMF (needs the optional
+    ``sounddevice`` package; ``--device`` is its input index)."""
+    from caf_cookoff_tpu_torch.utils.sigmf import record_capture
+
+    try:
+        data, meta = record_capture(args.out, args.fs or DEFAULT_SAMPLE_RATE,
+                                    seconds=args.seconds, device=args.device)
+    except RuntimeError as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 2
+    print(f"capture -> {data} + {meta}")
+    return 0
 
 
 def cmd_batch(args) -> int:
@@ -670,6 +878,12 @@ def cmd_info(args) -> int:
           f"(built at first kernel launch)")
     print(f"resolved FFT backend: {resolve_backend('auto')} (torch.fft: "
           f"{'cuFFT' if count else 'pocketfft'})")
+    from caf_cookoff_tpu_torch.utils import native
+
+    state = ("loaded" if native.available()
+             else "absent (numpy fallback; g++ builds it from "
+             "native/cafio.cpp at first use)")
+    print(f"native libcafio: {state}")
     return 0
 
 
@@ -718,9 +932,68 @@ def build_parser() -> argparse.ArgumentParser:
                    "then the joint (freq, rate, lag) refine")
     r.add_argument("--segment", type=int, default=None,
                    help="capture segment index for multi-capture SigMF "
-                   "recordings (lags count from the segment start)")
+                   "recordings (lags count from the segment start; "
+                   "annotations rebase to absolute indices)")
+    r.add_argument("--dump-surface", metavar="PATH",
+                   help="write the surface (.npy, or raw little-endian f64 "
+                   "rows)")
+    r.add_argument("--plot", metavar="PNG", help="save an imshow plot of "
+                   "the surface")
+    r.add_argument("--annotate", action="store_true",
+                   help="write the detection back to the haystack's "
+                   ".sigmf-meta as a caf: annotation")
     r.add_argument("--device", default=None, help=_DEVICE_HELP)
     r.set_defaults(fn=cmd_run)
+
+    st = sub.add_parser("stream", help="chunk-at-a-time CAF of a capture "
+                        "(StreamingCAF)")
+    st.add_argument("needle", help=".c64 or .sigmf needle")
+    st.add_argument("capture", help=".c64 or .sigmf capture (any length)")
+    _add_grid_args(st)
+    st.add_argument("--backend", choices=BACKENDS, default="auto",
+                    help="stein: K1 once a chunk and an exact re-score of "
+                    "the carried best windows (with --num-peaks, same-bin "
+                    "pairs more than one exclusion cell apart); any other "
+                    "name: cuFFT steps")
+    st.add_argument("--chunk", type=int, default=4096,
+                    help="samples per streamed chunk")
+    st.add_argument("--verbose", action="store_true",
+                    help="print each chunk's local peak")
+    st.add_argument("--num-peaks", type=int, default=1,
+                    help="track a top-N multi-emitter lattice through the "
+                    "stream (NMS windows sized to the waveform's "
+                    "resolution cell)")
+    st.add_argument("--min-snr-db", default="auto",
+                    help="detection threshold over the stream's running "
+                    "noise floor for --num-peaks listings: 'auto', 'none', "
+                    "or a dB value")
+    st.add_argument("--refine", action="store_true",
+                    help="zoom re-score the final peak(s) to continuous "
+                    "(freq, lag); file-backed streams only (--follow "
+                    "discards consumed samples)")
+    st.add_argument("--segment", type=int, default=None,
+                    help="capture segment of a multi-capture SigMF "
+                    "recording to stream")
+    st.add_argument("--follow", action="store_true",
+                    help="tail a growing .sigmf-data file (ends after "
+                    "--idle-timeout without growth)")
+    st.add_argument("--idle-timeout", type=float, default=5.0,
+                    help="seconds without file growth before --follow "
+                    "ends")
+    st.add_argument("--device", default=None, help=_DEVICE_HELP)
+    st.set_defaults(fn=cmd_stream)
+
+    c = sub.add_parser("capture", help="record a live audio-band SigMF "
+                       "capture (optional sounddevice package; no torch "
+                       "device)")
+    c.add_argument("out", help="output base path (.sigmf-data/-meta)")
+    c.add_argument("--fs", type=float, default=None,
+                   help=f"sample rate (default {DEFAULT_SAMPLE_RATE:g})")
+    c.add_argument("--seconds", type=float, default=5.0)
+    c.add_argument("--device", type=int, default=None,
+                   help="sounddevice input index (not a torch device: "
+                   "capture computes nothing)")
+    c.set_defaults(fn=cmd_capture)
 
     bt = sub.add_parser("batch", help="CAF many needle:capture pairs (.c64 "
                         "or SigMF) through the batched Stein engines")
@@ -770,10 +1043,9 @@ def build_parser() -> argparse.ArgumentParser:
     st.add_argument("--device", default=None, help=_DEVICE_HELP)
     st.set_defaults(fn=cmd_selftest)
 
-    i = sub.add_parser("info", help="torch, card, nvcc, kernel library and "
-                       "backend resolution (no tunnel probes: the card is "
-                       "local; the native libcafio line waits for "
-                       "utils/native.py)")
+    i = sub.add_parser("info", help="torch, card, nvcc, kernel library, "
+                       "backend resolution and the native I/O library (no "
+                       "tunnel probes: the card is local)")
     i.set_defaults(fn=cmd_info)
     return p
 

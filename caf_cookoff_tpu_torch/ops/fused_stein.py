@@ -482,6 +482,24 @@ def _tile_smem_bytes(b2: int, sup: int) -> int:
     return LAG_TILE * (b2p + 8) * 2 + 2 * (2 * hay + 32 * sup) * 4
 
 
+def check_kernel_shape(b2: int, sup: int) -> int:
+    """Raise the typed error of a (2B rows, block length) shape the
+    kernel refuses — ``EligibilityError`` for a block length not a
+    multiple of 4, ``VmemBudgetError`` when its G tile and stage-A
+    buffers pass a block's shared memory (2B past 864 rows at D <= 16,
+    784 at D = 64); returns the tile block's shared-memory bytes."""
+    if sup % 4:
+        raise EligibilityError(f"fused Stein kernel: block_len {sup} is not "
+                               "a multiple of 4")
+    smem = _tile_smem_bytes(b2, sup)
+    if smem > _SMEM_PER_BLOCK:
+        raise VmemBudgetError(
+            f"fused Stein kernel: 2B = {b2} rows and block_len {sup} need "
+            f"{smem} B of shared memory per block, past the card's "
+            f"{_SMEM_PER_BLOCK} B; use the unfused path")
+    return smem
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
@@ -505,15 +523,7 @@ def _launch(ws1, ws2, lmat, h_ext, num_blocks, sup, num_lags, windows,
     b2 = lmat.shape[1]
     p_eff = lmat.shape[0] * windows
     k = ws1.shape[0]
-    if sup % 4:
-        raise EligibilityError(f"fused Stein kernel: block_len {sup} is not "
-                               "a multiple of 4")
-    smem = _tile_smem_bytes(b2, sup)
-    if smem > _SMEM_PER_BLOCK:
-        raise VmemBudgetError(
-            f"fused Stein kernel: 2B = {b2} rows and block_len {sup} need "
-            f"{smem} B of shared memory per block, past the card's "
-            f"{_SMEM_PER_BLOCK} B; use the unfused path")
+    smem = check_kernel_shape(b2, sup)
     m_pad = -(-num_lags // LAG_TILE) * LAG_TILE
     h_len = h_ext.shape[-1]
     if h_len < (num_blocks - 1) * sup + m_pad + sup - 1:

@@ -33,7 +33,10 @@ def as_signal(x, device=None) -> torch.Tensor:
     ``ValueError``."""
     dev = _device(device, x)
     if not isinstance(x, torch.Tensor):
-        x = torch.from_numpy(np.ascontiguousarray(np.asarray(x)))
+        x = np.ascontiguousarray(np.asarray(x))
+        # torch.from_numpy shares memory: a read-only buffer (a memory
+        # map, np.frombuffer) is copied first.
+        x = torch.from_numpy(x if x.flags.writeable else x.copy())
     if x.ndim == 0 or x.shape[-1] == 0:
         raise ValueError("empty signal (zero-length last axis)")
     if not x.is_complex():

@@ -80,10 +80,19 @@ Phases, each reported on its own line:
    K1's launch count, set to 0 before each segmented path, must rise.
 10. refine — the ten goldens through ``refine_peak`` on the card, within
    0.01 Hz and 0.1 samples of the injected truth.
-11. K4     — the epilogue microbenchmark (``utils/roofline``) against its
+11. stream — stream3, config 3's capture in 8192-sample chunks (the last
+   4096, so K1 masks it with ``num_valid``), through ``StreamingCAF``:
+   the Stein stream (K1 at P = 1 a chunk) equal to
+   ``stein_overlap_save_peak`` and the truth, the cuFFT stream the same;
+   a two-emitter version through the Stein stream's 3-slot lattice (K1
+   (e) a chunk), both emitters its first two rows and equal to
+   ``overlap_save_peaks``; K1's launch count, set to 0 before each Stein
+   path, one a chunk; the last chunk's K1 launch held to its bound, with
+   ``num_valid`` and with top-2; the CLI ``stream`` verb on chirp_0.
+12. K4     — the epilogue microbenchmark (``utils/roofline``) against its
    plain version bit for bit, then ``roofline.measure`` (its launch
    count, set to 0 before, must rise).
-12. times  — CUDA-event medians, after warm-up, of each kernel's wrapper,
+13. times  — CUDA-event medians, after warm-up, of each kernel's wrapper,
    its plain version and its library yardstick at the main path's
    shape (K1's: stage B alone as one bf16 ``torch.matmul``, at every K1
    shape; K1's device time from ``torch.profiler`` too), of K1 at each
@@ -93,10 +102,12 @@ Phases, each reported on its own line:
    K2/K3's launches alone (ten back to back from Python) and as device
    time (replays of a CUDA graph of ten), both also for K2 at the refine
    tier's K = 8, K2's device time at one full wave of bins, K2/K3's
-   blocks a SM, cluster size and waves at 400 x 8192, whole ``caf_peak``,
-   config, lattice, rate-engine and refine calls and the cuFFT
-   yardsticks (host included), each printed beside the card's name and
-   power limit.
+   blocks a SM, cluster size and waves at 400 x 8192, K1 at stream3's
+   chunk shape, one ``process`` call a chunk (and its device time and
+   device operations), whole streams and their samples a second, whole
+   ``caf_peak``, config, lattice, rate-engine, refine and
+   ``stein_overlap_save_peak`` calls and the cuFFT yardsticks (host
+   included), each printed beside the card's name and power limit.
 
 Then a JSON line describing each kernel (with its bound from this run's
 shapes), and as the last line ``{"ok": true, "device": {...}}``.  Any
@@ -808,6 +819,28 @@ def device_ms(fn, runs: int = 20) -> float:
              for e in prof.key_averages())
     check(us > 0, "torch.profiler saw no device time")
     return us / 1e3 / runs
+
+
+def device_work(fn, runs: int = 10):
+    """(device ms, device operations) a call of ``fn``: the kernels,
+    memsets and copies in a ``torch.profiler`` trace of ``runs`` calls
+    after warm-up, summed and counted, over ``runs``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0)) for e in ops)
+    check(us > 0, "torch.profiler saw no device time")
+    return us / 1e3 / runs, len(ops) / runs
 
 
 def recompute_tiles(lag1, sep, m):
@@ -1606,6 +1639,243 @@ def phase_refine(pairs):
     return inputs
 
 
+STREAM_CHUNK = 8192     # stream3: 8 full chunks and a 4096-sample one
+
+
+def stream_inputs(cfg3):
+    """stream3: config 3's capture (69632 samples, 2000 bins over +-500
+    Hz, the emitter at freqs[1234], lag 30000) and its two-emitter
+    version (freqs[345], lag 12000, amplitude 1.5 added, as ratelat3
+    adds its second emitter)."""
+    needles, hays, freqs, _, truths = cfg3
+    needle, hay = needles[0], hays[0]
+    n = len(needle)
+    f2, lag2 = float(freqs[345]), 12_000
+    two = hay.copy()
+    two[lag2:lag2 + n] += 1.5 * (needle * np.exp(
+        2j * np.pi * f2 * np.arange(n) / FS)).astype(np.complex64)
+    return needle, hay, two, freqs, truths[0], [truths[0], (f2, lag2)]
+
+
+def stream_through(capture, needle, freqs, **kw):
+    """``StreamingCAF`` over ``capture`` in ``STREAM_CHUNK``-sample
+    chunks on the card: (the stream, its chunk answers)."""
+    from caf_cookoff_tpu_torch import StreamingCAF
+
+    s = StreamingCAF(needle, freqs, FS, chunk_len=STREAM_CHUNK,
+                     device=DEVICE, **kw)
+    return s, [s.process(capture[i:i + STREAM_CHUNK])
+               for i in range(0, len(capture), STREAM_CHUNK)]
+
+
+def stream_k1_operands(s, capture, start):
+    """The K1 operands of the Stein stream ``s``'s chunk at ``start``
+    (its tail, the N - 1 samples before it, and the chunk zero-padded to
+    the pinned length): (ops, b, sup, m, num_valid)."""
+    import torch
+
+    from caf_cookoff_tpu_torch.models.streaming import stein_window_operand
+    from caf_cookoff_tpu_torch.ops.xcor import pad_to
+
+    n = s.needle_len
+    tail = torch.from_numpy(capture[max(start - (n - 1), 0):start]).to(DEVICE)
+    tail = torch.cat([tail.new_zeros(n - 1 - tail.shape[-1]), tail])
+    chunk = torch.from_numpy(capture[start:start + STREAM_CHUNK]).to(DEVICE)
+    valid = chunk.shape[-1]
+    _, h_ext = stein_window_operand(tail, pad_to(chunk, STREAM_CHUNK),
+                                    s._num_blocks, s._group)
+    nv = torch.tensor([valid], dtype=torch.int32, device=DEVICE)
+    return ((*s._ws, s._lmat, h_ext), s._num_blocks, s._group, STREAM_CHUNK,
+            nv)
+
+
+def phase_stream(sin):
+    """stream3 through ``StreamingCAF`` on the card: the Stein stream
+    (K1 at P = 1 a chunk, ``num_valid`` on the short last one) equal to
+    ``stein_overlap_save_peak`` and the truth; the cuFFT stream, the same
+    answer; the two-emitter capture through the Stein stream's lattice
+    (K1 (e), 3 slots), both emitters its first two rows and equal to
+    ``overlap_save_peaks``.  K1's launch count, set to 0 before each
+    Stein path, must be one a chunk.  Then the last chunk's K1 launch
+    against its bound, with ``num_valid`` and with top-2, and the CLI
+    ``stream`` verb on chirp_0.  Returns (launches, max abs err)."""
+    import contextlib
+    import io
+
+    from caf_cookoff_tpu_torch import (cli, overlap_save_peaks,
+                                       stein_overlap_save_peak)
+    from caf_cookoff_tpu_torch.ops import fused_stein as fs
+
+    needle, hay, two, freqs, truth, truths2 = sin
+    chunks = -(-len(hay) // STREAM_CHUNK)
+    fs.LAUNCHES = 0
+    t0 = time.perf_counter()
+    s, _ = stream_through(hay, needle, freqs, backend="stein")
+    best = s.best()
+    seconds = time.perf_counter() - t0
+    launches = fs.LAUNCHES
+    want = stein_overlap_save_peak(needle, hay, freqs, FS, device=DEVICE)
+    print(f"[stream] stream3 Stein stream, {chunks} chunks of "
+          f"{STREAM_CHUNK} ({len(hay)} samples): best {best} in "
+          f"{seconds:.2f} s (first run), K1 launches {launches}; "
+          f"stein_overlap_save_peak {want}; want {truth}")
+    check(launches == chunks, "the Stein stream did not launch K1 once a "
+                              "chunk")
+    check(best[:2] == want[:2] == truth, "stream3 Stein stream answer")
+    check(abs(best[2] / want[2] - 1.0) <= 1e-4, "stream3 exact value")
+    c, _ = stream_through(hay, needle, freqs)
+    cbest = c.best()
+    print(f"[stream] stream3 cuFFT stream: best {cbest}")
+    check(cbest[:2] == truth and abs(cbest[2] / best[2] - 1.0) <= 1e-4,
+          "stream3 cuFFT stream answer")
+    fs.LAUNCHES = 0
+    lat, _ = stream_through(two, needle, freqs, backend="stein", num_peaks=3)
+    fr, lg, vv = lat.peaks()
+    lat_launches = fs.LAUNCHES
+    rows = [(float(f), int(l)) for f, l, v in zip(fr, lg, vv)
+            if np.isfinite(v)]
+    ofr, olg, ovv = overlap_save_peaks(needle, two, freqs, FS, 3,
+                                       device=DEVICE)
+    orows = [(float(f), int(l)) for f, l, v in zip(ofr, olg, ovv)
+             if np.isfinite(v)]
+    print(f"[stream] stream3 two emitters, Stein stream lattice (3 slots): "
+          f"rows {rows}, K1 launches {lat_launches}; overlap_save_peaks "
+          f"rows {orows}; want {truths2}")
+    check(lat_launches == chunks, "the Stein lattice stream did not launch "
+                                  "K1 once a chunk")
+    check(rows[:2] == orows[:2] == truths2, "stream3 lattice rows")
+    check(bool(np.allclose(vv[:2], ovv[:2], rtol=1e-4)),
+          "stream3 lattice values")
+    last = (chunks - 1) * STREAM_CHUNK
+    ops, b, sup, m, nv = stream_k1_operands(s, hay, last)
+    sep = lat._exclude[1]
+    err = bound_check(f"K1 stream3 last chunk, num_valid {int(nv[0])}",
+                      fs.fused_stein_rank(*ops, b, sup, m, num_valid=nv),
+                      ops, b, sup, m, num_valid=nv)
+    ops2 = stream_k1_operands(lat, two, last)[0]
+    err = max(err, bound_check(
+        "K1 (e) stream3 two-emitter last chunk",
+        fs.fused_stein_rank(*ops2, b, sup, m, num_valid=nv, want_top2=True,
+                            sep=sep), ops2, b, sup, m, sep=sep,
+        num_valid=nv))
+    n_path, h_path = (str(ROOT / "data" / f) for f in (
+        "chirp_0_raw.c64", "chirp_0_T+202samp_F+69.25Hz.c64"))
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["stream", n_path, h_path, "--freq-step", "0.25",
+                       "--chunk", "2048", "--backend", "stein", "--device",
+                       DEVICE])
+    lines = out.getvalue().splitlines()
+    print(f"[stream] CLI stream chirp_0 (stein, 2048-sample chunks): "
+          f"{' | '.join(lines)}")
+    check(rc == 0 and "Frequency offset: 69.250 Hz" in lines
+          and "Time offset: 202 samples (4.2083 ms)" in lines,
+          "CLI stream on chirp_0")
+    return launches + lat_launches, err
+
+
+def phase_stream_times(sin, card):
+    """stream3's times: K1 at the stream's chunk shape (a full chunk, and
+    the short last one's ``num_valid``; its top-2 mode), its plain
+    version, bound and library yardstick, one ``process`` call a chunk,
+    whole streams (construction, every chunk, the exact re-score) and
+    ``stein_overlap_save_peak``'s whole call on the same capture."""
+    from caf_cookoff_tpu_torch import stein_overlap_save_peak
+    from caf_cookoff_tpu_torch.ops import fused_stein as fs
+    from caf_cookoff_tpu_torch.ops.peak import resolution_cell
+
+    needle, hay, two, freqs, _, _ = sin
+    s, _ = stream_through(hay[:STREAM_CHUNK], needle, freqs,
+                          backend="stein")
+    ops, b, sup, m, nv = stream_k1_operands(s, hay, 0)
+    last = stream_k1_operands(
+        s, hay, (len(hay) - 1) // STREAM_CHUNK * STREAM_CHUNK)
+    sep = resolution_cell(needle, freqs, FS)[1]     # the lattice's sep
+    t = {}
+    t["k1"] = cuda_median_ms(lambda: fs.fused_stein_rank(
+        *ops, b, sup, m, num_valid=nv), 20, 3)
+    t["k1_last"] = cuda_median_ms(lambda: fs.fused_stein_rank(
+        *last[0], b, sup, m, num_valid=last[4]), 20, 3)
+    t["k1_top2"] = cuda_median_ms(lambda: fs.fused_stein_rank(
+        *ops, b, sup, m, num_valid=nv, want_top2=True, sep=sep), 20, 3)
+    t["plain"] = cuda_median_ms(lambda: surface_plain(
+        ops, b, sup, m, num_valid=nv).max(dim=-1), 3, 1)
+    bound, by, gflop = stein_bound_ms(ops, m, {"num_valid": nv})
+    t["library"] = stage_b_matmul_ms(ops, m)
+    chunk = hay[:STREAM_CHUNK]
+    t["chunk"] = cuda_median_ms(lambda: s.process(chunk), 20, 3)
+    c, _ = stream_through(hay[:STREAM_CHUNK], needle, freqs)
+    t["chunk_cufft"] = cuda_median_ms(lambda: c.process(chunk), 20, 3)
+    lat, _ = stream_through(two[:STREAM_CHUNK], needle, freqs,
+                            backend="stein", num_peaks=3)
+    chunk2 = two[4 * STREAM_CHUNK:5 * STREAM_CHUNK]
+    t["chunk_lattice"] = cuda_median_ms(lambda: lat.process(chunk2), 20, 3)
+    # Device time and device operations a chunk: what is left of a
+    # process call is host time.
+    work = {name: device_work(fn) for name, fn in (
+        ("stein", lambda: s.process(chunk)),
+        ("cufft", lambda: c.process(chunk)),
+        ("lattice", lambda: lat.process(chunk2)))}
+    t["whole"] = cuda_median_ms(lambda: stream_through(
+        hay, needle, freqs, backend="stein")[0].best(), 5, 1)
+    t["whole_cufft"] = cuda_median_ms(lambda: stream_through(
+        hay, needle, freqs)[0].best(), 5, 1)
+    t["whole_lattice"] = cuda_median_ms(lambda: stream_through(
+        two, needle, freqs, backend="stein", num_peaks=3)[0].peaks(), 5, 1)
+    t["stein_os"] = cuda_median_ms(lambda: stein_overlap_save_peak(
+        needle, hay, freqs, FS, device=DEVICE), 5, 1)
+    shape = (f"K={len(freqs)} 2B={ops[2].shape[1]} D={sup} P=1 "
+             f"lags={m}")
+    chunks = -(-len(hay) // STREAM_CHUNK)
+    rate = len(hay) / (t["whole"] / 1e3)
+    for what, ms in (
+            (f"K1 fused_stein_rank wrapper, a stream3 chunk: {shape}",
+             t["k1"]),
+            (f"K1 at the short last chunk (num_valid {int(last[4][0])})",
+             t["k1_last"]),
+            (f"K1 (e) top-2 at a stream3 chunk, sep={sep}", t["k1_top2"]),
+            ("K1 plain version (surface with the kernel's roundings and "
+             "sums + max), a stream3 chunk", t["plain"]),
+            (f"K1 bound ({by}, {gflop:.1f} GFLOP), a stream3 chunk", bound),
+            ("K1 library yardstick: stage B alone as one bf16 torch.matmul,"
+             " a stream3 chunk", t["library"]),
+            (f"StreamingCAF.process, one {STREAM_CHUNK}-sample chunk, Stein "
+             f"(host included)", t["chunk"]),
+            (f"StreamingCAF.process, one {STREAM_CHUNK}-sample chunk, cuFFT",
+             t["chunk_cufft"]),
+            (f"StreamingCAF.process, one {STREAM_CHUNK}-sample chunk, Stein "
+             f"lattice (3 slots, K1 (e))", t["chunk_lattice"]),
+            (f"stream3 whole Stein stream (build, {chunks} chunks, best())",
+             t["whole"]),
+            (f"stream3 whole cuFFT stream (build, {chunks} chunks, best())",
+             t["whole_cufft"]),
+            ("stream3 two emitters, whole Stein lattice stream (3 slots, "
+             "peaks())", t["whole_lattice"]),
+            ("stein_overlap_save_peak whole call on the stream3 capture",
+             t["stein_os"])):
+        print(f"[times] {what}: {ms:.4f} ms  [{card}]")
+    for name, (ms, ops_) in work.items():
+        print(f"[times] stream3 {name} chunk, device time (torch.profiler): "
+              f"{ms:.4f} ms in {ops_:.0f} device operations a chunk  "
+              f"[{card}]")
+    print(f"[times] stream3 Stein stream: {rate:.4g} samples/s of capture "
+          f"({len(hay) / FS * 1e3:.1f} ms of capture in {t['whole']:.4f} "
+          f"ms)  [{card}]")
+    return {"shape": shape, "ms": t["k1"], "ms_last_chunk": t["k1_last"],
+            "top2_ms": t["k1_top2"], "plain_ms": t["plain"],
+            "bound_ms": bound, "bound_by": by, "gflop": gflop,
+            "library_ms": t["library"], "chunk_ms": t["chunk"],
+            "chunk_cufft_ms": t["chunk_cufft"],
+            "chunk_lattice_ms": t["chunk_lattice"],
+            "chunk_device": {name: {"ms": ms, "operations": ops_}
+                             for name, (ms, ops_) in work.items()},
+            "whole_ms": t["whole"],
+            "whole_cufft_ms": t["whole_cufft"],
+            "whole_lattice_ms": t["whole_lattice"],
+            "stein_overlap_save_peak_ms": t["stein_os"],
+            "samples_per_s": rate}
+
+
 def phase_kernel_k4():
     """K4 against its plain version at (416, 8192), bit for bit, in both
     compiled sweep counts; then its own path, ``roofline.measure``, with
@@ -1742,6 +2012,8 @@ def main() -> int:
                      for name in ("rate3", "ratelat3", "rate1")}
     del rate_launches["rate1"]      # the cuFFT dechirp bank: no kernel
     refine_inputs = phase_refine(pairs)
+    sin = stream_inputs(cfgs["config3"])
+    stream_launches, err_stream = phase_stream(sin)
     k4, k4_launches, err4 = phase_kernel_k4()
     t = phase_times(head, fb_head, inputs, card)
     configs = phase_config_times(cfgs, config_launches, card)
@@ -1751,6 +2023,8 @@ def main() -> int:
     rates = phase_rate_times(rcfgs, rshape, rate_launches, refine_inputs,
                              card)
     rates["max_abs_err"] = err_rate
+    stream = phase_stream_times(sin, card)
+    stream.update(launches=stream_launches, max_abs_err=err_stream)
     import torch
 
     from caf_cookoff_tpu_torch.ops import fused_stein as fs
@@ -1782,7 +2056,7 @@ def main() -> int:
         "replaces": "caf_cookoff_tpu/ops/pallas_stein.py:71",
         "launches": (launches1 + sum(config_launches.values())
                      + sum(lattice_launches.values())
-                     + sum(rate_launches.values())),
+                     + sum(rate_launches.values()) + stream_launches),
         "max_abs_err": err1,
         "ms": t["k1"], "plain_ms": t["k1_plain"],
         "bound_ms": bound1, "bound_by": by1, "library_ms": t["k1_matmul"],
@@ -1792,14 +2066,17 @@ def main() -> int:
         "bound_c": fs.BOUND_C,
         "modes": "(a) one pair, (b) pairs, (c) share_h, (d) windows + "
                  "num_valid, (c+d), (e) want_top2 with (b) and (c+d), "
-                 "(f) rate-major synthesis rows with (c+d) and (c+d+e)",
+                 "(f) rate-major synthesis rows with (c+d) and (c+d+e); "
+                 "P = 1 with num_valid and with (e) once a chunk in the "
+                 "stream",
         "launches_by_path": {"stein goldens": launches1,
                              **config_launches, **lattice_launches,
-                             **rate_launches},
+                             **rate_launches, "stream3": stream_launches},
         "max_abs_err_modes_config3": err_modes,
         "configs": configs,
         "top2": lattices,
         "rate": rates,
+        "stream": stream,
     }, {
         "name": "caf_peak_rows", "route": "cuda",
         "source": src + "caf_filterbank.cu",

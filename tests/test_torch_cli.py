@@ -5,6 +5,7 @@ import json
 import pathlib
 import re
 
+import numpy as np
 import pytest
 import torch
 
@@ -580,3 +581,252 @@ def test_run_sigmf_explicit_fs_conflict(fixture_pairs, tmp_path, capsys):
     got, _ = _run_both(["run", *map(str, fixture_pairs[0]), *WIDE], capsys)
     assert _lines(got.out, "Frequency offset:") == [
         "Frequency offset: 69.250 Hz"]
+
+
+_TIMED = re.compile(r", [\d.]+ ms/surface, [\d.]+ surfaces/s")
+_P2F = re.compile(r"peak/floor ([-\d.inf]+) dB")
+
+
+def _masked(out):
+    """``out`` with the bracketed line's timing taken out (a CLI times a
+    second call only when the first took under 2 s, which JAX's
+    interpret-mode kernels do not), peak/floor masked and the peak value
+    taken out: (lines, dB, value)."""
+    db = _P2F.search(out)
+    lines = [_P2F.sub("peak/floor X dB", _TIMED.sub("", ln))
+             for ln in out.splitlines() if not ln.startswith("Peak value:")]
+    return lines, db and float(db.group(1)), _value(out)
+
+
+@pytest.mark.parametrize("backend,grid", [
+    ("auto", ["--freq-step", "0.25"]), ("stein", ["--freq-step", "0.25"]),
+    ("pallas-refine", NARROW)])
+def test_run_report_lines_match_jax_cli(fixture_pairs, tmp_path, capsys,
+                                        backend, grid):
+    """``run``'s lines in the JAX CLI's order — the two result lines, the
+    bracketed peak/floor, ms/surface, surfaces/s and backend line, the
+    peak value, ``Engine: filterbank[...]`` and the artifact lines — equal
+    to JAX's up to the timed numbers; peak/floor within 0.05 dB, the peak
+    value and the dumped surface (``.npy``) within rtol 1e-4 (atol 1e-5
+    of the surface's max)."""
+    needle, haystack = map(str, fixture_pairs[0])
+    paths = [str(tmp_path / f"{who}.npy") for who in ("jax", "port")]
+    assert jcli.main(["run", needle, haystack, *grid, "--backend", backend,
+                      "--dump-surface", paths[0]]) == 0
+    want = capsys.readouterr().out
+    assert tcli.main(["run", needle, haystack, *grid, "--backend", backend,
+                      "--dump-surface", paths[1], "--device", "cpu"]) == 0
+    got = capsys.readouterr().out
+    (g_lines, g_db, g_v), (w_lines, w_db, w_v) = _masked(got), _masked(want)
+    assert [ln.replace(paths[1], "S") for ln in g_lines] == \
+        [ln.replace(paths[0], "S") for ln in w_lines]
+    name = "xla" if backend == "auto" else backend
+    assert g_lines[2] == f"[peak/floor X dB, {name}]"
+    assert g_lines[3] == f"Engine: filterbank[{name}]"
+    if backend == "auto":
+        assert re.search(r"\[peak/floor [\d.]+ dB, [\d.]+ ms/surface, "
+                         r"[\d.]+ surfaces/s, xla\]", got)
+    assert g_db == pytest.approx(w_db, abs=0.05)
+    assert g_v == pytest.approx(w_v, rel=1e-4)
+    import numpy as np
+
+    surf, jsurf = np.load(paths[1]), np.load(paths[0])
+    assert surf.shape == jsurf.shape
+    np.testing.assert_allclose(surf, jsurf, rtol=1e-4,
+                               atol=1e-5 * float(jsurf.max()))
+
+
+def test_run_full_haystack_artifacts_match_jax_cli(fixture_pairs, tmp_path,
+                                                   capsys):
+    """``--full-haystack`` with a raw f64 dump (the Go reference's rows)
+    and a plot: the whole overlap-save surface (800 x 299 cells, under
+    the 2**26 limit) as JAX writes it, peak/floor from it within 0.05
+    dB, ``Engine: stein-os``, ``--num-peaks`` rows scanned over the
+    capture and a refined estimate — the JAX CLI's lines."""
+    import numpy as np
+
+    from caf_cookoff_tpu_torch.utils.io import load_surf
+
+    needle, haystack = map(str, fixture_pairs[0])
+    outs = []
+    for main, who, extra in ((jcli.main, "jax", []),
+                             (tcli.main, "port", ["--device", "cpu"])):
+        argv = ["run", needle, haystack, "--full-haystack", "--freq-step",
+                "0.25", "--num-peaks", "2", "--refine", "--dump-surface",
+                str(tmp_path / f"{who}.f64"), "--plot",
+                str(tmp_path / f"{who}.png"), *extra]
+        assert main(argv) == 0
+        out = capsys.readouterr().out
+        outs.append(out.replace(who, "W"))
+    (w_lines, w_db, w_v), (g_lines, g_db, g_v) = map(_masked, outs)
+    refined = [ln for ln in g_lines if "efined" in ln]
+    assert [ln for ln in g_lines if "efined" not in ln] == \
+        [ln for ln in w_lines if "efined" not in ln]
+    assert "Engine: stein-os (segmented long-capture)" in g_lines
+    assert "surface (800x299) -> " + str(tmp_path / "W.f64") in g_lines
+    assert g_db == pytest.approx(w_db, abs=0.05)
+    assert g_v == pytest.approx(w_v, rel=1e-4)
+    for g, w in zip(refined, [ln for ln in w_lines if "efined" in ln]):
+        assert np.allclose(_floats(g), _floats(w), atol=0.01)
+    surf, jsurf = (load_surf(tmp_path / f"{who}.f64", 800)
+                   for who in ("port", "jax"))
+    np.testing.assert_allclose(surf, jsurf, rtol=1e-4,
+                               atol=1e-5 * float(jsurf.max()))
+    assert (tmp_path / "port.png").stat().st_size > 0
+
+
+def test_run_full_haystack_windowed_surface(fixture_pairs, tmp_path, capsys,
+                                            monkeypatch):
+    """Past ``FULL_SURFACE_CELLS`` the artifacts are the needle-length
+    window at the found lag (lags from ``lag_origin``), with the JAX
+    CLI's note: the dump equals ``caf_surface`` of that window."""
+    import numpy as np
+
+    from caf_cookoff_tpu_torch.models.filterbank import caf_surface
+    from caf_cookoff_tpu_torch.utils.io import load_c64
+
+    needle, haystack = map(str, fixture_pairs[0])
+    monkeypatch.setattr(tcli, "FULL_SURFACE_CELLS", 1000)
+    path = str(tmp_path / "win.npy")
+    assert tcli.main(["run", needle, haystack, "--full-haystack", *NARROW,
+                      "--backend", "xla", "--dump-surface", path,
+                      "--device", "cpu"]) == 0
+    out = capsys.readouterr()
+    origin = 202 - 64
+    assert f"surface (24x8192) -> {path}, lag axis offset +{origin}" in \
+        out.out
+    assert f"4096-sample window at lag {origin}" in out.err
+    n, h = load_c64(needle), load_c64(haystack)
+    freqs = np.arange(68, 74, 0.25, dtype=np.float32)
+    want = caf_surface(n, h[origin:origin + len(n)], freqs, FS,
+                       device="cpu").numpy()
+    np.testing.assert_allclose(np.load(path), want, rtol=1e-6)
+
+
+def test_run_annotate_matches_jax_cli(fixture_pairs, tmp_path, capsys):
+    """``--annotate`` writes the detection into the haystack's
+    .sigmf-meta as the JAX CLI does (its own copy of the recording)."""
+    import json as _json
+
+    (n_base, h_base), = _as_sigmf(tmp_path, fixture_pairs[:1], 48_000.0)
+    import shutil
+
+    metas = []
+    for main, who, extra in ((jcli.main, "jax", []),
+                             (tcli.main, "port", ["--device", "cpu"])):
+        base = f"{h_base}_{who}"
+        for ext in (".sigmf-meta", ".sigmf-data"):
+            shutil.copy(h_base + ext, base + ext)
+        assert main(["run", n_base + ".sigmf-meta", base + ".sigmf-meta",
+                     *NARROW, "--annotate", *extra]) == 0
+        assert f"annotation -> {base}.sigmf-meta" in capsys.readouterr().out
+        with open(base + ".sigmf-meta") as f:
+            metas.append(_json.load(f)["annotations"])
+    (ann,), (jann,) = metas[1], metas[0]
+    value = "caf:peak_value"
+    assert ann[value] == pytest.approx(jann[value], rel=1e-4)
+    assert {k: v for k, v in ann.items() if k != value} == \
+        {k: v for k, v in jann.items() if k != value}
+    assert ann["core:sample_start"] == 202
+
+
+def _stream_lines(out):
+    """``stream`` output split for comparison: the lines with their
+    numbers masked, and each line's numbers."""
+    masked = [re.sub(_FLOAT, "#", ln) for ln in out.splitlines()]
+    return masked, [_floats(ln) for ln in out.splitlines()]
+
+
+@pytest.mark.parametrize("backend", ["stein", "xla"])
+def test_stream_matches_jax_cli(fixture_pairs, capsys, backend):
+    """``stream`` of chirp_0's capture in 2048-sample chunks with
+    ``--verbose --num-peaks 2 --refine``: the JAX CLI's lines; the chunk
+    values within rtol 2e-2 (the Stein chunks are coarse ranks) and the
+    emitter's chunk at (69.25 Hz, 202) in both, the answer (69.25 Hz,
+    202) and its value within rtol 1e-4, the lattice rows' dB within 0.05 and the refined
+    estimates within 0.01 Hz and 0.01 samples; the bracket line's
+    seconds are not compared."""
+    needle, capture = map(str, fixture_pairs[0])
+    got, want = _both(["stream", needle, capture, "--freq-step", "0.25",
+                       "--chunk", "2048", "--backend", backend, "--verbose",
+                       "--num-peaks", "2", "--refine"], capsys)
+    (g_lines, g_nums), (w_lines, w_nums) = map(_stream_lines, (got, want))
+    assert g_lines == w_lines
+    for line, g, w in zip(got.splitlines(), g_nums, w_nums):
+        if line.startswith("chunk @"):
+            # Noise-only chunks rank near-ties: their (freq, lag) may
+            # differ; the emitter's chunk may not.
+            assert g[0] == w[0]
+            assert g[3] == pytest.approx(w[3], rel=2e-2)
+            if g[3] > 100:
+                assert g[1:3] == w[1:3] == [69.25, 202]
+        elif line.startswith(("Peak value", "peak ")) or "efined" in line:
+            assert np.allclose(g, w, rtol=1e-4, atol=0.05)
+        elif line.startswith("["):
+            assert g[:2] + g[3:] == w[:2] + w[3:]
+        else:
+            assert g == w
+    assert "Frequency offset: 69.250 Hz" in got
+    assert "Time offset: 202 samples (4.2083 ms)" in got
+    assert f"chunk=2048, {backend}]" in got
+
+
+def test_stream_segment_and_follow_match_jax_cli(fixture_pairs, tmp_path,
+                                                 capsys):
+    """``stream --segment 1`` of a two-capture SigMF recording (noise,
+    then chirp_0's capture) and ``--follow`` of the whole recording with
+    a short ``--idle-timeout``: the JAX CLI's answers; ``--follow
+    --refine`` skips the refine with the JAX CLI's note."""
+    from caf_cookoff_tpu_torch.utils.io import load_c64
+    from caf_cookoff_tpu_torch.utils.sigmf import write_sigmf
+
+    needle, capture = map(str, fixture_pairs[0])
+    rng = np.random.default_rng(4)
+    noise = (0.05 * (rng.standard_normal(3000)
+                     + 1j * rng.standard_normal(3000))).astype(np.complex64)
+    base = str(tmp_path / "two")
+    write_sigmf(base, np.concatenate([noise, load_c64(capture)]), 48_000.0,
+                captures=[{"core:sample_start": 0},
+                          {"core:sample_start": 3000}])
+    common = ["stream", needle, base + ".sigmf-meta", *NARROW, "--chunk",
+              "2048"]
+    for extra, lag in ((["--segment", "1"], 202),
+                       (["--follow", "--idle-timeout", "0.3", "--refine"],
+                        3202)):
+        got, want = _run_both(common + extra, capsys)
+        for prefix in ("Frequency offset:", "Time offset:"):
+            assert _lines(got.out, prefix) == _lines(want.out, prefix)
+        assert _lines(got.out, "Time offset:")[0].startswith(
+            f"Time offset: {lag} samples")
+        assert _value(got.out) == pytest.approx(_value(want.out), rel=1e-4)
+    note = "--follow discards consumed chunks, so refine is skipped"
+    assert note in got.err and note in want.err
+    assert "Refined estimate" not in got.out
+
+
+def test_capture_without_sounddevice_exits_2(tmp_path, capsys):
+    """``capture`` needs the optional sounddevice package, absent here:
+    both CLIs print the error and exit 2; ``--device`` is the sound
+    card's input index, an int."""
+    out = str(tmp_path / "cap")
+    for main in (jcli.main, tcli.main):
+        assert main(["capture", out, "--seconds", "0.1", "--device",
+                     "0"]) == 2
+        assert "error: live capture needs the optional 'sounddevice'" in \
+            capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        tcli.main(["capture", out, "--device", "cuda"])
+
+
+def test_info_names_the_native_library(capsys, monkeypatch):
+    """``info`` ends with the JAX CLI's ``native libcafio:`` line: loaded
+    where g++ builds ``native/cafio.cpp``, else the numpy fallback."""
+    from caf_cookoff_tpu_torch.utils import native
+
+    assert tcli.main(["info"]) == 0
+    assert capsys.readouterr().out.splitlines()[-1] == \
+        "native libcafio: loaded"
+    monkeypatch.setattr(native, "available", lambda: False)
+    assert tcli.main(["info"]) == 0
+    assert capsys.readouterr().out.splitlines()[-1].startswith(
+        "native libcafio: absent (numpy fallback")

@@ -160,3 +160,16 @@ def test_port_imports_no_jax():
     assert len(files) >= 15
     offenders = [str(f) for f in files if pat.search(f.read_text())]
     assert offenders == []
+
+
+def test_chip_smoke_and_new_modules_import_no_jax():
+    """``chip_smoke.py`` imports neither jax nor the JAX package, and the
+    modules of the streaming slice are among the files checked above."""
+    pat = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|"
+                     r"(from|import)\s+caf_cookoff_tpu(\.|\s|$))", re.M)
+    smoke = PORT_DIR.parent / "chip_smoke.py"
+    assert not pat.search(smoke.read_text())
+    names = {f.relative_to(PORT_DIR).as_posix()
+             for f in PORT_DIR.rglob("*.py")}
+    assert {"models/streaming.py", "utils/profiling.py", "utils/pulses.py",
+            "utils/native.py"} <= names

@@ -1,6 +1,7 @@
 """The port on a CUDA card: the fused Stein kernel (K1) and the fused
 filterbank kernels (K2 peak rows, K3 surface) against their plain
-versions, the main paths through them, and the bench harness.
+versions, the main paths through them (``StreamingCAF`` among them), and
+the bench harness.
 
 Every test here needs a card and skips without one.  The file imports
 neither JAX nor the conftest's fixtures, so on a machine with a card and
@@ -873,3 +874,108 @@ def test_epilogue_roofline_matches_plain_on_card(card, rows, cols, sweeps):
     assert torch.equal(got, want)
     with pytest.raises(ValueError):
         rf.epilogue(rows, cols, 7, device="cuda")
+
+
+# ---------------------------------------------------------------------------
+# StreamingCAF on the card
+# ---------------------------------------------------------------------------
+
+
+def _stream(capture, chunk, needle, freqs, **kw):
+    from caf_cookoff_tpu_torch import StreamingCAF
+
+    s = StreamingCAF(needle, freqs, FS, device="cuda", **kw)
+    before = fs.LAUNCHES
+    chunks = [s.process(capture[i:i + chunk])
+              for i in range(0, len(capture), chunk)]
+    return s, chunks, fs.LAUNCHES - before
+
+
+def test_stein_stream_chirp_0_on_card(card):
+    """chirp_0's capture in 2048-sample chunks on the 0.25 Hz grid: one K1
+    launch a chunk (the last chunk is short: ``num_valid``), the answer
+    (69.25, 202), and the CPU stream's answer and chunk values (the
+    chunks within K1's bf16 rank, rtol 2e-2)."""
+    needle_path, hay_path = ensure_fixtures(DATA)[0]
+    needle, capture = load_c64(needle_path), load_c64(hay_path)
+    freqs = FreqGrid(-100.0, 100.0, 0.25).frequencies(np.float32)
+    s, chunks, launches = _stream(capture, 2048, needle, freqs,
+                                  backend="stein", chunk_len=2048)
+    assert launches == len(chunks) == 3
+    assert s.best()[:2] == (69.25, 202)
+    from caf_cookoff_tpu_torch import StreamingCAF
+
+    cpu = StreamingCAF(needle, freqs, FS, backend="stein", chunk_len=2048,
+                       device="cpu")
+    want = [cpu.process(capture[i:i + 2048])
+            for i in range(0, len(capture), 2048)]
+    for got, exp in zip(chunks, want):
+        assert got[2] == pytest.approx(exp[2], rel=2e-2)
+    assert chunks[-1][:2] == want[-1][:2] == (69.25, 202)
+    assert s.best()[2] == pytest.approx(cpu.best()[2], rel=1e-4)
+
+
+def _emitters(truths, total, n=1024, seed=7):
+    rng = np.random.default_rng(seed)
+    needle = (rng.standard_normal(n)
+              + 1j * rng.standard_normal(n)).astype(np.complex64)
+    hay = (1e-4 * (rng.standard_normal(total)
+                   + 1j * rng.standard_normal(total))).astype(np.complex64)
+    t = np.arange(n)
+    for f, lag, amp in truths:
+        hay[lag:lag + n] += (amp * needle * np.exp(
+            2j * np.pi * f * t / FS)).astype(np.complex64)
+    return needle, hay
+
+
+@pytest.mark.parametrize("truths,total,num_peaks", [
+    ([(-30.0, 9000, 1.0), (-30.0, 12000, 0.7)], 32768, 2),
+    ([(-30.0, 9000, 1.0), (45.0, 40800, 0.8), (10.0, 60000, 0.6)], 65536,
+     4)])
+def test_stein_stream_lattice_on_card(card, truths, total, num_peaks):
+    """K1's top-2 mode (e) once a 8192-sample chunk: a same-bin pair at
+    lags 9000 and 12000 inside one chunk window, and a three-emitter
+    lattice with one emitter across a chunk edge — every emitter, in
+    order, and the emitters' slots the CPU stream gives."""
+    from caf_cookoff_tpu_torch import StreamingCAF
+
+    needle, hay = _emitters(truths, total)
+    freqs = np.arange(-100, 100, 2.5, dtype=np.float32)
+    s, chunks, launches = _stream(hay, 8192, needle, freqs, backend="stein",
+                                  num_peaks=num_peaks)
+    assert launches == len(chunks)
+    fr, lg, vv = s.peaks()
+    got = [(float(f), int(l)) for f, l, v in zip(fr, lg, vv)
+           if np.isfinite(float(v))]
+    assert got[:len(truths)] == [(f, lag) for f, lag, _ in truths]
+    cpu = StreamingCAF(needle, freqs, FS, backend="stein",
+                       num_peaks=num_peaks, device="cpu")
+    for i in range(0, total, 8192):
+        cpu.process(hay[i:i + 8192])
+    # The emitters' slots (a spare slot holds a noise rank, which K1's
+    # bf16 rounding may order otherwise on the card).
+    cf, cl, cv = (x[:len(truths)] for x in cpu.peaks())
+    assert fr[:len(truths)].tolist() == cf.tolist()
+    assert lg[:len(truths)].tolist() == cl.tolist()
+    np.testing.assert_allclose(vv[:len(truths)], cv, rtol=1e-4)
+
+
+def test_cufft_stream_matches_overlap_save_on_card(card):
+    """The cuFFT stream (no kernel) equals ``overlap_save_peak`` on the
+    card, with uneven chunks (a 1-sample one and an oversized one)."""
+    from caf_cookoff_tpu_torch import overlap_save_peak
+
+    needle, hay = _emitters([(750.0, 5000, 1.0)], 8192, n=256)
+    freqs = np.arange(-2000.0, 2000.0, 250.0, dtype=np.float32)
+    want = overlap_save_peak(needle, hay, freqs, FS, device="cuda")
+    from caf_cookoff_tpu_torch import StreamingCAF
+
+    s = StreamingCAF(needle, freqs, FS, chunk_len=1024, device="cuda")
+    before = fs.LAUNCHES
+    for a, b in [(0, 700), (700, 701), (701, 6000), (6000, 8192)]:
+        s.process(hay[a:b])
+    assert fs.LAUNCHES == before
+    got = s.best()
+    assert got[:2] == want[:2] == (750.0, 5000)
+    assert got[2] == pytest.approx(want[2], rel=1e-5)
+    assert s.samples_seen == 8192
