@@ -31,8 +31,11 @@ chunk with ``backend="stein"``); and the CLI verbs ``generate``, ``run``
 ``--rate-grid``, ``--dump-surface``, ``--plot`` and ``--annotate``),
 ``stream``, ``capture``, ``batch`` (with ``--refine``), ``bench``,
 ``selftest`` and ``info``, with the utilities behind them
-(``utils/profiling``, ``utils/pulses``, ``utils/native``).  ROADMAP.md
-lists what is still to be ported: ``parallel/``.
+(``utils/profiling``, ``utils/pulses``, ``utils/native``); and
+``parallel/``: meshes over ``torch.distributed`` (one process a
+device), the peak collectives and the sharded engines, K1 in each shard
+of the fused ones, with ``parallel.multihost`` to start the processes.
+Every module of the JAX package has its counterpart.
 """
 
 from caf_cookoff_tpu_torch.config import (BENCH_GRID, CafConfig, FreqGrid,

@@ -89,10 +89,29 @@ Phases, each reported on its own line:
    ``overlap_save_peaks``; K1's launch count, set to 0 before each Stein
    path, one a chunk; the last chunk's K1 launch held to its bound, with
    ``num_valid`` and with top-2; the CLI ``stream`` verb on chirp_0.
-12. K4     — the epilogue microbenchmark (``utils/roofline``) against its
+12. parallel — ``parallel/`` on the card.  A world of one rank on NCCL
+   (a 1 x 1 x 1 mesh) in this process runs the four engines with K1 in
+   each shard at their full cells — ``sharded_batched_stein_peak`` at
+   config 2, ``sharded_stein_os_peak`` at config 3,
+   ``sharded_batched_stein_os_peaks`` at lattice4 and
+   ``sharded_stein_rate_os_peak`` at rate3 — each bit for bit the
+   single-device engine, K1's launch count (set to 0 before each) rising;
+   then each whole call at one rank against its single-device engine,
+   interleaved.  Then eight ranks on the one card (``python3 chip_smoke.py
+   --parallel-rank``, started by ``multihost.launch_local`` after the
+   build, each computing on ``cuda:0`` with gloo collectives, as NCCL
+   takes one rank a card) as config 5's mesh (pair=2 x doppler=2 x
+   time=2): config 5 (``bench_configs.py:359-382``, 8 pairs x 64 bins x
+   16384 lags) through ``batched_overlap_save_peak`` with every emitter
+   recovered, config 3 through ``sharded_stein_os_peak`` over time=8 and
+   config 2 through ``sharded_batched_stein_peak`` over pair=8, each equal
+   to the single-device answers, each rank's K1 count rising; a rank
+   that exits non-zero fails the run.  Its wall time is that of ranks
+   sharing one card, not a scaling number.
+13. K4     — the epilogue microbenchmark (``utils/roofline``) against its
    plain version bit for bit, then ``roofline.measure`` (its launch
    count, set to 0 before, must rise).
-13. times  — CUDA-event medians, after warm-up, of each kernel's wrapper,
+14. times  — CUDA-event medians, after warm-up, of each kernel's wrapper,
    its plain version and its library yardstick at the main path's
    shape (K1's: stage B alone as one bf16 ``torch.matmul``, at every K1
    shape; K1's device time from ``torch.profiler`` too), of K1 at each
@@ -1876,6 +1895,245 @@ def phase_stream_times(sin, card):
             "samples_per_s": rate}
 
 
+def config5_inputs():
+    """Config 5 of ``bench_configs.py`` (``config5_virtual``'s recipe,
+    copied): 8 pairs x 1024, 16384 lags, 64 bins over +-100 Hz, one
+    emitter a pair -> (needles, haystacks, freqs, num_lags, truths)."""
+    pairs, n, lags, k = 8, 1024, 16_384, 64
+    rng = np.random.default_rng(4)
+    needles = (rng.standard_normal((pairs, n))
+               + 1j * rng.standard_normal((pairs, n))).astype(np.complex64)
+    hays = (1e-4 * (rng.standard_normal((pairs, lags + n))
+                    + 1j * rng.standard_normal((pairs, lags + n)))
+            ).astype(np.complex64)
+    freqs = np.linspace(-100, 100, k, endpoint=False).astype(np.float32)
+    t = np.arange(n)
+    truths = []
+    for b in range(pairs):
+        lag, f_hz = 500 + b * 1777, float(freqs[5 + 7 * b])
+        hays[b, lag:lag + n] += (needles[b] * np.exp(
+            2j * np.pi * f_hz * t / FS)).astype(np.complex64)
+        truths.append((f_hz, lag))
+    return needles, hays, freqs, lags, truths
+
+
+def parallel_calls(cfgs, lcfgs, rcfgs, mesh):
+    """The four K1 engines of ``parallel/`` at their full cells, each
+    beside its single-device engine: name -> (sharded call, single
+    call); the calls return host tuples."""
+    from caf_cookoff_tpu_torch import (batched_stein_os_peak,
+                                       batched_stein_os_peaks,
+                                       batched_stein_peak, stein_rate_os_peak)
+    from caf_cookoff_tpu_torch.parallel import (
+        sharded_batched_stein_os_peaks, sharded_batched_stein_peak,
+        sharded_stein_os_peak, sharded_stein_rate_os_peak)
+
+    n2, h2, f2, _, _ = cfgs["config2"]
+    n3, h3, f3, l3, _ = cfgs["config3"]
+    n4, h4, f4, l4, _ = lcfgs["lattice4"]
+    nr, hr, fr, rr, _ = rcfgs["rate3"]
+    p4 = NUM_PEAKS["lattice4"]
+
+    def one(x):
+        return (float(x[0][0]), int(x[1][0]), float(x[2][0]))
+
+    return {
+        "config2": (
+            lambda: sharded_batched_stein_peak(n2, h2, f2, FS, mesh),
+            lambda: batched_stein_peak(n2, h2, f2, FS, device=DEVICE)),
+        "config3": (
+            lambda: sharded_stein_os_peak(n3[0], h3[0], f3, FS, mesh,
+                                          num_lags=l3),
+            lambda: one(batched_stein_os_peak(n3, h3, f3, FS, num_lags=l3,
+                                              device=DEVICE))),
+        "lattice4": (
+            lambda: sharded_batched_stein_os_peaks(n4, h4, f4, FS, mesh,
+                                                   num_peaks=p4, num_lags=l4),
+            lambda: batched_stein_os_peaks(n4, h4, f4, FS, p4, num_lags=l4,
+                                           device=DEVICE)),
+        "rate3": (
+            lambda: sharded_stein_rate_os_peak(nr, hr, fr, rr, FS, mesh),
+            lambda: stein_rate_os_peak(nr, hr, fr, rr, FS, device=DEVICE)),
+    }
+
+
+def same_bits(a, b) -> bool:
+    """Two host answers (tuples of numbers or arrays) equal bit for bit."""
+    return len(a) == len(b) and all(
+        np.array_equal(np.asarray(x), np.asarray(y)) for x, y in zip(a, b))
+
+
+def parallel_rank() -> int:
+    """One rank of the eight-rank run (``--parallel-rank``): config 5,
+    config 3 over time=8 and config 2 over pair=8 on ``cuda:0`` with
+    gloo collectives; prints one ``RANK`` JSON line of answers, K1
+    launches and seconds."""
+    import_port()
+    import datetime
+
+    import torch.distributed as dist
+
+    from caf_cookoff_tpu_torch.ops import fused_stein as fs
+    from caf_cookoff_tpu_torch.parallel import (
+        batched_overlap_save_peak, make_mesh, sharded_batched_stein_peak,
+        sharded_stein_os_peak)
+    from caf_cookoff_tpu_torch.parallel import multihost
+
+    multihost.initialize_cluster(backend="gloo",
+                                 timeout=datetime.timedelta(seconds=300))
+    dev = "cuda:0"
+    n5, h5, f5, l5, _ = config5_inputs()
+    cfgs = config_inputs()
+    n2, h2, f2, _, _ = cfgs["config2"]
+    n3, h3, f3, l3, _ = cfgs["config3"]
+    out = {"rank": dist.get_rank()}
+    runs = (
+        ("config5", dict(pair=2, doppler=2, time=2), lambda m:
+         batched_overlap_save_peak(n5, h5, f5, FS, m, num_lags=l5,
+                                   backend="xla")),
+        ("config3", dict(time=8), lambda m:
+         sharded_stein_os_peak(n3[0], h3[0], f3, FS, m, num_lags=l3)),
+        ("config2", dict(pair=8), lambda m:
+         sharded_batched_stein_peak(n2, h2, f2, FS, m)))
+    for name, shape, run in runs:
+        mesh = make_mesh(device=dev, collectives="gloo", **shape)
+        fs.LAUNCHES = 0
+        t0 = time.perf_counter()
+        got = run(mesh)
+        first = time.perf_counter() - t0
+        launches = fs.LAUNCHES
+        t0 = time.perf_counter()
+        run(mesh)
+        second = time.perf_counter() - t0
+        out[name] = {"answer": [np.asarray(x).tolist() if not np.isscalar(x)
+                                else x for x in got],
+                     "k1_launches": launches, "first_s": first,
+                     "second_s": second, "mesh": repr(mesh)}
+    dist.destroy_process_group()
+    print("RANK " + json.dumps(out))
+    return 0
+
+
+def phase_parallel(cfgs, lcfgs, rcfgs, card):
+    """``parallel/`` on the card: one NCCL rank through the four K1
+    engines, bit for bit the single-device engines, then their whole
+    calls interleaved; then eight gloo-collective ranks on the one card.
+    Returns the K1 launches by path and the times."""
+    import torch
+    import torch.distributed as dist
+
+    from caf_cookoff_tpu_torch.ops import fused_stein as fs
+    from caf_cookoff_tpu_torch.parallel import (collectives, make_mesh,
+                                                multihost)
+
+    multihost.initialize_cluster(f"127.0.0.1:{multihost.free_port()}", 1, 0,
+                                 backend="nccl")
+    mesh = make_mesh(device="cuda:0")
+    check(mesh.backend == "nccl" and dist.get_backend() == "nccl",
+          "the one-rank world is not on NCCL")
+    print(f"[parallel] one rank: {mesh}")
+    calls = parallel_calls(cfgs, lcfgs, rcfgs, mesh)
+    launches, singles, times = {}, {}, {}
+    for name, (sharded, single) in calls.items():
+        fs.LAUNCHES = 0
+        got = sharded()
+        launches[f"parallel 1 rank {name}"] = fs.LAUNCHES
+        singles[name] = single()
+        print(f"[parallel] 1 rank {name}: K1 launches "
+              f"{launches[f'parallel 1 rank {name}']}; "
+              f"bitwise the single-device engine: "
+              f"{same_bits(got, singles[name])}")
+        check(fs.LAUNCHES > 0, f"parallel {name} did not launch K1")
+        check(same_bits(got, singles[name]),
+              f"parallel {name} at one rank differs from the single-device "
+              f"engine: {got} vs {singles[name]}")
+    for name, (sharded, single) in calls.items():
+        ts, tp = [], []
+        for fn, acc in ((single, ts), (sharded, tp), (sharded, tp),
+                        (single, ts)) * 5:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            acc.append((time.perf_counter() - t0) * 1e3)
+        dev_p, ops_p = device_work(sharded, 3)
+        dev_s, ops_s = device_work(single, 3)
+        times[name] = {"one_rank_ms": statistics.median(tp),
+                       "single_device_ms": statistics.median(ts),
+                       "one_rank_device": {"ms": dev_p, "operations": ops_p},
+                       "single_device_device": {"ms": dev_s,
+                                                "operations": ops_s}}
+        print(f"[times] parallel {name}: whole call at one NCCL rank "
+              f"{times[name]['one_rank_ms']:.4f} ms, single-device engine "
+              f"{times[name]['single_device_ms']:.4f} ms (medians of 10, "
+              f"interleaved); device time {dev_p:.4f} ms in {ops_p:.1f} "
+              f"device operations vs {dev_s:.4f} in {ops_s:.1f}  [{card}]")
+    x = torch.zeros(64, device="cuda:0")
+    gather_ms = cuda_median_ms(
+        lambda: collectives.all_gather(x, "pair", mesh=mesh), 50)
+    reduce_ms = cuda_median_ms(
+        lambda: collectives.all_reduce(x, dist.ReduceOp.MAX, "pair",
+                                       mesh=mesh), 50)
+    times["nccl_all_gather_ms"] = gather_ms
+    times["nccl_all_reduce_ms"] = reduce_ms
+    print(f"[times] parallel one collective of 64 floats at one NCCL rank "
+          f"(host included, median of 50): all_gather {gather_ms:.4f} ms, "
+          f"all_reduce {reduce_ms:.4f} ms  [{card}]")
+    dist.destroy_process_group()
+
+    # Eight ranks on the one card: config 5's mesh and the K1 engines.
+    n5, h5, f5, _, truths5 = config5_inputs()
+    want3 = singles["config3"]
+    want2 = singles["config2"]
+    argv = [sys.executable, str(ROOT / "chip_smoke.py"), "--parallel-rank"]
+    t0 = time.perf_counter()
+    outs = multihost.wait_local(multihost.launch_local(argv, 8), 600.0)
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r, (rc, text) in enumerate(outs):
+        check(rc == 0, f"parallel rank {r} exited {rc}:\n{text[-3000:]}")
+        line = [ln for ln in text.splitlines() if ln.startswith("RANK ")]
+        check(len(line) == 1, f"parallel rank {r} printed no result")
+        ranks.append(json.loads(line[0][5:]))
+    for res in ranks:
+        r = res["rank"]
+        fr, lg, _ = res["config5"]["answer"]
+        got5 = [(float(f), int(x)) for f, x in zip(fr, lg)]
+        check(got5 == truths5, f"rank {r} config 5 missed emitters: {got5}")
+        got3 = tuple(res["config3"]["answer"])
+        check(got3 == want3, f"rank {r} config 3 {got3} != single {want3}")
+        fr, lg, vv = res["config2"]["answer"]
+        check(list(fr) == list(want2[0]) and list(lg) == list(want2[1]),
+              f"rank {r} config 2 answers differ from the single device")
+        check(np.allclose(vv, want2[2], rtol=1e-5, atol=0),
+              f"rank {r} config 2 values")
+        for name in ("config3", "config2"):
+            check(res[name]["k1_launches"] > 0,
+                  f"rank {r} {name} did not launch K1")
+    bits2 = all(np.array_equal(np.asarray(res["config2"]["answer"][2],
+                                          np.float32), want2[2])
+                for res in ranks)
+    k1_8 = {name: [res[name]["k1_launches"] for res in ranks]
+            for name in ("config3", "config2")}
+    print(f"[parallel] 8 ranks on cuda:0 (gloo collectives): config 5 "
+          f"{len(truths5)}/{len(truths5)} emitters on every rank; config 3 "
+          f"over time=8 = the single-device answer bit for bit on every "
+          f"rank; config 2 over pair=8 (freq, lag) equal, values within "
+          f"1e-5 (bit for bit: {bits2}); K1 launches a rank {k1_8}")
+    sec = {name: (max(res[name]["first_s"] for res in ranks),
+                  max(res[name]["second_s"] for res in ranks))
+           for name in ("config5", "config3", "config2")}
+    print(f"[times] parallel 8 ranks sharing one card: whole run "
+          f"{wall:.3f} s (8 process starts, imports, inputs, 3 workloads "
+          f"twice); slowest rank's calls (first, second) s: {sec}; ranks "
+          f"that share one card, not a scaling number  [{card}]")
+    for name, counts in k1_8.items():
+        launches[f"parallel 8 ranks {name}"] = sum(counts)
+    return launches, {"one_rank": times, "eight_rank_wall_s": wall,
+                      "eight_rank_calls_s": sec,
+                      "eight_rank_config2_bitwise": bits2}
+
+
 def phase_kernel_k4():
     """K4 against its plain version at (416, 8192), bit for bit, in both
     compiled sweep counts; then its own path, ``roofline.measure``, with
@@ -2014,6 +2272,7 @@ def main() -> int:
     refine_inputs = phase_refine(pairs)
     sin = stream_inputs(cfgs["config3"])
     stream_launches, err_stream = phase_stream(sin)
+    par_launches, par = phase_parallel(cfgs, lcfgs, rcfgs, card)
     k4, k4_launches, err4 = phase_kernel_k4()
     t = phase_times(head, fb_head, inputs, card)
     configs = phase_config_times(cfgs, config_launches, card)
@@ -2056,7 +2315,8 @@ def main() -> int:
         "replaces": "caf_cookoff_tpu/ops/pallas_stein.py:71",
         "launches": (launches1 + sum(config_launches.values())
                      + sum(lattice_launches.values())
-                     + sum(rate_launches.values()) + stream_launches),
+                     + sum(rate_launches.values()) + stream_launches
+                     + sum(par_launches.values())),
         "max_abs_err": err1,
         "ms": t["k1"], "plain_ms": t["k1_plain"],
         "bound_ms": bound1, "bound_by": by1, "library_ms": t["k1_matmul"],
@@ -2071,12 +2331,14 @@ def main() -> int:
                  "stream",
         "launches_by_path": {"stein goldens": launches1,
                              **config_launches, **lattice_launches,
-                             **rate_launches, "stream3": stream_launches},
+                             **rate_launches, "stream3": stream_launches,
+                             **par_launches},
         "max_abs_err_modes_config3": err_modes,
         "configs": configs,
         "top2": lattices,
         "rate": rates,
         "stream": stream,
+        "parallel": par,
     }, {
         "name": "caf_peak_rows", "route": "cuda",
         "source": src + "caf_filterbank.cu",
@@ -2123,4 +2385,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--parallel-rank"]:
+        sys.exit(parallel_rank())
     sys.exit(main())

@@ -10,8 +10,6 @@ rounded in another order).  On the CPU the JAX engines rank with the
 kernel's XLA twin, and the port with the kernel's f32 plain version.
 """
 
-import pathlib
-
 import numpy as np
 import pytest
 import torch
@@ -28,10 +26,13 @@ from caf_cookoff_tpu_torch.models import stein as tstein
 from caf_cookoff_tpu_torch.ops import fused_stein as tfs
 from caf_cookoff_tpu_torch.utils.io import load_c64
 
+# Private fixture copies: the shared data/ may be rewritten by another
+# worker while this module reads it (see test_torch_fixtures.py).
+from test_torch_fixtures import chirp, fixture_pairs  # noqa: E402,F401
+
 torch.set_num_threads(1)
 
 FS = 48_000.0
-DATA = pathlib.Path(__file__).resolve().parents[1] / "data"
 GRID = np.arange(-100.0, 100.0, 0.5, dtype=np.float32)
 
 
@@ -159,9 +160,9 @@ def test_batched_os_matches_single_chip():
                              device="cpu")[:2] == (0.0, 8190)
 
 
-def test_batched_os_golden_fixture():
-    needle = load_c64(DATA / "chirp_0_raw.c64")
-    full_hay = load_c64(DATA / "chirp_0_T+202samp_F+69.25Hz.c64")
+def test_batched_os_golden_fixture(fixture_pairs):
+    needle = load_c64(fixture_pairs[0][0])
+    full_hay = load_c64(fixture_pairs[0][1])
     freqs = np.arange(-100.0, 100.0, 0.25, dtype=np.float32)
     assert _batched_os(needle[None], full_hay[None], freqs, FS) == \
         [(69.25, 202)]

@@ -14,6 +14,10 @@ from caf_cookoff_tpu.utils import bench as jbench
 from caf_cookoff_tpu_torch import cli as tcli
 from caf_cookoff_tpu_torch.utils import bench as tbench
 
+# Private fixture copies: the shared data/ may be rewritten by another
+# worker while this module reads it (see test_torch_fixtures.py).
+from test_torch_fixtures import chirp, fixture_pairs  # noqa: E402,F401
+
 torch.set_num_threads(1)
 
 NARROW = ["--freq-start", "68", "--freq-stop", "74", "--freq-step", "0.25"]

@@ -22,6 +22,10 @@ from caf_cookoff_tpu_torch.utils.convert import (as_signal,
                                                  caf_config_from_jax,
                                                  split_to_complex)
 
+# Private fixture copies: the shared data/ may be rewritten by another
+# worker while this module reads it (see test_torch_fixtures.py).
+from test_torch_fixtures import chirp, fixture_pairs  # noqa: E402,F401
+
 torch.set_num_threads(1)
 
 PORT_DIR = pathlib.Path(__file__).resolve().parents[1] / "caf_cookoff_tpu_torch"

@@ -979,3 +979,141 @@ def test_cufft_stream_matches_overlap_save_on_card(card):
     assert got[:2] == want[:2] == (750.0, 5000)
     assert got[2] == pytest.approx(want[2], rel=1e-5)
     assert s.samples_seen == 8192
+
+
+# ---------------------------------------------------------------------------
+# parallel/ on the card
+# ---------------------------------------------------------------------------
+
+
+def _stein_os_input(n=2048, total=32768, lag=30720, f_inj=33.0, seed=5):
+    """A long capture whose emitter sits at the final full-overlap lag."""
+    rng = np.random.default_rng(seed)
+    needle = (rng.standard_normal(n)
+              + 1j * rng.standard_normal(n)).astype(np.complex64)
+    hay = (1e-4 * (rng.standard_normal(total)
+                   + 1j * rng.standard_normal(total))).astype(np.complex64)
+    hay[lag:lag + n] += (needle * np.exp(
+        2j * np.pi * f_inj * np.arange(n) / FS)).astype(np.complex64)
+    return needle, hay, np.arange(-100, 100, 0.5, dtype=np.float32)
+
+
+def _batch_input(p=4, n=4096, seed=9):
+    rng = np.random.default_rng(seed)
+    needles = (rng.standard_normal((p, n))
+               + 1j * rng.standard_normal((p, n))).astype(np.complex64)
+    hays = np.zeros_like(needles)
+    for i in range(p):
+        lag = 50 + 17 * i
+        hays[i, lag:] = needles[i, :n - lag] * np.exp(
+            2j * np.pi * (10.0 * i - 30.0) * np.arange(lag, n) / FS)
+    return needles, hays, np.arange(-100, 100, 0.5, dtype=np.float32)
+
+
+def test_parallel_one_nccl_rank_matches_single_device(card):
+    """A world of one rank on NCCL: ``sharded_stein_os_peak`` and
+    ``sharded_batched_stein_peak`` launch K1 and equal the single-device
+    engines bit for bit; ``sharded_caf_peak(backend="pallas")`` launches
+    K2 once and equals ``caf_peak``'s."""
+    import torch.distributed as dist
+
+    from caf_cookoff_tpu_torch import batched_stein_os_peak, batched_stein_peak
+    from caf_cookoff_tpu_torch.parallel import (make_mesh, multihost,
+                                                sharded_batched_stein_peak,
+                                                sharded_caf_peak,
+                                                sharded_stein_os_peak)
+
+    multihost.initialize_cluster(f"127.0.0.1:{multihost.free_port()}", 1, 0,
+                                 backend="nccl")
+    try:
+        mesh = make_mesh(device="cuda:0")
+        assert mesh.backend == "nccl"
+        needle, hay, freqs = _stein_os_input()
+        fs.LAUNCHES = 0
+        got = sharded_stein_os_peak(needle, hay, freqs, FS, mesh)
+        assert fs.LAUNCHES > 0
+        s = batched_stein_os_peak(needle[None], hay[None], freqs, FS,
+                                  device="cuda")
+        assert got == (float(s[0][0]), int(s[1][0]), float(s[2][0]))
+        assert got[:2] == (33.0, 30720)
+        needles, hays, freqs = _batch_input()
+        fs.LAUNCHES = 0
+        got = sharded_batched_stein_peak(needles, hays, freqs, FS, mesh)
+        assert fs.LAUNCHES > 0
+        want = batched_stein_peak(needles, hays, freqs, FS, device="cuda")
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        # K2 in the doppler shard of the sharded filterbank peak.
+        pc.PEAK_LAUNCHES = 0
+        got = sharded_caf_peak(needles[1], hays[1], freqs, FS, mesh,
+                               backend="pallas")
+        assert pc.PEAK_LAUNCHES == 1
+        assert got == caf_peak(needles[1], hays[1], freqs, FS,
+                               backend="pallas", device="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+_RANK_WORKER = '''
+import datetime, json, sys
+import numpy as np
+import torch.distributed as dist
+sys.path.insert(0, sys.argv[1])
+import test_torch_cuda as t
+from caf_cookoff_tpu_torch.ops import fused_stein as fs
+from caf_cookoff_tpu_torch.parallel import (make_mesh, multihost,
+                                            sharded_batched_stein_peak,
+                                            sharded_stein_os_peak)
+multihost.initialize_cluster(backend="gloo",
+                             timeout=datetime.timedelta(seconds=120))
+out = {}
+needle, hay, freqs = t._stein_os_input()
+fs.LAUNCHES = 0
+out["os"] = sharded_stein_os_peak(
+    needle, hay, freqs, t.FS,
+    make_mesh(time=2, device="cuda:0", collectives="gloo"))
+out["os_k1"] = fs.LAUNCHES
+needles, hays, freqs = t._batch_input()
+fs.LAUNCHES = 0
+got = sharded_batched_stein_peak(
+    needles, hays, freqs, t.FS,
+    make_mesh(pair=2, device="cuda:0", collectives="gloo"))
+out["batch"] = [np.asarray(x).tolist() for x in got]
+out["batch_k1"] = fs.LAUNCHES
+print("RANK " + json.dumps(out))
+dist.destroy_process_group()
+'''
+
+
+def test_parallel_two_gloo_ranks_on_one_card(card, tmp_path):
+    """Two ranks on ``cuda:0`` with gloo collectives (NCCL takes one rank
+    a card): the time- and pair-sharded K1 engines equal the single-device
+    engines on both ranks, and each rank launches K1."""
+    import json
+    import os
+    import sys
+
+    from caf_cookoff_tpu_torch import batched_stein_os_peak, batched_stein_peak
+    from caf_cookoff_tpu_torch.parallel import multihost
+
+    here = pathlib.Path(__file__).resolve().parent
+    worker = tmp_path / "rank.py"
+    worker.write_text(_RANK_WORKER)
+    env = dict(os.environ, PYTHONPATH=f"{here.parent}:"
+               f"{os.environ.get('PYTHONPATH', '')}")
+    outs = multihost.wait_local(multihost.launch_local(
+        [sys.executable, str(worker), str(here)], 2, env=env), 300.0)
+    needle, hay, freqs = _stein_os_input()
+    s = batched_stein_os_peak(needle[None], hay[None], freqs, FS,
+                              device="cuda")
+    want_os = [float(s[0][0]), int(s[1][0]), float(s[2][0])]
+    needles, hays, freqs = _batch_input()
+    want_b = batched_stein_peak(needles, hays, freqs, FS, device="cuda")
+    for rank, (rc, text) in enumerate(outs):
+        assert rc == 0, text[-3000:]
+        res = json.loads([ln for ln in text.splitlines()
+                          if ln.startswith("RANK ")][0][5:])
+        assert res["os"] == want_os, (rank, res["os"], want_os)
+        assert res["os_k1"] > 0 and res["batch_k1"] > 0
+        assert res["batch"][:2] == [want_b[0].tolist(), want_b[1].tolist()]
+        np.testing.assert_allclose(res["batch"][2], want_b[2], rtol=1e-5)

@@ -30,6 +30,10 @@ from caf_cookoff_tpu_torch.ops import fused_stein as tfs
 from caf_cookoff_tpu_torch.ops import peak as tpk
 from caf_cookoff_tpu_torch.utils.convert import stein_operands_from_numpy
 
+# Private fixture copies: the shared data/ may be rewritten by another
+# worker while this module reads it (see test_torch_fixtures.py).
+from test_torch_fixtures import chirp, fixture_pairs  # noqa: E402,F401
+
 torch.set_num_threads(1)
 
 FS = 48_000.0

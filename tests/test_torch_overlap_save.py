@@ -15,6 +15,10 @@ from caf_cookoff_tpu_torch.config import FreqGrid
 from caf_cookoff_tpu_torch.models import overlap_save as tos
 from caf_cookoff_tpu_torch.utils.io import load_c64
 
+# Private fixture copies: the shared data/ may be rewritten by another
+# worker while this module reads it (see test_torch_fixtures.py).
+from test_torch_fixtures import chirp, fixture_pairs  # noqa: E402,F401
+
 torch.set_num_threads(1)
 
 FS = 48_000.0

@@ -14,6 +14,10 @@ from caf_cookoff_tpu.utils import profiling as jprof
 from caf_cookoff_tpu_torch.utils import io as tio
 from caf_cookoff_tpu_torch.utils import profiling as tprof
 
+# Private fixture copies: the shared data/ may be rewritten by another
+# worker while this module reads it (see test_torch_fixtures.py).
+from test_torch_fixtures import chirp, fixture_pairs  # noqa: E402,F401
+
 torch.set_num_threads(1)
 
 REPORTS = [

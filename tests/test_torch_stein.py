@@ -18,6 +18,10 @@ from caf_cookoff_tpu_torch.models import batched_stein as tbs
 from caf_cookoff_tpu_torch.models import filterbank as tfb
 from caf_cookoff_tpu_torch.models import stein as tstein
 
+# Private fixture copies: the shared data/ may be rewritten by another
+# worker while this module reads it (see test_torch_fixtures.py).
+from test_torch_fixtures import chirp, fixture_pairs  # noqa: E402,F401
+
 torch.set_num_threads(1)
 
 FS = 48_000.0
