@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -62,6 +63,17 @@ class FreqGrid:
         step_mhz = int(self.step_hz * 1000.0)
         mhz = start_mhz + step_mhz * np.arange(self.num_bins, dtype=np.int64)
         return (mhz.astype(np.float64) / 1e3).astype(dtype)
+
+    def padded(self, multiple: int) -> Tuple["FreqGrid", int]:
+        """Extend the grid upward so ``num_bins`` is a multiple of
+        ``multiple``: the padded grid and the number of valid (original)
+        bins.  The padding bins search real frequencies above the stop."""
+        n = self.num_bins
+        target = -(-n // multiple) * multiple
+        if target == n:
+            return self, n
+        new_stop = self.start_hz + self.step_hz * target
+        return FreqGrid(self.start_hz, new_stop, self.step_hz), n
 
 
 # The benchmark grid: 400 bins, -100..+100 Hz step 0.5.

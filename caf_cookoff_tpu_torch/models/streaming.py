@@ -236,9 +236,11 @@ class StreamingCAF:
     ``2*exclude_lag``); three or more same-bin emitters in one window
     exceed the two slots, which the cuFFT stream's lattice does not.
 
-    K1 refuses needle/grid shapes whose 2B rows pass its shared memory
-    (e.g. a 4096-sample needle on a +-1000 Hz grid at 48 kHz, 2B = 1024):
-    a Stein stream raises ``VmemBudgetError`` here, at construction.
+    The stream does not band its grid, so its one K1 program holds 2B =
+    2*N_pad/D rows: a 4096-sample needle on a +-1000 Hz grid at 48 kHz
+    gives D = 8 and 2B = 1024, which K1 shares over a cluster of 2
+    blocks a lag tile.  Past K1's ceiling (9984 rows at D <= 128) a Stein
+    stream raises ``VmemBudgetError`` here, at construction.
     """
 
     def __init__(self, needle, freqs_hz, sample_rate, *,

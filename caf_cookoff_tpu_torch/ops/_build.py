@@ -112,8 +112,12 @@ def load_library() -> ctypes.CDLL:
     for fn in (lib.caf_fused_stein_lag_tile, lib.caf_fused_stein_bin_pass):
         fn.argtypes = []
         fn.restype = ci
-    lib.caf_fused_stein_smem_bytes.argtypes = [ci, ci]
-    lib.caf_fused_stein_smem_bytes.restype = ctypes.c_longlong
+    # 2B, D, out: blocks a lag tile, G rows a block
+    lib.caf_fused_stein_plan.argtypes = [ci, ci, vp, vp]
+    lib.caf_fused_stein_plan.restype = ctypes.c_longlong
+    # 2B, D, out: blocks a SM, clusters the card holds at once
+    lib.caf_fused_stein_occupancy.argtypes = [ci, ci, vp, vp]
+    lib.caf_fused_stein_occupancy.restype = ci
     # needle, n, h_k, tw, rates, k, m, c, outputs..., stream
     lib.caf_filterbank_peak.argtypes = [vp, ci, vp, vp, vp, ci, ci, ci, vp,
                                         vp, vp]

@@ -32,13 +32,17 @@ bounds each program's lags.
   past ``sep``, where the TPU kernel's tile merge guarantees only past
   ``2*sep``.
 * ``LAUNCHES`` counts kernel launches, so a run can show that its main
-  path went through the kernel.
+  path went through the kernel; ``SPLIT_LAUNCHES`` those among them
+  whose G rows were shared over a cluster of blocks (2B past one
+  block's shared memory, :func:`kernel_plan`).
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -59,6 +63,10 @@ BIN_PASS = 64     # bins a kernel block ranks per pass (csrc kBinPass)
 # of 16 rows; 2 covers both with room.
 BOUND_C = 2.0
 _SMEM_PER_BLOCK = 232_448  # bytes of shared memory one Hopper block may use
+CLUSTER_MAX = 16  # blocks a lag tile may share G's rows over (csrc kClusterMax)
+# The split's exchange (csrc kXchgBytes): a bin pass's partial (Rr, Ri),
+# 64 bins x 64 lag pairs as float4s, each bin's row padded by 4.
+_XCHG_BYTES = 16 * BIN_PASS * (LAG_TILE // 2 + 4)
 _GRID_YZ_MAX = 65_535
 # Programs per step of the plain version: bounds its (programs, K, lags)
 # intermediates.
@@ -69,6 +77,7 @@ _BOUND_CHUNK = 4
 _BIG_IDX = 2 ** 30  # "no lag" in the top-2 argmins
 
 LAUNCHES = 0
+SPLIT_LAUNCHES = 0
 
 
 def fused_span(num_blocks: int, sup: int, num_lags: int) -> int:
@@ -471,33 +480,89 @@ def fused_stein_rank(ws1, ws2, lmat, h_ext, num_blocks: int, sup: int,
     return vals, idxs
 
 
-def _tile_smem_bytes(b2: int, sup: int) -> int:
+def _tile_smem_bytes(rows: int, sup: int, split: bool = False) -> int:
     """Dynamic shared memory of the kernel's tile block (csrc
-    ``TileSmem``): the bf16 G tile, ``LAG_TILE`` lags x (2B padded to
-    16, + 8) rows, and two stage-A buffers, each the skewed haystack
-    window of 8 segments in both planes and their 8 x 2 tap rows, f32."""
-    b2p = -(-b2 // 16) * 16
+    ``TileSmem``): the bf16 G tile, ``LAG_TILE`` lags x (its rows padded
+    to 16, + 8), and two stage-A buffers, each the skewed haystack window
+    of 8 segments in both planes and their 8 x 2 tap rows, f32; with
+    ``split`` the exchange overlays the buffers, so the larger counts."""
+    rows_p = -(-rows // 16) * 16
     last = 8 * sup + LAG_TILE - 2
     hay = -(-(last + (last >> 2) + 1) // 4) * 4
-    return LAG_TILE * (b2p + 8) * 2 + 2 * (2 * hay + 32 * sup) * 4
+    stage_a = 2 * (2 * hay + 32 * sup) * 4
+    return LAG_TILE * (rows_p + 8) * 2 + (max(stage_a, _XCHG_BYTES) if split
+                                          else stage_a)
 
 
-def check_kernel_shape(b2: int, sup: int) -> int:
-    """Raise the typed error of a (2B rows, block length) shape the
-    kernel refuses — ``EligibilityError`` for a block length not a
-    multiple of 4, ``VmemBudgetError`` when its G tile and stage-A
-    buffers pass a block's shared memory (2B past 864 rows at D <= 16,
-    784 at D = 64); returns the tile block's shared-memory bytes."""
+class KernelPlan(NamedTuple):
+    """How K1 shares a lag tile's G rows (csrc ``row_plan``): ``cluster``
+    blocks a tile (a thread-block cluster when more than 1), each holding
+    ``rows`` rows of G (its ``seg`` segments' two rows each, padded to
+    16), in ``smem`` bytes of shared memory a block."""
+
+    cluster: int
+    rows: int
+    smem: int
+    seg: int
+
+
+def kernel_plan(b2: int, sup: int):
+    """The fewest blocks a lag tile whose G rows, stage-A buffers (and,
+    split, the exchange) fit a block's shared memory: a
+    :class:`KernelPlan`, or None past ``CLUSTER_MAX`` blocks."""
+    b = b2 // 2
+    smem = _tile_smem_bytes(b2, sup)
+    if smem <= _SMEM_PER_BLOCK:
+        return KernelPlan(1, -(-b2 // 16) * 16, smem, b)
+    for c in range(2, CLUSTER_MAX + 1):
+        seg = -(-b // c)
+        smem = _tile_smem_bytes(2 * seg, sup, split=True)
+        if smem <= _SMEM_PER_BLOCK:
+            return KernelPlan(c, -(-2 * seg // 16) * 16, smem, seg)
+    return None
+
+
+def row_ceiling(sup: int) -> int:
+    """The most rows 2B the kernel takes at block length ``sup``: each of
+    ``CLUSTER_MAX`` blocks holding the most segments that fit."""
+    seg = 0
+    while _tile_smem_bytes(2 * (seg + 1), sup, split=True) <= _SMEM_PER_BLOCK:
+        seg += 1
+    return 2 * CLUSTER_MAX * seg
+
+
+def check_kernel_shape(b2: int, sup: int) -> KernelPlan:
+    """The kernel's plan for a (2B rows, block length) shape
+    (:func:`kernel_plan`), or the typed error of a shape it refuses —
+    ``EligibilityError`` for a block length not a multiple of 4,
+    ``VmemBudgetError`` past :func:`row_ceiling` (16 blocks' shared
+    memory)."""
     if sup % 4:
         raise EligibilityError(f"fused Stein kernel: block_len {sup} is not "
                                "a multiple of 4")
-    smem = _tile_smem_bytes(b2, sup)
-    if smem > _SMEM_PER_BLOCK:
+    plan = kernel_plan(b2, sup)
+    if plan is None:
         raise VmemBudgetError(
-            f"fused Stein kernel: 2B = {b2} rows and block_len {sup} need "
-            f"{smem} B of shared memory per block, past the card's "
-            f"{_SMEM_PER_BLOCK} B; use the unfused path")
-    return smem
+            f"fused Stein kernel: 2B = {b2} rows at block_len {sup} pass its "
+            f"ceiling of {row_ceiling(sup)} rows (G's rows shared over "
+            f"{CLUSTER_MAX} blocks' shared memory); use fused=False")
+    return plan
+
+
+def kernel_occupancy(b2: int, sup: int) -> dict:
+    """The tile launch's residency on the current card (needs the
+    kernel library and a card): blocks a SM and, when G's rows are split,
+    the clusters the card holds at once (``cudaOccupancyMaxActiveClusters``;
+    -1 for one block a tile)."""
+    from caf_cookoff_tpu_torch.ops import _build
+
+    blocks, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    rc = _build.load_library().caf_fused_stein_occupancy(
+        b2, sup, ctypes.byref(blocks), ctypes.byref(clusters))
+    if rc != 0:
+        raise RuntimeError(f"fused Stein occupancy query failed ({rc})")
+    return {"blocks_per_sm": blocks.value, "max_active_clusters":
+            clusters.value}
 
 
 @functools.lru_cache(maxsize=None)
@@ -507,7 +572,8 @@ def _sm_count(device: torch.device) -> int:
 
 def _bins_per_split(k: int, tiles: int, sms: int) -> int:
     """Bins per block (a multiple of ``BIN_PASS``): all of them unless
-    programs x lag tiles leave SMs idle, then the fewest splits that
+    the blocks of programs x lag tiles (``tiles``, a tile's cluster
+    counted block by block) leave SMs idle, then the fewest splits that
     give every SM a block — each split repeats stage A for its tile."""
     passes = -(-k // BIN_PASS)
     splits = min(passes, max(1, -(-sms // tiles)))
@@ -517,33 +583,39 @@ def _bins_per_split(k: int, tiles: int, sms: int) -> int:
 def _launch(ws1, ws2, lmat, h_ext, num_blocks, sup, num_lags, windows,
             share_h, num_valid, sep):
     """Launch the kernel; ``sep`` is None without the top-2 mode."""
-    global LAUNCHES
+    global LAUNCHES, SPLIT_LAUNCHES
     from caf_cookoff_tpu_torch.ops import _build
 
     b2 = lmat.shape[1]
     p_eff = lmat.shape[0] * windows
     k = ws1.shape[0]
-    smem = check_kernel_shape(b2, sup)
+    plan = check_kernel_shape(b2, sup)
     m_pad = -(-num_lags // LAG_TILE) * LAG_TILE
     h_len = h_ext.shape[-1]
     if h_len < (num_blocks - 1) * sup + m_pad + sup - 1:
         raise ValueError(f"h_ext length {h_len} too short for the kernel")
     lib = _build.load_library()
+    c_cluster, c_rows = ctypes.c_int(0), ctypes.c_int(0)
+    c_smem = lib.caf_fused_stein_plan(b2, sup, ctypes.byref(c_cluster),
+                                      ctypes.byref(c_rows))
     if (lib.caf_fused_stein_lag_tile(), lib.caf_fused_stein_bin_pass(),
-            lib.caf_fused_stein_smem_bytes(b2, sup)) != (LAG_TILE, BIN_PASS,
-                                                         smem):
-        raise RuntimeError("csrc tile shape disagrees with the wrapper's")
+            c_cluster.value, c_rows.value, c_smem) != (
+                LAG_TILE, BIN_PASS, plan.cluster, plan.rows, plan.smem):
+        raise RuntimeError("csrc tile plan disagrees with the wrapper's")
     dev = ws1.device
     f32 = torch.float32
     ws1, ws2, lmat, h = (t.to(f32).contiguous()
                          for t in (ws1, ws2, lmat, h_ext))
-    # The kernel's first launch writes the operands' bf16 roundings here.
-    ws_b = torch.empty((2, k, b2), dtype=torch.bfloat16, device=dev)
+    # The kernel's first launch writes the operands' bf16 roundings here,
+    # the weights' columns in the ranks' row order when G is split.
+    ld = b2 if plan.cluster == 1 else plan.cluster * plan.rows
+    ws_b = torch.empty((2, k, ld), dtype=torch.bfloat16, device=dev)
     lmat_r, h_r = torch.empty_like(lmat), torch.empty_like(h)
     n_tiles = m_pad // LAG_TILE
-    # The program axis (grid z) goes out in chunks of 65535 programs.
-    per_split = _bins_per_split(k, min(p_eff, _GRID_YZ_MAX) * n_tiles,
-                                _sm_count(dev))
+    # The program axis (grid z) goes out in chunks of 65535 programs; a
+    # lag tile takes plan.cluster blocks.
+    per_split = _bins_per_split(
+        k, min(p_eff, _GRID_YZ_MAX) * n_tiles * plan.cluster, _sm_count(dev))
     keys = torch.empty((k, p_eff), dtype=torch.int64, device=dev)
     part_val = part_lag = None
     if sep is not None:
@@ -574,4 +646,6 @@ def _launch(ws1, ws2, lmat, h_ext, num_blocks, sup, num_lags, windows,
         raise RuntimeError(f"fused Stein kernel launch failed: "
                            f"{lib.caf_cuda_error_string(rc).decode()}")
     LAUNCHES += 1
+    if plan.cluster > 1:
+        SPLIT_LAUNCHES += 1
     return tuple(outs)

@@ -37,6 +37,14 @@ def find_peak_2d(surface: torch.Tensor) -> CafPeak:
                    lag_idx=(flat_idx % m).to(torch.int32))
 
 
+def surface_peak(rows_complex: torch.Tensor) -> CafPeak:
+    """|.|^2 and the global argmax over complex xcor rows -> (value, k,
+    tau), as :func:`find_peak_2d` on the magnitude-squared surface."""
+    mag2 = (rows_complex.real * rows_complex.real
+            + rows_complex.imag * rows_complex.imag)
+    return find_peak_2d(mag2)
+
+
 def grid_frequency(freq_idx: torch.Tensor,
                    freqs_hz: torch.Tensor) -> torch.Tensor:
     """Look up the physical frequency of a doppler-bin index."""

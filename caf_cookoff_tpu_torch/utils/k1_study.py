@@ -1,9 +1,11 @@
-"""Two studies of K1 (``csrc/fused_stein.cu``) on a CUDA card, each run
-on copies of the package in a temporary directory, from the root of a
-checkout (they reuse ``chip_smoke.py``'s recipes and checks):
+"""Three studies of K1 (``csrc/fused_stein.cu``) on a CUDA card, from
+the root of a checkout (they reuse ``chip_smoke.py``'s recipes and
+checks; the first two run on copies of the package in a temporary
+directory):
 
     python -m caf_cookoff_tpu_torch.utils.k1_study mutants [NAME ...]
     python -m caf_cookoff_tpu_torch.utils.k1_study split [NAME=FILE.cu ...]
+    python -m caf_cookoff_tpu_torch.utils.k1_study compare OTHER_CHECKOUT
 
 ``mutants``: each mutant is the package with one edit to
 ``fused_stein.cu``; ``chip_smoke.py`` and the K1 card tests run on it
@@ -11,7 +13,13 @@ and must fail (the first failed check is printed, logs go to
 ``chiprun_out/``).  ``split``: K1's device time (``torch.profiler``) at
 configs 2 and 4 and rate3's shapes as it is, with stage B skipped and
 with stage A skipped, and for each extra ``NAME=FILE.cu`` source, which
-is also held to ``rank_bound_check`` at configs 2 and 4.
+is also held to ``rank_bound_check`` at configs 2 and 4.  ``compare``:
+K1's wrapper ms (CUDA-event medians) and device ms (``torch.profiler``)
+at config 1's, config 2's and a stream3 chunk's shapes, and config 1's
+whole ``caf_peak(backend="stein")`` call, in OTHER_CHECKOUT and in this
+one in turns (other, this, this, other), each in a process of its own
+that imports that checkout's package and ``chip_smoke.py`` (each builds
+its own kernels under its own ``build/``).
 """
 
 from __future__ import annotations
@@ -34,29 +42,31 @@ _MMA = """      mma_bf16(acc[nt], a0, a1, a2, a3,
                *reinterpret_cast<const unsigned*>(gr),
                *reinterpret_cast<const unsigned*>(gr + 8));"""
 _KLOOP = "  for (int k0 = 0; k0 < b2p; k0 += 16) {\n    const unsigned a0"
-_RECOMPUTE = """    tile_product(ws1, ws2, num_bins, b2, kb8, gs, lay.g_stride, acc);
-    const int k = kb8 + g;
-    const int lo = k < k_hi"""
-_FMA_LOOP = """    {
-      const int kk = kb8 + g;
-      for (int nt = 0; nt < kNTiles; ++nt)
-        acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-      for (int r = 0; r < b2; ++r) {
-        const float w1 = kk < num_bins
-            ? __bfloat162float(ws1[static_cast<size_t>(kk) * b2 + r]) : 0.f;
-        const float w2 = kk < num_bins
-            ? __bfloat162float(ws2[static_cast<size_t>(kk) * b2 + r]) : 0.f;
-        for (int nt = 0; nt < kNTiles; ++nt)
-          for (int q = 0; q < 2; ++q) {
-            const float gv = __bfloat162float(
-                gs[(nt * 8 + 2 * t + q) * lay.g_stride + r]);
-            acc[nt][q] = fmaf(w1, gv, acc[nt][q]);
-            acc[nt][2 + q] = fmaf(w2, gv, acc[nt][2 + q]);
+_RECOMPUTE = """        const int k = kb8 + g;
+        const int lo = k < k_hi"""
+_FMA_LOOP = """        {
+          const int kk = kb8 + g;
+          for (int nt = 0; nt < kNTiles; ++nt)
+            acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+          for (int r = 0; r < b2; ++r) {
+            const float w1v = kk < num_bins
+                ? __bfloat162float(w1[static_cast<size_t>(kk) * sh.ld + r])
+                : 0.f;
+            const float w2v = kk < num_bins
+                ? __bfloat162float(w2[static_cast<size_t>(kk) * sh.ld + r])
+                : 0.f;
+            for (int nt = 0; nt < kNTiles; ++nt)
+              for (int q = 0; q < 2; ++q) {
+                const float gv = __bfloat162float(
+                    gs[(nt * 8 + 2 * t + q) * lay.g_stride + r]);
+                acc[nt][q] = fmaf(w1v, gv, acc[nt][q]);
+                acc[nt][2 + q] = fmaf(w2v, gv, acc[nt][2 + q]);
+              }
           }
-      }
-    }
-    const int k = kb8 + g;
-    const int lo = k < k_hi"""
+        }
+""" + _RECOMPUTE
+_CLOSE = """  for (int r = 1; r < c; ++r) {
+    const float4* xr"""
 
 MUTANTS = {
     # stage A: the imaginary plane's tap summed before the real plane's
@@ -75,18 +85,23 @@ MUTANTS = {
     const unsigned a0"""),
     # top-2 recompute: an f32 FMA loop over the rows in order
     "M4_recompute_fma_loop": (_RECOMPUTE, _FMA_LOOP),
+    # row split: the last rank's partials left out of every sum
+    "M5_split_rank_dropped": (_CLOSE, """  for (int r = 1; r < c - 1; ++r) {
+    const float4* xr"""),
 }
 
-_TILE_A = """  build_g_tile(lmat, h, p, num_blocks, sup, h_len, windows, share_h, tau0,
-               lay, gs, bufs);
+_TILE_A = """  build_g_tile<kSplit>(lmat, h, p, num_blocks, seg0, nseg, sup, h_len,
+                       windows, share_h, tau0, lay, gs, bufs);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;"""
 SPLITS = {
     "full": None,
     "stage_a_only": (_TILE_A, _TILE_A + "\n  if (num_bins > 0) return;"),
     "stage_b_only": (_TILE_A, _TILE_A.replace(
-        "  build_g_tile(lmat, h, p, num_blocks, sup, h_len, windows, "
-        "share_h, tau0,\n               lay, gs, bufs);", "  (void)bufs;")),
+        "  build_g_tile<kSplit>(lmat, h, p, num_blocks, seg0, nseg, sup, "
+        "h_len,\n                       windows, share_h, tau0, lay, gs, "
+        "bufs);",
+        "  (void)bufs;")),
 }
 
 _SPLIT_CODE = """
@@ -109,6 +124,57 @@ for n, (ops, b, sup, m, modes, _) in shapes.items():
         chk = f" bound ok={{r['ok']}} ratio={{r['ratio']:.3e}}"
     print(f"{name:14s} {{n}}: device {{ms:.4f}} ms{{chk}}", flush=True)
 """
+
+
+_COMPARE_CODE = """
+import sys
+sys.path.insert(0, ".")
+import numpy as np
+import torch
+import chip_smoke as cs
+from caf_cookoff_tpu_torch import BENCH_GRID, caf_peak
+from caf_cookoff_tpu_torch.ops import fused_stein as fs
+from caf_cookoff_tpu_torch.utils.generate import ensure_fixtures
+torch.backends.cuda.matmul.allow_tf32 = False
+n0, h0 = cs.load_pair(ensure_fixtures(cs.ROOT / "data"), 0)
+head = cs.headline_operands(n0, h0, "cuda")
+cfgs = cs.config_inputs()
+c2 = cs.config_operands(cfgs["config2"])
+sin = cs.stream_inputs(cfgs["config3"])
+s, _ = cs.stream_through(sin[1][:cs.STREAM_CHUNK], sin[0], sin[3],
+                         backend="stein")
+ops3, b3, sup3, m3, nv3 = cs.stream_k1_operands(s, sin[1], 0)
+shapes = {{
+    "config1": lambda: fs.fused_stein_rank(*head[0], *head[1:],
+                                           want_idxs=False),
+    "config2": lambda: fs.fused_stein_rank(*c2[0], *c2[1:4], want_idxs=False,
+                                           **c2[4]),
+    "stream3": lambda: fs.fused_stein_rank(*ops3, b3, sup3, m3,
+                                           num_valid=nv3),
+}}
+for n, fn in shapes.items():
+    ms = cs.cuda_median_ms(fn, 100 if n == "config1" else 20)
+    dev = cs.device_ms(fn)
+    print(f"[k1cmp {label}] {{n}} K1 wrapper {{ms:.4f}} ms, device "
+          f"{{dev:.4f}} ms", flush=True)
+freqs = BENCH_GRID.frequencies(np.float32)
+call = cs.cuda_median_ms(lambda: caf_peak(n0, h0, freqs, cs.FS,
+                                          backend="stein", device="cuda"), 50)
+print(f"[k1cmp {label}] config1 caf_peak stein whole call {{call:.4f}} ms",
+      flush=True)
+"""
+
+
+def compare(root: Path, other: Path) -> None:
+    other = other.resolve()
+    for which in (other, root, root, other):
+        label = "this" if which == root else "other"
+        rc, out, sec = _run([sys.executable, "-c", _COMPARE_CODE.format(
+            label=label)], which, 900)
+        print("\n".join(ln for ln in out.splitlines()
+                        if ln.startswith("[k1cmp")) if rc == 0 else
+              f"k1_study compare in {which} failed ({rc}):\n{out[-2000:]}",
+              flush=True)
 
 
 def _copy(root: Path, dst: Path, edit) -> None:
@@ -184,13 +250,17 @@ def split(root: Path, extra) -> None:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if not argv or argv[0] not in ("mutants", "split"):
+    if not argv or argv[0] not in ("mutants", "split", "compare") or (
+            argv[0] == "compare" and len(argv) != 2):
         print(__doc__)
         return 2
     root = Path.cwd()
     if not (root / "chip_smoke.py").exists():
         raise SystemExit("k1_study: run it from the root of a checkout")
-    (mutants if argv[0] == "mutants" else split)(root, argv[1:])
+    if argv[0] == "compare":
+        compare(root, Path(argv[1]))
+    else:
+        (mutants if argv[0] == "mutants" else split)(root, argv[1:])
     return 0
 
 

@@ -89,7 +89,16 @@ Phases, each reported on its own line:
    ``overlap_save_peaks``; K1's launch count, set to 0 before each Stein
    path, one a chunk; the last chunk's K1 launch held to its bound, with
    ``num_valid`` and with top-2; the CLI ``stream`` verb on chirp_0.
-12. parallel — ``parallel/`` on the card.  A world of one rank on NCCL
+12. rows   — K1 past one block's shared memory, G's rows shared over a
+   thread-block cluster a lag tile: random operands at 2B = 1024, 1536
+   and 1872 (D = 8; clusters of 2, 3 and 3) in modes (a), (b), (c+d),
+   (e) and (f), each held to its bound and counted as a split launch;
+   wide1000, chirp_0 through ``caf_peak(backend="stein")`` over -1000 ...
+   +995 Hz step 5 (D = 8, 2B = 1024), equal to ``backend="xla"``'s
+   (freq, lag), one split K1 launch; config 3's capture through a
+   +-1000 Hz (step 1) Stein stream, one split K1 launch a chunk, equal to
+   the cuFFT stream's answer and the truth.
+13. parallel — ``parallel/`` on the card.  A world of one rank on NCCL
    (a 1 x 1 x 1 mesh) in this process runs the four engines with K1 in
    each shard at their full cells — ``sharded_batched_stein_peak`` at
    config 2, ``sharded_stein_os_peak`` at config 3,
@@ -108,10 +117,10 @@ Phases, each reported on its own line:
    to the single-device answers, each rank's K1 count rising; a rank
    that exits non-zero fails the run.  Its wall time is that of ranks
    sharing one card, not a scaling number.
-13. K4     — the epilogue microbenchmark (``utils/roofline``) against its
+14. K4     — the epilogue microbenchmark (``utils/roofline``) against its
    plain version bit for bit, then ``roofline.measure`` (its launch
    count, set to 0 before, must rise).
-14. times  — CUDA-event medians, after warm-up, of each kernel's wrapper,
+15. times  — CUDA-event medians, after warm-up, of each kernel's wrapper,
    its plain version and its library yardstick at the main path's
    shape (K1's: stage B alone as one bf16 ``torch.matmul``, at every K1
    shape; K1's device time from ``torch.profiler`` too), of K1 at each
@@ -123,7 +132,9 @@ Phases, each reported on its own line:
    tier's K = 8, K2's device time at one full wave of bins, K2/K3's
    blocks a SM, cluster size and waves at 400 x 8192, K1 at stream3's
    chunk shape, one ``process`` call a chunk (and its device time and
-   device operations), whole streams and their samples a second, whole
+   device operations), whole streams and their samples a second, K1 at
+   2B = 1024, 1536 and 1872 (K = 400, 8192 lags: wrapper, device time,
+   plain, bound, library), the wide1000 call and the +-1000 Hz stream, whole
    ``caf_peak``, config, lattice, rate-engine, refine and
    ``stein_overlap_save_peak`` calls and the cuFFT yardsticks (host
    included), each printed beside the card's name and power limit.
@@ -1895,6 +1906,171 @@ def phase_stream_times(sin, card):
             "samples_per_s": rate}
 
 
+# [rows]: K1 past one block's shared memory (2B > 864 at D = 8).
+WIDE_GRID = (-1000.0, 1000.0, 5.0)    # wide1000: 400 bins, D = 8, 2B = 1024
+ROW_SHAPES = (1024, 1536, 1872)       # 2B of the random operands, D = 8
+
+
+def row_operands(b2, mode, seed):
+    """Random K1 operands at 2B = ``b2`` rows, D = 8, for one mode: (a)
+    one pair, K = 400, 8192 lags (the [times] shape); (b) two pairs, (c+d)
+    2 bands x 2 windows with the last window's lags cut to 1500, (e) two
+    pairs, (f) 3 rates x 64 rate-major rows with (c+d), each at 100 bins
+    (or 192 rows) and 2048 lags.  Returns (ops, b, sup, m, modes)."""
+    import torch
+
+    from caf_cookoff_tpu_torch.models.batched_stein import (
+        _needle_operator, _os_window_extensions)
+    from caf_cookoff_tpu_torch.ops import fused_stein as fs
+
+    rng = np.random.default_rng(seed)
+    d, n = 8, b2 // 2 * 8
+    b = n // d
+    m = 8192 if mode == "a" else 2048
+    p, s, w = {"b": (2, 1, 1), "e": (2, 1, 1), "c+d": (1, 2, 2),
+               "f": (1, 2, 2)}.get(mode, (1, 1, 1))
+
+    def plane(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(DEVICE)
+
+    lmat, sup = _needle_operator(plane((p * s, n)), plane((p * s, n)), d)
+    h = plane((p, w * m + n)), plane((p, w * m + n))
+    h_ext = _os_window_extensions(*h, m, w, fs.fused_span(b, sup, m))
+    if mode == "f":
+        rel = torch.linspace(-100.0, 100.0, 64, device=DEVICE)
+        ws = fs.stein_rate_synthesis_weights(
+            rel, np.array([-200.0, 0.0, 200.0], np.float32), FS, b, d)
+    else:
+        ws = fs.stein_synthesis_weights(
+            torch.linspace(-1000.0, 1000.0, 400 if mode == "a" else 100,
+                           device=DEVICE), FS, b, d)
+    modes = {}
+    if w > 1:
+        nv = torch.tensor([m] * (w - 1) + [1500], dtype=torch.int32,
+                          device=DEVICE).repeat(p * s)
+        modes = {"windows": w, "share_h": s, "num_valid": nv}
+    return (*ws, lmat, h_ext), b, sup, m, modes
+
+
+def phase_rows(pairs, cfg3):
+    """K1 past one block's shared memory, G's rows shared over a cluster
+    of blocks a lag tile: random operands at 2B = 1024, 1536 and 1872 in
+    modes (a), (b), (c+d), (e) and (f), each held to its bound with its
+    launch counted as split; ``caf_peak(backend="stein")`` on chirp_0 over
+    the +-1000 Hz step-5 grid (wide1000: D = 8, 2B = 1024) equal to
+    ``backend="xla"``'s (freq, lag); the +-1000 Hz (step 1) Stein stream
+    over config 3's capture, one split K1 launch a chunk, equal to the
+    cuFFT stream's answer and the truth.  Returns (launches of the two
+    main paths, max abs err, the wide inputs)."""
+    from caf_cookoff_tpu_torch import FreqGrid, caf_peak
+    from caf_cookoff_tpu_torch.ops import fused_stein as fs
+
+    err = 0.0
+    for b2 in ROW_SHAPES + (fs.row_ceiling(8),):
+        plan = fs.check_kernel_shape(b2, 8)
+        occ = fs.kernel_occupancy(b2, 8)
+        print(f"[rows] 2B = {b2}, D = 8: {plan.cluster} blocks a lag tile, "
+              f"{plan.rows} rows and {plan.smem} B of shared memory a block; "
+              f"{occ['blocks_per_sm']} block(s) a SM, "
+              f"{occ['max_active_clusters']} clusters at once")
+        check(plan.cluster >= 2 and occ["max_active_clusters"] >= 1,
+              f"2B = {b2}: no cluster of {plan.cluster} fits the card")
+    for b2 in ROW_SHAPES:
+        plan = fs.check_kernel_shape(b2, 8)
+        for mode in ("a", "b", "c+d", "e", "f"):
+            ops, b, sup, m, modes = row_operands(b2, mode, b2)
+            sep = 5 if mode == "e" else None
+            fs.SPLIT_LAUNCHES = 0
+            got = fs.fused_stein_rank(*ops, b, sup, m,
+                                      want_top2=sep is not None,
+                                      sep=sep or 0, **modes)
+            check(fs.SPLIT_LAUNCHES == 1, f"2B = {b2} ({mode}) did not "
+                                          f"launch split")
+            err = max(err, bound_check(f"K1 ({mode}) 2B={b2} c={plan.cluster}",
+                                       got, ops, b, sup, m, sep, **modes))
+    needle, hay = load_pair(pairs, 0)
+    freqs = FreqGrid(*WIDE_GRID).frequencies(np.float32)
+    fs.LAUNCHES = fs.SPLIT_LAUNCHES = 0
+    got = caf_peak(needle, hay, freqs, FS, backend="stein", device=DEVICE)
+    launches, split = fs.LAUNCHES, fs.SPLIT_LAUNCHES
+    want = caf_peak(needle, hay, freqs, FS, backend="xla", device=DEVICE)
+    print(f"[rows] wide1000 chirp_0 over {WIDE_GRID} Hz: stein {got[0]:+.3f}"
+          f" Hz, lag {got[1]}, value {got[2]:.6g}, K1 launches {launches} "
+          f"({split} split); xla {want[0]:+.3f} Hz, lag {want[1]}, value "
+          f"{want[2]:.6g}")
+    check(launches == 1 and split == 1, "wide1000 did not launch K1 split")
+    check(got[:2] == want[:2], "wide1000 stein off xla's (freq, lag)")
+    check(abs(got[2] / want[2] - 1.0) <= 1e-4, "wide1000 exact value")
+    needles, hays, _, _, truths = cfg3
+    wide = np.linspace(-1000, 1000, 2000, endpoint=False).astype(np.float32)
+    chunks = -(-hays.shape[-1] // STREAM_CHUNK)
+    fs.LAUNCHES = fs.SPLIT_LAUNCHES = 0
+    s, _ = stream_through(hays[0], needles[0], wide, backend="stein")
+    best = s.best()
+    s_launches, s_split = fs.LAUNCHES, fs.SPLIT_LAUNCHES
+    c, _ = stream_through(hays[0], needles[0], wide)
+    cbest = c.best()
+    print(f"[rows] stream3 at +-1000 Hz (2000 bins, 2B = "
+          f"{s._lmat.shape[1]}, D = {s._group}): Stein stream {best}, K1 "
+          f"launches {s_launches} ({s_split} split); cuFFT stream {cbest}; "
+          f"want {truths[0]}")
+    check(s_launches == s_split == chunks, "the +-1000 Hz Stein stream did "
+                                           "not launch split K1 once a chunk")
+    check(best[:2] == cbest[:2] == truths[0], "+-1000 Hz stream answer")
+    check(abs(best[2] / cbest[2] - 1.0) <= 1e-4, "+-1000 Hz stream value")
+    return launches + s_launches, err, (needle, hay, freqs, wide,
+                                        needles[0], hays[0])
+
+
+def phase_rows_times(rin, card):
+    """K1 at 2B = 1024, 1536 and 1872 (D = 8, K = 400, 8192 lags, P = 1):
+    wrapper and device ms, the plain version, bound and library
+    yardstick; the wide1000 ``caf_peak`` call and the +-1000 Hz Stein
+    stream, whole."""
+    from caf_cookoff_tpu_torch import caf_peak
+    from caf_cookoff_tpu_torch.ops import fused_stein as fs
+
+    needle, hay, freqs, wide, needle3, capture = rin
+    rows = {}
+    for b2 in ROW_SHAPES:
+        ops, b, sup, m, _ = row_operands(b2, "a", b2)
+        plan = fs.check_kernel_shape(b2, sup)
+        fn = (lambda ops=ops, b=b, sup=sup, m=m: fs.fused_stein_rank(
+            *ops, b, sup, m, want_idxs=False))
+        k1, dev = cuda_median_ms(fn, 20, 3), device_ms(fn)
+        plain = cuda_median_ms(lambda: surface_plain(
+            ops, b, sup, m).max(dim=-1), 3, 1)
+        bound, by, gflop = stein_bound_ms(ops, m)
+        library = stage_b_matmul_ms(ops, m)
+        shape = f"K=400 2B={b2} D=8 P=1 lags={m}, c={plan.cluster}"
+        rows[str(b2)] = {"shape": shape, "cluster": plan.cluster,
+                         "rows_a_block": plan.rows, "smem": plan.smem,
+                         "ms": k1, "device_ms": dev, "plain_ms": plain,
+                         "bound_ms": bound, "bound_by": by, "gflop": gflop,
+                         "library_ms": library}
+        for what, ms in ((f"K1 fused_stein_rank wrapper, {shape}", k1),
+                         (f"K1 device time a call (torch.profiler), 2B={b2}",
+                          dev),
+                         (f"K1 plain version, 2B={b2}", plain),
+                         (f"K1 bound ({by}, {gflop:.1f} GFLOP), 2B={b2}",
+                          bound),
+                         (f"K1 library yardstick: stage B alone as one bf16 "
+                          f"torch.matmul, 2B={b2}", library)):
+            print(f"[times] {what}: {ms:.4f} ms  [{card}]")
+    call = cuda_median_ms(lambda: caf_peak(
+        needle, hay, freqs, FS, backend="stein", device=DEVICE), 20, 3)
+    stream = cuda_median_ms(lambda: stream_through(
+        capture, needle3, wide, backend="stein")[0].best(), 5, 1)
+    print(f"[times] wide1000 caf_peak stein whole call (host included): "
+          f"{call:.4f} ms  [{card}]")
+    print(f"[times] stream3 at +-1000 Hz, whole Stein stream (build, "
+          f"chunks, best()): {stream:.4f} ms  [{card}]")
+    rows["wide1000_call_ms"] = call
+    rows["stream_wide_ms"] = stream
+    return rows
+
+
 def config5_inputs():
     """Config 5 of ``bench_configs.py`` (``config5_virtual``'s recipe,
     copied): 8 pairs x 1024, 16384 lags, 64 bins over +-100 Hz, one
@@ -2272,6 +2448,7 @@ def main() -> int:
     refine_inputs = phase_refine(pairs)
     sin = stream_inputs(cfgs["config3"])
     stream_launches, err_stream = phase_stream(sin)
+    rows_launches, err_rows, rin = phase_rows(pairs, cfgs["config3"])
     par_launches, par = phase_parallel(cfgs, lcfgs, rcfgs, card)
     k4, k4_launches, err4 = phase_kernel_k4()
     t = phase_times(head, fb_head, inputs, card)
@@ -2284,6 +2461,8 @@ def main() -> int:
     rates["max_abs_err"] = err_rate
     stream = phase_stream_times(sin, card)
     stream.update(launches=stream_launches, max_abs_err=err_stream)
+    rows = phase_rows_times(rin, card)
+    rows.update(launches=rows_launches, max_abs_err=err_rows)
     import torch
 
     from caf_cookoff_tpu_torch.ops import fused_stein as fs
@@ -2316,7 +2495,7 @@ def main() -> int:
         "launches": (launches1 + sum(config_launches.values())
                      + sum(lattice_launches.values())
                      + sum(rate_launches.values()) + stream_launches
-                     + sum(par_launches.values())),
+                     + rows_launches + sum(par_launches.values())),
         "max_abs_err": err1,
         "ms": t["k1"], "plain_ms": t["k1_plain"],
         "bound_ms": bound1, "bound_by": by1, "library_ms": t["k1_matmul"],
@@ -2328,16 +2507,20 @@ def main() -> int:
                  "num_valid, (c+d), (e) want_top2 with (b) and (c+d), "
                  "(f) rate-major synthesis rows with (c+d) and (c+d+e); "
                  "P = 1 with num_valid and with (e) once a chunk in the "
-                 "stream",
+                 "stream; past 864 rows (D = 8) G's rows shared over a "
+                 "cluster of 2-16 blocks a lag tile, in every mode",
         "launches_by_path": {"stein goldens": launches1,
                              **config_launches, **lattice_launches,
                              **rate_launches, "stream3": stream_launches,
+                             "wide1000 and the +-1000 Hz stream":
+                                 rows_launches,
                              **par_launches},
         "max_abs_err_modes_config3": err_modes,
         "configs": configs,
         "top2": lattices,
         "rate": rates,
         "stream": stream,
+        "rows": rows,
         "parallel": par,
     }, {
         "name": "caf_peak_rows", "route": "cuda",

@@ -177,3 +177,34 @@ def test_chip_smoke_and_new_modules_import_no_jax():
              for f in PORT_DIR.rglob("*.py")}
     assert {"models/streaming.py", "utils/profiling.py", "utils/pulses.py",
             "utils/native.py"} <= names
+
+
+@pytest.mark.parametrize("sub", ["models", "ops", "utils"])
+def test_subpackage_names_match_jax(sub):
+    """Each subpackage re-exports the JAX package's names: the same
+    ``__all__``, and each name the port's function or class, not a
+    submodule (``caf_cookoff_tpu_torch.ops.xcor`` is the function, as in
+    JAX)."""
+    import importlib
+    import types
+
+    jmod = importlib.import_module(f"caf_cookoff_tpu.{sub}")
+    tmod = importlib.import_module(f"caf_cookoff_tpu_torch.{sub}")
+    assert tmod.__all__ == jmod.__all__
+    for name in tmod.__all__:
+        obj = getattr(tmod, name)
+        assert not isinstance(obj, types.ModuleType), name
+        assert obj.__module__.startswith("caf_cookoff_tpu_torch."), name
+        assert callable(obj), name
+
+
+@pytest.mark.parametrize("start,stop,step", GRIDS)
+@pytest.mark.parametrize("multiple", [1, 8, 16, 48])
+def test_freq_grid_padded_matches_jax(start, stop, step, multiple):
+    jg, jn = jcfg.FreqGrid(start, stop, step).padded(multiple)
+    tg, tn = tcfg.FreqGrid(start, stop, step).padded(multiple)
+    assert tn == jn and tg.num_bins == jg.num_bins
+    assert tg.num_bins % multiple == 0
+    assert caf_config_from_jax(jg) == tg
+    np.testing.assert_array_equal(tg.frequencies(np.float32),
+                                  jg.frequencies(np.float32))

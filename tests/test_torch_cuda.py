@@ -686,6 +686,131 @@ def test_top2_programs_past_one_launch_on_card(card):
                       b, sup, v, 3)
 
 
+# Needle lengths at D = 8 whose 2B rows K1 shares over a cluster of c
+# blocks a lag tile: 2B = 1024, 2048 and 4608.
+SPLIT_NEEDLE = {2: 4096, 4: 8192, 8: 18432}
+
+
+@pytest.mark.parametrize("mode", ["a", "b", "c+d", "e", "f"])
+@pytest.mark.parametrize("c", [2, 4, 8])
+def test_kernel_row_split_matches_plain_on_card(card, c, mode):
+    """K1 with G's rows shared over a cluster of c blocks a lag tile, in
+    modes (a) one pair, (b) three pairs, (c+d) 2 bands x 2 windows with
+    num_valid, (e) top-2 over two pairs and (f) rate-major rows (3 rates
+    x 40 bins, with (c+d)): every slot within the error bound of
+    ``rank_bound_check``, 70 bins (a last pass of 6) where not (f)."""
+    n, d, v = SPLIT_NEEDLE[c], 8, 1024
+    assert fs.check_kernel_shape(2 * (n // d), d).cluster == c
+    p, s, w = {"b": (3, 1, 1), "e": (2, 1, 1), "c+d": (1, 2, 2),
+               "f": (1, 2, 2)}.get(mode, (1, 1, 1))
+    ops, b, sup, nv = _modes_operands(np.random.default_rng(30 + c), p, s,
+                                      w, n, d, 70, v)
+    if mode == "f":
+        rel = torch.linspace(-100.0, 100.0, 40, device="cuda")
+        rates = np.array([-200.0, 0.0, 200.0], np.float32)
+        ops = (*fs.stein_rate_synthesis_weights(rel, rates, FS, b, d),
+               *ops[2:])
+    modes = dict(windows=w, share_h=s, num_valid=nv if w > 1 else None)
+    sep = 5 if mode == "e" else None
+    before = fs.LAUNCHES
+    got = fs.fused_stein_rank(*ops, b, sup, v, want_top2=sep is not None,
+                              sep=sep or 0, **modes)
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES == before + 1
+    assert got[0].shape == (ops[0].shape[0], p * s * w)
+    _assert_bound(got, ops, b, sup, v, sep, **modes)
+
+
+def test_kernel_row_split_at_the_ceiling_on_card(card):
+    """The most rows the kernel takes at D = 8 (``row_ceiling``): a
+    cluster of 16 blocks a lag tile, which the card can hold, within the
+    error bound."""
+    d = 8
+    b2 = fs.row_ceiling(d)
+    assert fs.check_kernel_shape(b2, d).cluster == fs.CLUSTER_MAX
+    assert fs.kernel_occupancy(b2, d)["max_active_clusters"] >= 1
+    ops, b, sup, _ = _modes_operands(np.random.default_rng(40), 1, 1, 1,
+                                     b2 // 2 * d, d, 24, 512)
+    got = fs.fused_stein_rank(*ops, b, sup, 512)
+    _assert_bound(got, ops, b, sup, 512)
+    with pytest.raises(VmemBudgetError, match="fused=False"):
+        fs.fused_stein_rank(*_modes_operands(
+            np.random.default_rng(41), 1, 1, 1, (b2 // 2 + 1) * d, d, 8,
+            512)[0], b2 // 2 + 1, sup, 512)
+
+
+@pytest.mark.parametrize("n", [4096, 8192])
+def test_kernel_row_split_tie_break_on_card(card, n):
+    """Two bit-identical needle copies at lags 100 and n + 304 tie
+    exactly with G's rows shared over 2 and 4 blocks a tile (each lag's
+    sum spans every rank's rows): the lowest lag wins in every bin."""
+    rng = np.random.default_rng(13)
+    d, k = 8, 17
+    far = n + 304
+    m = far + n
+    needle = (rng.standard_normal(n)
+              + 1j * rng.standard_normal(n)).astype(np.complex64)
+    hay = np.zeros((1, far + n), np.complex64)
+    hay[0, 100:100 + n] = needle
+    hay[0, far:far + n] = needle
+    freqs = np.linspace(-2, 2, k).astype(np.float32)
+    ops, b, sup = _operands(needle[None], hay, freqs, m, d)
+    assert fs.check_kernel_shape(2 * b, d).cluster == n // 2048
+    kv, ki = fs.fused_stein_rank(*ops, b, sup, m)
+    assert ki[:, 0].tolist() == [100] * k
+    _assert_bound((kv, ki), ops, b, sup, m)
+
+
+@pytest.mark.parametrize("strong,tied,partner", [(1000, 5300, 10000),
+                                                 (9000, 4740, 300)])
+def test_top2_row_split_tie_across_a_recomputed_tile_on_card(
+        card, strong, tied, partner):
+    """``test_top2_tie_across_a_recomputed_tile_on_card`` with G's 1024
+    rows shared over 2 blocks a tile (n = 4096, D = 8, sep 4250): the
+    recompute sums the ranks' partials in the tile pass's order, so the
+    tied pair still ties exactly and the lower lag is slot 2."""
+    from caf_cookoff_tpu_torch.models.batched_stein import (
+        _os_window_extensions)
+
+    rng = np.random.default_rng(22)
+    n, d, k, v, sep = 4096, 8, 64, 16384, 4250
+    needle = (rng.standard_normal(n)
+              + 1j * rng.standard_normal(n)).astype(np.complex64)
+    hay = np.zeros(v + n, np.complex64)
+    for lag, amp in ((strong, 2.0), (tied, 1.0), (partner, 1.0)):
+        hay[lag:lag + n] = amp * needle
+    nt = torch.from_numpy(needle).cuda()[None]
+    ht = torch.from_numpy(hay).cuda()[None]
+    b = n // d
+    lmat, sup = _needle_operator(nt.real, nt.imag, d)
+    h_ext = _os_window_extensions(ht.real, ht.imag, v, 1,
+                                  fs.fused_span(b, sup, v))
+    ws1, ws2 = fs.stein_synthesis_weights(
+        torch.linspace(-2.0, 2.0, k, device="cuda"), FS, b, d)
+    ops = (ws1, ws2, lmat, h_ext)
+    assert fs.check_kernel_shape(2 * b, d).cluster == 2
+    got = fs.fused_stein_rank(*ops, b, sup, v, want_top2=True, sep=sep)
+    assert got[1].unique().tolist() == [strong]
+    assert got[3].unique().tolist() == [min(tied, partner)]
+    _assert_bound(got, ops, b, sup, v, sep)
+
+
+def test_stein_peak_wide_doppler_grid_on_card(card):
+    """``caf_peak(backend="stein")`` on chirp_0 over -1000...+995 Hz step
+    5 (D = 8, 2B = 1024: K1 at 2 blocks a tile) gives the cuFFT
+    filterbank's (freq, lag), one K1 launch."""
+    pairs = ensure_fixtures(DATA)
+    needle = load_c64(pairs[0][0])
+    hay = load_c64(pairs[0][1], count=len(needle))
+    freqs = FreqGrid(-1000.0, 1000.0, 5.0).frequencies(np.float32)
+    before = fs.LAUNCHES
+    got = caf_peak(needle, hay, freqs, FS, backend="stein", device="cuda")
+    assert fs.LAUNCHES == before + 1
+    want = caf_peak(needle, hay, freqs, FS, backend="xla", device="cuda")
+    assert got[:2] == want[:2] == (70.0, 202)
+    assert got[2] == pytest.approx(want[2], rel=1e-4)
+
+
 def test_lattice_engines_on_card(card):
     """The fused lattices on the card, each one K1 launch: the
     long-capture lattice equals the cuFFT lattice scan on three emitters,

@@ -403,10 +403,12 @@ def test_rank_bound_check_flags_wrong_answers():
 
 
 def test_tile_shape_mirrors_the_kernel():
-    """The wrapper's shared-memory and bin-split arithmetic (csrc
-    ``TileSmem``, ``kBinPass``): a config-1 shape splits its 400 bins so
-    every SM gets a block, a config-2 shape takes every bin in one
-    block, and 2B past the card's shared memory is refused up front."""
+    """The wrapper's shared-memory, row-split and bin-split arithmetic
+    (csrc ``TileSmem``, ``row_plan``, ``kBinPass``): a config-1 shape
+    splits its 400 bins so every SM gets a block, a config-2 shape takes
+    every bin in one block; 2B past one block's shared memory shares
+    G's rows over a cluster (c = 1 up to 864 rows at D <= 16, at least 2
+    at 1024), and 2B past 16 blocks is refused up front."""
     assert tfs._tile_smem_bytes(128, 64) == 128 * 136 * 2 + 2 * (
         2 * 800 + 32 * 64) * 4
     assert tfs._tile_smem_bytes(64, 128) <= tfs._SMEM_PER_BLOCK
@@ -414,6 +416,68 @@ def test_tile_shape_mirrors_the_kernel():
     assert tfs._bins_per_split(400, 64, 132) == 192
     assert tfs._bins_per_split(400, 64 * 64, 132) == 448
     assert tfs._bins_per_split(2754, 56 * 64, 132) == 2754 + 62
+    # 2B = 1024 at D = 8: two blocks a tile, 256 segments (512 rows) each.
+    assert tfs._bins_per_split(400, 64 * 2, 132) == 256
+    for d in (8, 16):
+        for b2 in (2, 128, 512, 864):
+            plan = tfs.check_kernel_shape(b2, d)
+            assert plan.cluster == 1 and plan.rows == -(-b2 // 16) * 16
+            assert plan.smem == tfs._tile_smem_bytes(b2, d)
+        plan = tfs.check_kernel_shape(1024, d)
+        assert plan.cluster >= 2 and plan.smem <= tfs._SMEM_PER_BLOCK
+        assert plan.cluster * plan.seg >= 512 and plan.rows == 2 * plan.seg
+    assert tfs.check_kernel_shape(1024, 8) == (2, 512, 202_752, 256)
+    assert tfs.check_kernel_shape(1536, 8).cluster == 3
+    assert tfs.check_kernel_shape(1872, 8).cluster == 3
+    assert tfs.check_kernel_shape(4608, 8).cluster == 8
+    top = tfs.row_ceiling(8)
+    assert tfs.check_kernel_shape(top, 8).cluster == tfs.CLUSTER_MAX
+    with pytest.raises(tfs.VmemBudgetError, match=f"ceiling of {top} rows"):
+        tfs.check_kernel_shape(top + 2, 8)
+    with pytest.raises(tfs.EligibilityError, match="multiple of 4"):
+        tfs.check_kernel_shape(1024, 6)
+
+
+def _jax_vmem_ok(b2, d, lags, k, want_idxs):
+    """Whether JAX's ``_vmem_demand`` grants one program of
+    ``fused_stein_rank`` at these shapes, called with the arguments that
+    ``fused_stein_rank`` passes it (P = 1, ``a_chunks`` 4)."""
+    span = jps.fused_span(b2 // 2, d, lags, 4)
+    try:
+        jps._vmem_demand(b2, span, d, min(jps._SEED_ROWS, d),
+                         -(-lags // jps.FUSED_TILE) * jps.FUSED_TILE,
+                         -(-k // jps.ROW_PAD) * jps.ROW_PAD, 1, 4, want_idxs)
+    except jps.VmemBudgetError:
+        return False
+    return True
+
+
+@pytest.mark.parametrize("top2", [False, True])
+@pytest.mark.parametrize("k", [8, 400, 2000])
+@pytest.mark.parametrize("lags", [1024, 4096, 8192, 16384])
+@pytest.mark.parametrize("d", [8, 16, 32, 64, 128])
+def test_kernel_plan_takes_every_shape_jax_grants(d, lags, k, top2):
+    """Wherever JAX's VMEM model grants K1 (``want_idxs`` on and off
+    without top-2; top-2 forces it on), the port's plan takes the shape:
+    a cluster of at most 16 blocks, each within a block's shared memory.
+    Checked at the largest 2B JAX grants, found by bisection (the model
+    grows with 2B), and at every 2B on a 16-row lattice below it."""
+    modes = (True,) if top2 else (False, True)
+    for want_idxs in modes:
+        lo, hi = 1, 8192                         # segments B
+        assert _jax_vmem_ok(2 * lo, d, lags, k, want_idxs)
+        assert not _jax_vmem_ok(2 * hi, d, lags, k, want_idxs)
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            if _jax_vmem_ok(2 * mid, d, lags, k, want_idxs):
+                lo = mid
+            else:
+                hi = mid
+        for b2 in list(range(16, 2 * lo, 16)) + [2 * lo]:
+            plan = tfs.check_kernel_shape(b2, d)
+            assert 1 <= plan.cluster <= tfs.CLUSTER_MAX
+            assert plan.smem <= tfs._SMEM_PER_BLOCK
+            assert plan.cluster * plan.seg >= b2 // 2
 
 
 def test_k1_study_edits_find_their_sites():
@@ -426,7 +490,7 @@ def test_k1_study_edits_find_their_sites():
            / "fused_stein.cu").read_text()
     edits = list(k1_study.MUTANTS.values()) + [
         e for e in k1_study.SPLITS.values() if e is not None]
-    assert len(edits) == 6
+    assert len(edits) == 7
     for old, new in edits:
         assert src.count(old) == 1
         assert src.replace(old, new) != src

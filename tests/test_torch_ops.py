@@ -12,10 +12,10 @@ from caf_cookoff_tpu.ops import peak as jpeak
 from caf_cookoff_tpu.ops import shift as jshift
 from caf_cookoff_tpu_torch.ops import peak as tpeak
 from caf_cookoff_tpu_torch.ops import shift as tshift
-from caf_cookoff_tpu_torch.ops import xcor as txcor
 
-# caf_cookoff_tpu.ops re-exports a function named xcor over the module.
+# Both packages' ops re-export a function named xcor over the module.
 jxcor = importlib.import_module("caf_cookoff_tpu.ops.xcor")
+txcor = importlib.import_module("caf_cookoff_tpu_torch.ops.xcor")
 
 torch.set_num_threads(1)
 
@@ -100,6 +100,22 @@ def test_find_peak_2d_tie_break_lowest_flat_index():
         (int(jp.freq_idx), int(jp.lag_idx), float(jp.value))
     batched = tpeak.find_peak_2d(torch.from_numpy(np.stack([surf, surf])))
     assert batched.freq_idx.tolist() == [2, 2]
+
+
+def test_surface_peak_matches_jax():
+    """|.|^2 and the global argmax of complex rows: the same (k, tau) as
+    JAX's, the value within f32 rounding; an exact tie planted across
+    rows goes to the lowest flat index in both."""
+    rng = np.random.default_rng(2)
+    rows = (rng.standard_normal((7, 256))
+            + 1j * rng.standard_normal((7, 256))).astype(np.complex64)
+    rows[5, 17] = rows[3, 200] = 9.0 + 9.0j
+    tp = tpeak.surface_peak(torch.from_numpy(rows))
+    jp = jpeak.surface_peak(jnp.asarray(rows))
+    assert (int(tp.freq_idx), int(tp.lag_idx)) == (3, 200)
+    assert (int(tp.freq_idx), int(tp.lag_idx)) == (int(jp.freq_idx),
+                                                   int(jp.lag_idx))
+    assert float(tp.value) == pytest.approx(float(jp.value), rel=1e-6)
 
 
 def test_lag_helpers_match_jax():

@@ -17,6 +17,7 @@ from caf_cookoff_tpu_torch.errors import EligibilityError, SpanError
 from caf_cookoff_tpu_torch.models import batched_stein as tbs
 from caf_cookoff_tpu_torch.models import filterbank as tfb
 from caf_cookoff_tpu_torch.models import stein as tstein
+from caf_cookoff_tpu_torch.ops import fused_stein as tfs
 
 # Private fixture copies: the shared data/ may be rewritten by another
 # worker while this module reads it (see test_torch_fixtures.py).
@@ -342,3 +343,30 @@ def test_segment_spectra_conj_matches_jax():
                                atol=1e-4)
     np.testing.assert_allclose(got.imag.numpy(), np.asarray(wi), rtol=1e-4,
                                atol=1e-4)
+
+
+@pytest.mark.parametrize("idx", [0, 3, 9])
+def test_stein_peak_wide_doppler_grid_matches_jax(chirp, monkeypatch, idx):
+    """``stein_caf_peak`` on the -1000...+995 Hz step-5 grid (400 bins)
+    gives JAX's (freq, lag) and the filterbank's, value within rtol 1e-4.
+    The grid sets D = 8, so the fused rank holds 2B = 1024 rows: past one
+    block's shared memory, K1's plan shares them over a cluster of 2
+    blocks a lag tile (on the CPU its plain version runs)."""
+    needle, haystack, _ = chirp(idx)
+    freqs = FreqGrid(-1000.0, 1000.0, 5.0).frequencies(np.float32)
+    shapes = []
+    rank = tstein.fused_stein_rank
+
+    def spy(ws1, ws2, lmat, h_ext, b, sup, *args, **kw):
+        shapes.append((lmat.shape[1], sup))
+        return rank(ws1, ws2, lmat, h_ext, b, sup, *args, **kw)
+
+    monkeypatch.setattr(tstein, "fused_stein_rank", spy)
+    got = tstein.stein_caf_peak(needle, haystack, freqs, FS, device="cpu")
+    want = jstein.stein_caf_peak(needle, haystack, freqs, FS)
+    fb = tfb.caf_peak(needle, haystack, freqs, FS, backend="xla",
+                      device="cpu")
+    assert shapes == [(1024, 8)]
+    assert tfs.check_kernel_shape(1024, 8).cluster == 2
+    assert got[:2] == want[:2] == fb[:2]
+    assert got[2] == pytest.approx(want[2], rel=1e-4)

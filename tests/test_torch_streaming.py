@@ -16,8 +16,11 @@ import numpy as np
 import pytest
 import torch
 
+from caf_cookoff_tpu.models.stein import \
+    stein_overlap_save_peak as jax_stein_os_peak
 from caf_cookoff_tpu.models.streaming import StreamingCAF as JaxStream
 from caf_cookoff_tpu_torch import StreamingCAF, VmemBudgetError
+from caf_cookoff_tpu_torch.ops.fused_stein import check_kernel_shape
 from caf_cookoff_tpu_torch.models.overlap_save import overlap_save_peak
 
 torch.set_num_threads(1)
@@ -199,18 +202,33 @@ def test_stream_errors_match_jax():
 
 def test_stein_stream_refuses_k1_rows_at_construction():
     """A 4096-sample needle on a +-1000 Hz grid at 48 kHz gives D = 8, so
-    2B = 1024 rows: past K1's shared memory, the port's Stein stream
-    raises VmemBudgetError when it is built (on the CPU too, so the
-    refusal does not wait for the card), where JAX's runs.  The cuFFT
-    stream takes the shape."""
+    2B = 1024 rows, past one block's shared memory: K1 shares them over
+    a cluster of 2 blocks a lag tile, and the port's Stein stream now
+    takes the shape that JAX's takes.  Over a short capture (two 4096-
+    sample chunks, an emitter at 355 Hz and lag 1500) its ``best()`` is
+    JAX's ``stein_overlap_save_peak`` on the same capture ((freq, lag)
+    identical, value rtol 1e-4; JAX's own Stein stream interprets its
+    Pallas kernel for ~50 s here) and the port's cuFFT stream's.  Only
+    past K1's ceiling does construction still raise VmemBudgetError."""
     needle = _noise_needle(4096, seed=1)
-    freqs = np.arange(-1000.0, 1000.0, 10.0, dtype=np.float32)
-    with pytest.raises(VmemBudgetError, match="2B = 1024"):
-        StreamingCAF(needle, freqs, FS, backend="stein", device="cpu")
-    JaxStream(needle, freqs, FS, backend="stein")
-    StreamingCAF(needle, freqs, FS, device="cpu")
-    # +-500 Hz (config 3's grid): D = 16, 2B = 512, inside the kernel.
+    freqs = np.arange(-1000.0, 1000.0, 5.0, dtype=np.float32)
+    capture = _capture(needle, [(float(freqs[271]), 1500, 1.0)], 8192)
+    stein = StreamingCAF(needle, freqs, FS, backend="stein", device="cpu")
+    assert stein._lmat.shape[1] == 1024 and stein._group == 8
+    assert check_kernel_shape(1024, 8).cluster == 2
+    _, best = _stream(stein, capture, _tiles(8192, 4096))
+    want = jax_stein_os_peak(needle, capture, freqs, FS)
+    cufft = StreamingCAF(needle, freqs, FS, device="cpu")
+    _, cbest = _stream(cufft, capture, _tiles(8192, 4096))
+    assert best[:2] == want[:2] == cbest[:2] == (float(freqs[271]), 1500)
+    assert best[2] == pytest.approx(want[2], rel=1e-4)
+    assert best[2] == pytest.approx(cbest[2], rel=1e-4)
+    # +-500 Hz (config 3's grid): D = 16, 2B = 512, one block a tile.
     StreamingCAF(needle, freqs / 2, FS, backend="stein", device="cpu")
+    # Past the ceiling: 2B = 2 * 5120 rows at D = 8.
+    with pytest.raises(VmemBudgetError, match="2B = 10240"):
+        StreamingCAF(_noise_needle(40960, seed=2), freqs, FS,
+                     backend="stein", device="cpu")
 
 
 def test_stream_needs_a_card_unless_asked(monkeypatch):
