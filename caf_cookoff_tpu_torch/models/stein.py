@@ -8,8 +8,8 @@
   the haystack).
 * Stage B — doppler synthesis ``R = W @ G``.
 
-The main path (:func:`stein_caf_peak`, ``fused`` on wherever eligible)
-runs both stages and the per-bin rank in the fused kernel
+The main path (:func:`stein_caf_peak`, ``fused`` on the card wherever
+eligible) runs both stages and the per-bin rank in the fused kernel
 (``ops/fused_stein``), then re-scores the top candidate bins with exact
 filterbank rows, which restores bin-exact answers.  ``fused=False``
 runs the FFT stage A and a matmul synthesis instead.  Spans past the
@@ -329,9 +329,11 @@ def stein_caf_peak(needle, haystack, freqs_hz, sample_rate, *,
 
     ``refine=True`` (default) re-scores the top candidate bins with the
     exact filterbank rows.  ``fused=None`` selects the fused coarse-rank
-    kernel wherever the shape is eligible (a pow2 block length >= 8 and
-    a 512-multiple correlation length), on every device: on CUDA
-    tensors it launches the kernel, on CPU tensors its plain version.
+    kernel where the shape is eligible (a pow2 block length >= 8 and a
+    512-multiple correlation length) and the tensors are not on the
+    CPU, as the JAX package takes it only off the CPU.  On the CPU the
+    coarse rank is the f32 segmented rows; ``fused=True`` runs the
+    kernel's plain version there, with the kernel's bf16 roundings.
     Every FFT ``backend`` name runs ``torch.fft``.
 
     Doppler spans past the single-segment envelope run the banded path
@@ -357,7 +359,7 @@ def stein_caf_peak(needle, haystack, freqs_hz, sample_rate, *,
     d_fused = floor_pow2(min(block_len, SUPER))
     eligible = refine and d_fused >= 8 and xl % 512 == 0
     if fused is None:
-        fused = eligible
+        fused = eligible and n.device.type != "cpu"
     if fused:
         if not eligible:
             raise EligibilityError(

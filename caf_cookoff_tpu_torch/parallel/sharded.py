@@ -242,6 +242,17 @@ def sharded_caf_peak(needle, haystack, freqs_hz, sample_rate, mesh: Mesh,
     The surface never materializes: each rank reduces its bin block
     (``pallas*`` backends through K2) and the triples meet in the
     ``MAX``/``MIN`` reduction over ``doppler``."""
+    local, freqs_p = _caf_peak_shard(needle, haystack, freqs_hz,
+                                     sample_rate, mesh, backend)
+    peak = global_peak(local, AXIS_DOPPLER, mesh=mesh)
+    return (float(freqs_p[int(peak.freq_idx)]), int(peak.lag_idx),
+            float(peak.value))
+
+
+def _caf_peak_shard(needle, haystack, freqs_hz, sample_rate, mesh: Mesh,
+                    backend):
+    """This rank's share of :func:`sharded_caf_peak`, no collective: (the
+    peak of its bins, global indices; the padded grid)."""
     from caf_cookoff_tpu_torch.ops.pallas_caf import pallas_caf_peak
 
     backend = _filterbank_backend(backend, pallas=True)
@@ -255,9 +266,7 @@ def sharded_caf_peak(needle, haystack, freqs_hz, sample_rate, mesh: Mesh,
                                 precision=tier or "high")
     else:
         local = find_peak_2d(mag2(_surface_rows(n, h, loc, fs, m)))
-    peak = global_peak(_offset(local, k0), AXIS_DOPPLER, mesh=mesh)
-    return (float(freqs_p[int(peak.freq_idx)]), int(peak.lag_idx),
-            float(peak.value))
+    return _offset(local, k0), freqs_p
 
 
 def sharded_stein_peak(needle, haystack, freqs_hz, sample_rate, mesh: Mesh,
@@ -316,16 +325,25 @@ def batched_caf_peak(needles, haystacks, freqs_hz, sample_rate, mesh: Mesh,
 
     Pairs are data-parallel over ``pair``, bins over ``doppler``; each
     pair's triples reduce over ``doppler``, then gather over ``pair``."""
+    local, freqs_p = _batched_caf_peak_shard(needles, haystacks, freqs_hz,
+                                             sample_rate, mesh, backend)
+    pk = CafPeak(*_gather_pairs(
+        mesh, *global_peak(local, AXIS_DOPPLER, mesh=mesh)))
+    return _host(freqs_p, pk)
+
+
+def _batched_caf_peak_shard(needles, haystacks, freqs_hz, sample_rate,
+                            mesh: Mesh, backend):
+    """This rank's share of :func:`batched_caf_peak`, no collective: (the
+    (B_loc,) peaks of its pairs over its bins, global bin indices; the
+    padded grid)."""
     _filterbank_backend(backend)
     ns, hs = _pair_batch(needles, haystacks, mesh, equal=True)
     _, freqs_p, loc, k0 = _doppler_grid(freqs_hz, mesh, _rdtype(ns))
     rows = _surface_rows(_shard(ns, mesh, AXIS_PAIR),
                          _shard(hs, mesh, AXIS_PAIR), loc,
                          float(sample_rate), xcor_length(ns.shape[-1]))
-    local = _offset(find_peak_2d(mag2(rows)), k0)            # (B_loc,)
-    pk = CafPeak(*_gather_pairs(
-        mesh, *global_peak(local, AXIS_DOPPLER, mesh=mesh)))
-    return _host(freqs_p, pk)
+    return _offset(find_peak_2d(mag2(rows)), k0), freqs_p
 
 
 def _fused_batch_grid(ns, freqs_hz, sample_rate, block_len: int):
@@ -448,6 +466,18 @@ def sharded_overlap_save_peak(needle, haystack, freqs_hz, sample_rate,
     """(freq_hz, lag, value) of a long capture sharded over ``time`` (and
     ``doppler``): each rank scans its lag chunk with its halo, and the
     triples reduce over ``(doppler, time)``."""
+    local, freqs_p = _os_peak_shard(needle, haystack, freqs_hz, sample_rate,
+                                    mesh, num_lags, backend)
+    peak = global_peak(local, _DT, mesh=mesh)
+    return (float(freqs_p[int(peak.freq_idx)]), int(peak.lag_idx),
+            float(peak.value))
+
+
+def _os_peak_shard(needle, haystack, freqs_hz, sample_rate, mesh: Mesh,
+                   num_lags, backend):
+    """This rank's share of :func:`sharded_overlap_save_peak`, no
+    collective: (the peak of its lag chunk and bins, global indices; the
+    padded grid)."""
     resolve_backend(backend)
     (n, _, total_lags, chunk, local, halo, offset, _, freqs_p, loc,
      k0) = _os_inputs(needle, haystack, freqs_hz, mesh, num_lags)
@@ -456,9 +486,7 @@ def sharded_overlap_save_peak(needle, haystack, freqs_hz, sample_rate,
     s_conj = needle_spectra_conj(n, loc, float(sample_rate), m)
     pk = streaming_peak_deferred_halo(s_conj, local, halo, nl, chunk, offset,
                                       total_lags, backend)
-    peak = global_peak(_offset(pk, k0), _DT, mesh=mesh)
-    return (float(freqs_p[int(peak.freq_idx)]), int(peak.lag_idx),
-            float(peak.value))
+    return _offset(pk, k0), freqs_p
 
 
 def _os_lattice(s_conj, local, halo, nl, chunk, offset, total_lags, p, ef,
@@ -556,20 +584,11 @@ def batched_overlap_save_peaks(needles, haystacks, freqs_hz, sample_rate,
     default to the first needle's resolution cell; each pair is
     thresholded against its own floor, summed over ``(doppler,
     time)``."""
-    resolve_backend(backend)
-    (ns, ns_l, total_lags, chunk, local, halo, offset, freqs, freqs_p, loc,
-     k0) = _batched_os_inputs(needles, haystacks, freqs_hz, mesh, num_lags)
-    fs = float(sample_rate)
-    nl = ns.shape[-1]
-    ef, el = resolve_exclusions(ns[0], freqs, fs, exclude_freq, exclude_lag)
-    m, _, _ = plan_blocks(nl, chunk)
-    s_conj = needle_spectra_conj(ns_l, loc, fs, m)
-    rows = k0 + torch.arange(len(loc), device=mesh.device)
     want_floor = with_snr or min_snr_db is not None
     p = int(num_peaks)
-    pk, floor = _os_lattice(s_conj, local, halo, nl, chunk, offset,
-                            total_lags, p, ef, el, rows < len(freqs),
-                            want_floor, k0)                   # (B_loc, P)
+    pk, floor, (freqs, freqs_p, total_lags, ef, el) = _batched_os_peaks_shard(
+        needles, haystacks, freqs_hz, sample_rate, mesh, p, num_lags,
+        exclude_freq, exclude_lag, backend, want_floor)
     lat = CafPeak(*_gather_pairs(
         mesh, *global_peaks_batched(pk, _DT, p, ef, el, mesh=mesh)))
     if not want_floor:
@@ -579,6 +598,29 @@ def batched_overlap_save_peaks(needles, haystacks, freqs_hz, sample_rate,
         for x in floor))
     return detection_rows(freqs_p, lat, mean_floor(fsum, fcnt),
                           total_lags * len(freqs), min_snr_db, with_snr)
+
+
+def _batched_os_peaks_shard(needles, haystacks, freqs_hz, sample_rate,
+                            mesh: Mesh, num_peaks: int, num_lags,
+                            exclude_freq, exclude_lag, backend,
+                            want_floor: bool = False):
+    """This rank's share of :func:`batched_overlap_save_peaks`, no
+    collective: its pairs' (B_loc, P) lattices over its lag chunk and
+    bins (global indices), its floor sums (or None), and (grid, padded
+    grid, total lags, exclusion windows)."""
+    resolve_backend(backend)
+    (ns, ns_l, total_lags, chunk, local, halo, offset, freqs, freqs_p, loc,
+     k0) = _batched_os_inputs(needles, haystacks, freqs_hz, mesh, num_lags)
+    fs = float(sample_rate)
+    nl = ns.shape[-1]
+    ef, el = resolve_exclusions(ns[0], freqs, fs, exclude_freq, exclude_lag)
+    m, _, _ = plan_blocks(nl, chunk)
+    s_conj = needle_spectra_conj(ns_l, loc, fs, m)
+    rows = k0 + torch.arange(len(loc), device=mesh.device)
+    pk, floor = _os_lattice(s_conj, local, halo, nl, chunk, offset,
+                            total_lags, int(num_peaks), ef, el,
+                            rows < len(freqs), want_floor, k0)
+    return pk, floor, (freqs, freqs_p, total_lags, ef, el)
 
 
 def estimate_hbm_per_chip(num_pairs: int, num_bins: int, needle_len: int,
@@ -953,6 +995,19 @@ def sharded_rate_overlap_save_peak(needle, haystack, freqs_hz,
     ``time``; every trial rate reuses the one halo slice, and the
     per-rank best (rate, value, freq, lag) reduces over all three axes
     (:func:`global_rate_peak`: earliest rate, then row-major)."""
+    quad, rates_p, freqs_p = _rate_os_peak_shard(
+        needle, haystack, freqs_hz, rates_hz_per_s, sample_rate, mesh,
+        num_lags, backend)
+    val, r_idx, f_idx, lag = global_rate_peak(*quad, _ALL, mesh=mesh)
+    return (float(rates_p[int(r_idx)]), float(freqs_p[int(f_idx)]),
+            int(lag), float(val))
+
+
+def _rate_os_peak_shard(needle, haystack, freqs_hz, rates_hz_per_s,
+                        sample_rate, mesh: Mesh, num_lags, backend):
+    """This rank's share of :func:`sharded_rate_overlap_save_peak`, no
+    collective: ((value, rate, freq, lag) of its best, global indices;
+    the padded rates; the padded grid)."""
     resolve_backend(backend)
     (n, total_lags, chunk, local, halo, offset, _, freqs_p, loc, k0, _,
      rates_p, r_base, local_rates) = _rate_os_inputs(
@@ -961,12 +1016,8 @@ def sharded_rate_overlap_save_peak(needle, haystack, freqs_hz,
     pk = CafPeak(*(torch.cat(f) for f in zip(*_rate_shard_scan(
         n, loc, local_rates, fs, chunk, local, halo, offset, total_lags))))
     i = int(torch.argmax(pk.value))          # first max: earliest rate
-    val, r_idx, f_idx, lag = global_rate_peak(
-        pk.value[i], torch.tensor(r_base + i, device=mesh.device),
-        pk.freq_idx[i] + k0,
-        pk.lag_idx[i], _ALL, mesh=mesh)
-    return (float(rates_p[int(r_idx)]), float(freqs_p[int(f_idx)]),
-            int(lag), float(val))
+    return ((pk.value[i], torch.tensor(r_base + i, device=mesh.device),
+             pk.freq_idx[i] + k0, pk.lag_idx[i]), rates_p, freqs_p)
 
 
 def sharded_rate_overlap_save_peaks(needle, haystack, freqs_hz,

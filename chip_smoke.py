@@ -138,6 +138,19 @@ Phases, each reported on its own line:
    ``caf_peak``, config, lattice, rate-engine, refine and
    ``stein_overlap_save_peak`` calls and the cuFFT yardsticks (host
    included), each printed beside the card's name and power limit.
+16. bench  — the port's benchmark (``python -m
+   caf_cookoff_tpu_torch.utils.bench_configs``) over every cell at full
+   width in 3 interleaved rounds: every cell's gate must pass, then one
+   ``[bench]`` line a (cell, engine) with its median, best and spread,
+   device time and host share.
+17. scaling — the scaling harness (``utils/bench_scaling``) at N = 1 on
+   NCCL in a child process, ``doppler`` and ``time``: gated and timed,
+   no efficiency (one card gives no scaling number).
+18. fault2 — partial-overlap workloads (the needle only partly reaches
+   the haystack) through ``caf_peak(backend="stein")`` on the card and
+   ``backend="xla"``, both (freq, lag) printed, not gated: K1 rounds its
+   weights to bf16 as the TPU kernel does, and on surfaces this flat the
+   coarse rank can miss.
 
 Then a JSON line describing each kernel (with its bound from this run's
 shapes), and as the last line ``{"ok": true, "device": {...}}``.  Any
@@ -634,58 +647,14 @@ def phase_long_needle():
           f"pallas surface disagrees with xla at M = {m}")
 
 
-def rand_pair(n, lag, f_hz, seed):
-    """``bench_configs.py``'s config-2 pair: noise needle, the haystack
-    its copy delayed by ``lag`` and shifted by ``f_hz``."""
-    rng = np.random.default_rng(seed)
-    needle = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(
-        np.complex64)
-    hay = np.zeros(n, dtype=np.complex64)
-    hay[lag:] = needle[: n - lag]
-    hay *= np.exp(2j * np.pi * f_hz * np.arange(n) / FS).astype(np.complex64)
-    return needle, hay
-
-
 def config_inputs():
-    """Configs 2-4 of ``bench_configs.py`` (its recipes, copied): name ->
-    (needles, haystacks, freqs, num_lags or None, truths or None)."""
-    from caf_cookoff_tpu_torch import BENCH_GRID
+    """Configs 2-4 of ``bench_configs.py`` from the port's benchmark's
+    builders (its recipes, copied byte for byte): name -> (needles,
+    haystacks, freqs, num_lags or None, truths or None)."""
+    from caf_cookoff_tpu_torch.utils import bench_configs as bc
 
-    # Config 2: 64 pairs x 4096, the 400-bin bench grid.
-    pairs = [rand_pair(4096, 50 + i, 10.0 * i - 300, i) for i in range(64)]
-    cfg = {"config2": (np.stack([p[0] for p in pairs]),
-                       np.stack([p[1] for p in pairs]),
-                       BENCH_GRID.frequencies(np.float32), None, None)}
-    # Config 3: one 4096 needle, 65536 lags, 2000 bins over +-500 Hz.
-    n, lags, k = 4096, 65536, 2000
-    needle, _ = rand_pair(n, 7, 0.0, 0)
-    rng = np.random.default_rng(1)
-    hay = (rng.standard_normal(lags + n)
-           + 1j * rng.standard_normal(lags + n)).astype(np.complex64)
-    freqs = np.linspace(-500, 500, k, endpoint=False).astype(np.float32)
-    true_f, true_lag = float(freqs[1234]), 30_000
-    hay[true_lag:true_lag + n] += 3 * (needle * np.exp(
-        2j * np.pi * true_f * np.arange(n) / FS)).astype(np.complex64)
-    cfg["config3"] = (needle[None], hay[None], freqs, lags,
-                      [(true_f, true_lag)])
-    # Config 4: 16 pairs x 4096, 32768 lags, 1024 bins over +-500 Hz.
-    pairs, n, lags, k = 16, 4096, 32768, 1024
-    rng = np.random.default_rng(2)
-    needles = (rng.standard_normal((pairs, n))
-               + 1j * rng.standard_normal((pairs, n))).astype(np.complex64)
-    hays = (1e-4 * (rng.standard_normal((pairs, lags + n))
-                    + 1j * rng.standard_normal((pairs, lags + n)))
-            ).astype(np.complex64)
-    freqs = np.linspace(-500, 500, k, endpoint=False).astype(np.float32)
-    t = np.arange(n)
-    truths = []
-    for b in range(pairs):
-        lag, f_hz = 777 + b * 2011, float(freqs[61 * (b + 1)])
-        hays[b, lag:lag + n] += (needles[b] * np.exp(
-            2j * np.pi * f_hz * t / FS)).astype(np.complex64)[: lags + n - lag]
-        truths.append((f_hz, lag))
-    cfg["config4"] = (needles, hays, freqs, lags, truths)
-    return cfg
+    return {"config2": bc.build_config2(), "config3": bc.build_config3(),
+            "config4": bc.build_config4()}
 
 
 def config_operands(cfg):
@@ -1274,52 +1243,14 @@ def phase_kernel_top2(lcfgs):
 
 
 def lattice_inputs():
-    """The two lattice workloads: name -> (needles, haystacks, freqs,
-    num_lags or None, per-pair [(freq, lag)] truths)."""
-    from caf_cookoff_tpu_torch import BENCH_GRID
+    """The two lattice workloads (the port's benchmark's builders):
+    lattice2, config 2's shape with two emitters a pair in bins 200
+    apart; lattice4, ``docs/bench_multi_emitter.py:65-87``.  Name ->
+    (needles, haystacks, freqs, num_lags or None, per-pair [(freq, lag)]
+    truths)."""
+    from caf_cookoff_tpu_torch.utils import bench_configs as bc
 
-    # Config 2's shape: 64 pairs x 4096 on the bench grid, two emitters a
-    # pair (each the needle delayed and shifted, as config 2's pairs), in
-    # bins 200 apart.
-    grid = BENCH_GRID.frequencies(np.float32)
-    rng = np.random.default_rng(3)
-    n, t = 4096, np.arange(4096)
-    needles = (rng.standard_normal((64, n))
-               + 1j * rng.standard_normal((64, n))).astype(np.complex64)
-    hays = (1e-4 * (rng.standard_normal((64, n))
-                    + 1j * rng.standard_normal((64, n)))).astype(np.complex64)
-    truths2 = []
-    for i in range(64):
-        es = [(50 + i, 20 + 5 * i, 1.0), (600 + 7 * i, (220 + 5 * i) % 400,
-                                          0.7)]
-        for lag, k, amp in es:
-            hays[i, lag:] += (amp * needles[i, :n - lag] * np.exp(
-                2j * np.pi * grid[k] * t[lag:] / FS)).astype(np.complex64)
-        truths2.append([(float(grid[k]), lag) for lag, k, _ in es])
-    cfg = {"lattice2": (needles, hays, grid, None, truths2)}
-    # Config 4 with several emitters: docs/bench_multi_emitter.py:65-87.
-    pairs, n, lags, k = 16, 4096, 32768, 1024
-    rng = np.random.default_rng(2)
-    needles = (rng.standard_normal((pairs, n))
-               + 1j * rng.standard_normal((pairs, n))).astype(np.complex64)
-    hays = (1e-4 * (rng.standard_normal((pairs, lags + n))
-                    + 1j * rng.standard_normal((pairs, lags + n)))
-            ).astype(np.complex64)
-    freqs = np.linspace(-500, 500, k, endpoint=False).astype(np.float32)
-    t = np.arange(n)
-    truths4 = []
-    for b in range(pairs):
-        rows = []
-        for lag, f_idx, amp in ((777 + b * 1813, 61 * (b + 1), 1.0),
-                                (17000 + b * 911, 997 - 53 * b, 0.7)):
-            f_hz = float(freqs[f_idx])
-            hays[b, lag:lag + n] += (amp * needles[b] * np.exp(
-                2j * np.pi * f_hz * t / FS)).astype(np.complex64)[
-                    : lags + n - lag]
-            rows.append((f_hz, lag))
-        truths4.append(rows)
-    cfg["lattice4"] = (needles, hays, freqs, lags, truths4)
-    return cfg
+    return {"lattice2": bc.build_lattice2(), "lattice4": bc.build_lattice4()}
 
 
 NUM_PEAKS = {"lattice2": 2, "lattice4": 3}
@@ -1474,38 +1405,24 @@ def phase_lattice_times(lcfgs, shapes, launches, card):
     return rows
 
 
-RATES = np.arange(-200.0, 201.0, 50.0, dtype=np.float32)   # R = 9
-
-
 def rate_inputs():
     """The rate workloads: rate3 (``docs/bench_rate.py:61-83``: config
     3's shape, 9 trial rates, one emitter at 150 Hz/s), ratelat3 (rate3
-    with a second, weaker emitter) and rate1 (``tests/test_rate.py:34-48``:
-    a 412.34 Hz/s sweep in a needle-length window).  Name -> (needle,
-    haystack, freqs, rates, [(rate, freq, lag)] truths)."""
-    n, lags, k = 4096, 65536, 2000
-    rng = np.random.default_rng(3)
-    needle = (rng.standard_normal(n)
-              + 1j * rng.standard_normal(n)).astype(np.complex64)
-    hay = (1e-4 * (rng.standard_normal(lags + n)
-                   + 1j * rng.standard_normal(lags + n))).astype(np.complex64)
-    freqs = np.linspace(-500, 500, k, endpoint=False).astype(np.float32)
-    t = np.arange(n)
+    with a second, weaker emitter), both from the port's benchmark's
+    builders, and rate1 (``tests/test_rate.py:34-48``: a 412.34 Hz/s
+    sweep in a needle-length window).  Name -> (needle, haystack, freqs,
+    rates, [(rate, freq, lag)] truths)."""
+    from caf_cookoff_tpu_torch.utils import bench_configs as bc
 
-    def add(h, f_hz, rate, lag, amp):
-        ph = 2 * np.pi * f_hz * t / FS + np.pi * rate * (t / FS) ** 2
-        h[lag:lag + n] += amp * (needle * np.exp(1j * ph)).astype(np.complex64)
-
-    e1 = (150.0, float(freqs[1234]), 30_000)
-    add(hay, e1[1], e1[0], e1[2], 3.0)
-    # The recipe searches 65536 lags of its lags + n samples: the last
-    # sample reaches no searched lag, so the captures end before it and
-    # the engines' default lag count is the recipe's.
-    hay = hay[:lags + n - 1]
-    cfg = {"rate3": (needle, hay.copy(), freqs, RATES, [e1])}
-    e2 = (-100.0, float(freqs[345]), 12_000)
-    add(hay, e2[1], e2[0], e2[2], 1.5)
-    cfg["ratelat3"] = (needle, hay, freqs, RATES, [e1, e2])
+    cfg = {}
+    for name, (needle, hay, freqs, rates, lags, truths) in (
+            bc.build_rate3().items()):
+        # The recipe searches ``lags`` lags of its lags + n samples: the
+        # last sample reaches no searched lag, so the captures end
+        # before it and the engines' default lag count is the recipe's.
+        cfg[name] = (needle, hay[:lags + len(needle) - 1], freqs, rates,
+                     truths)
+    n = 4096
     rng = np.random.default_rng(3)
     needle = (rng.standard_normal(n)
               + 1j * rng.standard_normal(n)).astype(np.complex64)
@@ -1672,19 +1589,14 @@ def phase_refine(pairs):
 STREAM_CHUNK = 8192     # stream3: 8 full chunks and a 4096-sample one
 
 
-def stream_inputs(cfg3):
-    """stream3: config 3's capture (69632 samples, 2000 bins over +-500
-    Hz, the emitter at freqs[1234], lag 30000) and its two-emitter
-    version (freqs[345], lag 12000, amplitude 1.5 added, as ratelat3
-    adds its second emitter)."""
-    needles, hays, freqs, _, truths = cfg3
-    needle, hay = needles[0], hays[0]
-    n = len(needle)
-    f2, lag2 = float(freqs[345]), 12_000
-    two = hay.copy()
-    two[lag2:lag2 + n] += 1.5 * (needle * np.exp(
-        2j * np.pi * f2 * np.arange(n) / FS)).astype(np.complex64)
-    return needle, hay, two, freqs, truths[0], [truths[0], (f2, lag2)]
+def stream_inputs():
+    """stream3 (the port's benchmark's builder): config 3's capture
+    (69632 samples, 2000 bins over +-500 Hz, the emitter at freqs[1234],
+    lag 30000) and its two-emitter version (freqs[345], lag 12000,
+    amplitude 1.5 added, as ratelat3 adds its second emitter)."""
+    from caf_cookoff_tpu_torch.utils import bench_configs as bc
+
+    return bc.build_stream3()
 
 
 def stream_through(capture, needle, freqs, **kw):
@@ -2073,24 +1985,12 @@ def phase_rows_times(rin, card):
 
 def config5_inputs():
     """Config 5 of ``bench_configs.py`` (``config5_virtual``'s recipe,
-    copied): 8 pairs x 1024, 16384 lags, 64 bins over +-100 Hz, one
-    emitter a pair -> (needles, haystacks, freqs, num_lags, truths)."""
-    pairs, n, lags, k = 8, 1024, 16_384, 64
-    rng = np.random.default_rng(4)
-    needles = (rng.standard_normal((pairs, n))
-               + 1j * rng.standard_normal((pairs, n))).astype(np.complex64)
-    hays = (1e-4 * (rng.standard_normal((pairs, lags + n))
-                    + 1j * rng.standard_normal((pairs, lags + n)))
-            ).astype(np.complex64)
-    freqs = np.linspace(-100, 100, k, endpoint=False).astype(np.float32)
-    t = np.arange(n)
-    truths = []
-    for b in range(pairs):
-        lag, f_hz = 500 + b * 1777, float(freqs[5 + 7 * b])
-        hays[b, lag:lag + n] += (needles[b] * np.exp(
-            2j * np.pi * f_hz * t / FS)).astype(np.complex64)
-        truths.append((f_hz, lag))
-    return needles, hays, freqs, lags, truths
+    the port's benchmark's builder): 8 pairs x 1024, 16384 lags, 64 bins
+    over +-100 Hz, one emitter a pair -> (needles, haystacks, freqs,
+    num_lags, truths)."""
+    from caf_cookoff_tpu_torch.utils import bench_configs as bc
+
+    return bc.build_config5()
 
 
 def parallel_calls(cfgs, lcfgs, rcfgs, mesh):
@@ -2420,6 +2320,94 @@ def phase_rate_times(rcfgs, rshape, rate_launches, refine_inputs, card):
     return rows
 
 
+def phase_bench(card):
+    """The port's benchmark (``utils/bench_configs``) over every cell at
+    full width, 3 interleaved rounds: each cell's gate must pass (a
+    failed gate fails the run), then one line a (cell, engine) with its
+    median, best, spread, device time and host share."""
+    from caf_cookoff_tpu_torch.utils import bench_configs as bc
+
+    t0 = time.perf_counter()
+    try:
+        lines = bc.measure(bc.build_cells(list(bc.CELLS), DEVICE), 3)
+    except bc.GateError as exc:
+        check(False, f"[bench] gate: {exc}")
+    for line in lines:
+        print(f"[bench] {json.dumps(line)}")
+    timed = [ln for ln in lines if ln.get("timed", True)]
+    check(all(ln["gate"] == "passed" for ln in lines)
+          and all(ln["median_ms"] > 0 and ln["device_ms"] > 0
+                  and ln["rounds"] == 3 for ln in timed),
+          "[bench] lines")
+    print(f"[bench] {len(timed)} timed (cell, engine) lines and "
+          f"{len(lines) - len(timed)} gate-only cell(s) in "
+          f"{time.perf_counter() - t0:.1f} s  [{card}]")
+    return lines
+
+
+def phase_scaling(card):
+    """The scaling harness (``utils/bench_scaling``) at N = 1 on NCCL in
+    a child process, ``doppler`` and ``time``: gated, timed, and no
+    efficiency (one card gives no scaling number)."""
+    from caf_cookoff_tpu_torch.utils import bench_scaling as bs
+
+    try:
+        lines = bs.run(["doppler", "time"], [1], DEVICE, rounds=3)
+    except bs.GateError as exc:
+        check(False, f"[scaling] gate: {exc}")
+    for line in lines:
+        print(f"[scaling] {json.dumps(line)}")
+    check(len(lines) == 2 and all(
+        ln["gate"] == "passed" and ln["collectives"] == "nccl"
+        and ln["full_ms"] > 0 and ln["compute_ms"] > 0
+        and "efficiency" not in ln for ln in lines), "[scaling] lines")
+    print(f"[scaling] doppler and time at one NCCL rank: full / compute "
+          f"ms {[(ln['full_ms'], ln['compute_ms']) for ln in lines]}  "
+          f"[{card}]")
+    return lines
+
+
+# Partial-overlap workloads: (n, lag, (start, stop, step) Hz, emitter Hz)
+PARTIAL = ((4096, 3900, (0.0, 50.0, 0.25), 30.0),
+           (257, 145, (-6.0, 26.0, 1.0), 19.0),
+           (512, 471, (-6.0, 17.0, 1.0), 5.0),
+           (777, 656, (-2.0, 6.0, 0.5), 1.0),
+           (4096, 3500, (0.0, 50.0, 0.25), 30.0))
+
+
+def phase_fault2():
+    """Partial-overlap workloads (only the needle's first n - lag samples
+    reach the haystack) through ``caf_peak(backend="stein")`` on the card
+    and ``backend="xla"``: reported, not gated.  K1 rounds the synthesis
+    weights to bf16 as the TPU kernel does, so on surfaces this flat its
+    8 + 4 candidates can miss the bin the exact surface peaks in."""
+    from caf_cookoff_tpu_torch import caf_peak
+
+    same = 0
+    for n, lag, grid, f_hz in PARTIAL:
+        freqs = np.arange(*grid, dtype=np.float32)
+        for seed in range(3):
+            rng = np.random.default_rng(seed)
+            needle = (rng.standard_normal(n)
+                      + 1j * rng.standard_normal(n)).astype(np.complex64)
+            hay = (1e-3 * (rng.standard_normal(n)
+                           + 1j * rng.standard_normal(n))
+                   ).astype(np.complex64)
+            t = np.arange(n - lag)
+            hay[lag:] += (needle[:n - lag] * np.exp(
+                2j * np.pi * f_hz * (lag + t) / FS)).astype(np.complex64)
+            st = caf_peak(needle, hay, freqs, FS, backend="stein",
+                          device=DEVICE)
+            xl = caf_peak(needle, hay, freqs, FS, backend="xla",
+                          device=DEVICE)
+            same += st[:2] == xl[:2]
+            print(f"[fault2] n={n} lag={lag} emitter {f_hz} Hz seed {seed}: "
+                  f"stein ({st[0]}, {st[1]}), xla ({xl[0]}, {xl[1]})")
+    print(f"[fault2] stein = xla (freq, lag) in {same} of "
+          f"{3 * len(PARTIAL)} (reported, not gated: K1's bf16 weights)")
+    return same
+
+
 def main() -> int:
     import_port()
     name, card = phase_device()
@@ -2446,7 +2434,7 @@ def main() -> int:
                      for name in ("rate3", "ratelat3", "rate1")}
     del rate_launches["rate1"]      # the cuFFT dechirp bank: no kernel
     refine_inputs = phase_refine(pairs)
-    sin = stream_inputs(cfgs["config3"])
+    sin = stream_inputs()
     stream_launches, err_stream = phase_stream(sin)
     rows_launches, err_rows, rin = phase_rows(pairs, cfgs["config3"])
     par_launches, par = phase_parallel(cfgs, lcfgs, rcfgs, card)
@@ -2463,6 +2451,9 @@ def main() -> int:
     stream.update(launches=stream_launches, max_abs_err=err_stream)
     rows = phase_rows_times(rin, card)
     rows.update(launches=rows_launches, max_abs_err=err_rows)
+    phase_bench(card)
+    phase_scaling(card)
+    phase_fault2()
     import torch
 
     from caf_cookoff_tpu_torch.ops import fused_stein as fs

@@ -1242,3 +1242,49 @@ def test_parallel_two_gloo_ranks_on_one_card(card, tmp_path):
         assert res["os_k1"] > 0 and res["batch_k1"] > 0
         assert res["batch"][:2] == [want_b[0].tolist(), want_b[1].tolist()]
         np.testing.assert_allclose(res["batch"][2], want_b[2], rtol=1e-5)
+
+
+def test_bench_configs_one_cell_on_card(card, capsys):
+    """``python -m caf_cookoff_tpu_torch.utils.bench_configs config1
+    --rounds 2``: the gate passes, and the line carries the rounds'
+    statistics, the profiler's device time and operations, the host share
+    and the card; ``headline`` adds ``vs_baseline``."""
+    import json
+
+    from caf_cookoff_tpu_torch.utils import bench_configs as bc
+
+    ensure_fixtures(DATA)
+    assert bc.main(["config1", "--rounds", "2"]) == 0
+    (line,) = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert line["metric"] == "cuda_config1_400x8192_stein_call_ms"
+    assert line["gate"] == "passed" and line["rounds"] == 2
+    assert 0 < line["best_ms"] <= line["value"] == line["median_ms"]
+    assert line["device_ms"] > 0 and line["device_ops"] > 0
+    assert line["host_share"] == pytest.approx(
+        1 - line["device_ms"] / line["value"])
+    assert line["card"].startswith(torch.cuda.get_device_name(0))
+    head = bc.headline(line)
+    assert head["vs_baseline"] == pytest.approx(bc.BASELINE_MS
+                                                / line["value"])
+
+
+def test_bench_scaling_one_rank_on_card(card, capsys):
+    """``python -m caf_cookoff_tpu_torch.utils.bench_scaling --procs 1``
+    for doppler and time: one NCCL rank in a child process, each point
+    gated, then timed, with no efficiency; more ranks are refused."""
+    import json
+
+    from caf_cookoff_tpu_torch.utils import bench_scaling as bs
+
+    ensure_fixtures(DATA)
+    assert bs.main(["--procs", "1", "--engines", "doppler,time",
+                    "--rounds", "2"]) == 0
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert [ln["engine"] for ln in lines] == ["doppler", "time"]
+    for ln in lines:
+        assert ln["n"] == 1 and ln["gate"] == "passed"
+        assert ln["collectives"] == "nccl" and ln["device"] == "cuda"
+        assert ln["full_ms"] > 0 and ln["compute_ms"] > 0
+        assert "efficiency" not in ln
+    with pytest.raises(ValueError, match="N = 1 only"):
+        bs.run(["doppler"], [1, 2], "cuda")

@@ -41,14 +41,16 @@ GOLDEN = [
 ]
 
 
-@pytest.mark.parametrize("fused", [None, False])
+@pytest.mark.parametrize("fused", [None, True, False])
 @pytest.mark.parametrize("idx,grid,want_freq,want_lag", GOLDEN)
 def test_stein_peak_goldens_match_jax(chirp, idx, grid, want_freq, want_lag,
                                       fused):
-    """``fused=None`` takes the fused rank (its plain version on the
-    CPU), ``fused=False`` the FFT stage A; both must give JAX's and the
-    golden (freq, lag), and the exact re-score value within rtol 1e-4
-    (the same f32 filterbank rows, other FFT rounding)."""
+    """``fused=None`` ranks on the CPU with the f32 segmented rows, as
+    JAX does there; ``fused=True`` with the fused rank's plain version
+    (the kernel's bf16 roundings), ``fused=False`` with the FFT stage A.
+    Each must give JAX's and the golden (freq, lag), and the exact
+    re-score value within rtol 1e-4 (the same f32 filterbank rows, other
+    FFT rounding)."""
     needle, haystack, _ = chirp(idx)
     freqs = grid.frequencies(np.float32)
     got = tstein.stein_caf_peak(needle, haystack, freqs, FS, fused=fused,
@@ -351,7 +353,8 @@ def test_stein_peak_wide_doppler_grid_matches_jax(chirp, monkeypatch, idx):
     gives JAX's (freq, lag) and the filterbank's, value within rtol 1e-4.
     The grid sets D = 8, so the fused rank holds 2B = 1024 rows: past one
     block's shared memory, K1's plan shares them over a cluster of 2
-    blocks a lag tile (on the CPU its plain version runs)."""
+    blocks a lag tile (``fused=True``: on the CPU its plain version
+    runs)."""
     needle, haystack, _ = chirp(idx)
     freqs = FreqGrid(-1000.0, 1000.0, 5.0).frequencies(np.float32)
     shapes = []
@@ -362,11 +365,62 @@ def test_stein_peak_wide_doppler_grid_matches_jax(chirp, monkeypatch, idx):
         return rank(ws1, ws2, lmat, h_ext, b, sup, *args, **kw)
 
     monkeypatch.setattr(tstein, "fused_stein_rank", spy)
-    got = tstein.stein_caf_peak(needle, haystack, freqs, FS, device="cpu")
+    got = tstein.stein_caf_peak(needle, haystack, freqs, FS, fused=True,
+                                device="cpu")
     want = jstein.stein_caf_peak(needle, haystack, freqs, FS)
     fb = tfb.caf_peak(needle, haystack, freqs, FS, backend="xla",
                       device="cpu")
     assert shapes == [(1024, 8)]
     assert tfs.check_kernel_shape(1024, 8).cluster == 2
     assert got[:2] == want[:2] == fb[:2]
+    assert got[2] == pytest.approx(want[2], rel=1e-4)
+
+
+# Partial-overlap workloads: only the last n - lag needle samples reach
+# the haystack, so the true surface is flatter across the grid than the
+# bf16 weights' |w|^2 error, and a coarse rank with those roundings picks
+# the wrong candidates.  (n, lag, (start, stop, step) Hz, emitter Hz).
+PARTIAL = [
+    (4096, 3900, (0.0, 50.0, 0.25), 30.0),
+    (257, 145, (-6.0, 26.0, 1.0), 19.0),
+    (512, 471, (-6.0, 17.0, 1.0), 5.0),
+    (777, 656, (-2.0, 6.0, 0.5), 1.0),
+    (4096, 3500, (0.0, 50.0, 0.25), 30.0),
+]
+
+
+def _partial_overlap(n, lag, f_hz, seed):
+    """A complex-normal needle; a haystack of 1e-3 noise plus the needle's
+    first ``n - lag`` samples from ``lag`` on, shifted by ``f_hz``."""
+    rng = np.random.default_rng(seed)
+    needle = (rng.standard_normal(n)
+              + 1j * rng.standard_normal(n)).astype(np.complex64)
+    hay = (1e-3 * (rng.standard_normal(n)
+                   + 1j * rng.standard_normal(n))).astype(np.complex64)
+    t = np.arange(n - lag)
+    hay[lag:] += (needle[:n - lag] * np.exp(
+        2j * np.pi * f_hz * (lag + t) / FS)).astype(np.complex64)
+    return needle, hay
+
+
+@pytest.mark.parametrize("entry", ["stein_caf_peak", "caf_peak",
+                                   "stein_overlap_save_peak"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("n,lag,grid,f_hz", PARTIAL)
+def test_partial_overlap_matches_jax(n, lag, grid, f_hz, seed, entry):
+    """On the CPU the default coarse rank is JAX's there (f32 segmented
+    rows, no bf16 weights), so each entry point gives JAX's (freq, lag)
+    on workloads where a bf16 rank picks another bin; value within rtol
+    1e-4 (the same exact re-score rows)."""
+    needle, hay = _partial_overlap(n, lag, f_hz, seed)
+    freqs = np.arange(*grid, dtype=np.float32)
+    if entry == "caf_peak":
+        got = tfb.caf_peak(needle, hay, freqs, FS, backend="stein",
+                           device="cpu")
+        want = jfb.caf_peak(needle, hay, freqs, FS, backend="stein")
+    else:
+        got = getattr(tstein, entry)(needle, hay, freqs, FS, device="cpu")
+        want = getattr(jstein, entry)(needle, hay, freqs, FS)
+    assert got[:2] == want[:2]
+    assert got[1] == lag
     assert got[2] == pytest.approx(want[2], rel=1e-4)
