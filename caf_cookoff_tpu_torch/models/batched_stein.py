@@ -43,6 +43,7 @@ from caf_cookoff_tpu_torch.config import (as_grid, floor_pow2,
 from caf_cookoff_tpu_torch.errors import EligibilityError, SpanError
 from caf_cookoff_tpu_torch.models.filterbank import _surface_rows, mag2
 from caf_cookoff_tpu_torch.models.overlap_save import detection_rows
+from caf_cookoff_tpu_torch.ops import _graph
 from caf_cookoff_tpu_torch.ops.fused_stein import (FUSED_TILE, SUPER,
                                                    coarse_rank_plain,
                                                    fused_span,
@@ -51,6 +52,7 @@ from caf_cookoff_tpu_torch.ops.fused_stein import (FUSED_TILE, SUPER,
 from caf_cookoff_tpu_torch.ops.peak import (CafPeak, _lag_distance,
                                             find_peak_2d, merge_peaks,
                                             resolve_exclusions)
+from caf_cookoff_tpu_torch.ops.shift import numpy_real
 from caf_cookoff_tpu_torch.ops.xcor import pad_to
 from caf_cookoff_tpu_torch.utils.convert import as_signal
 
@@ -122,13 +124,14 @@ def _shift_to_centers(ns_re: torch.Tensor, ns_im: torch.Tensor,
                       centers: torch.Tensor, sample_rate: float):
     """(P*S, N_pad) needle planes shifted to every band centre (exact:
     shifts compose), padded to whole SUPER tiles, band-major.  The phase
-    is ``((2*pi)/fs) * c * t`` in f32, in the JAX package's order."""
+    is ``((2*pi)/fs) * c * t`` in the planes' dtype, in the JAX
+    package's order (the quotient of the rounded operands, in numpy)."""
     p, n = ns_re.shape
     s = centers.shape[0]
     dt = ns_re.dtype
+    np_dt = numpy_real(dt)
     t = torch.arange(n, dtype=dt, device=ns_re.device)
-    scale = (torch.tensor(2.0 * math.pi, dtype=dt, device=ns_re.device)
-             / torch.tensor(sample_rate, dtype=dt, device=ns_re.device))
+    scale = float(np_dt(2.0 * math.pi) / np_dt(sample_rate))
     ph = (scale * centers.to(dt)[None, :, None]) * t[None, None, :]
     cs, sn = torch.cos(ph), torch.sin(ph)
     sr = (ns_re[:, None, :] * cs - ns_im[:, None, :] * sn).reshape(p * s, n)
@@ -215,6 +218,17 @@ def _batched_stein_core(ns, hs, freqs_t, sample_rate, xcor_len: int,
     return _batched_refine(ns, hs, freqs_t, vals_t, sample_rate, xcor_len)
 
 
+def _batched_core(ns, hs, freqs_t, sample_rate, xcor_len: int,
+                  block_len: int, refine: bool) -> torch.Tensor:
+    """:func:`batched_stein_peak`'s compiled core (``ops/_graph``): the
+    needles SUPER-padded (appended zero blocks add nothing to any
+    correlation), :func:`_batched_stein_core`, the answer packed."""
+    n = ns.shape[-1]
+    return _pack(_batched_stein_core(pad_to(ns, n + (-n) % SUPER), hs,
+                                     freqs_t, sample_rate, xcor_len,
+                                     block_len, refine))
+
+
 def _banded_operands(ns, hs, centers, rel, sample_rate, xcor_len: int,
                      block_len: int):
     """K1's operands for a banded batch: one needle operator per (pair,
@@ -245,6 +259,17 @@ def _banded_batched(ns, hs, freqs_pad, centers, rel, sample_rate,
                        < num_bins, flat, -math.inf)
     return _batched_refine(ns, hs, freqs_pad, flat, sample_rate, xcor_len,
                            num_valid=num_bins)
+
+
+def _banded_core(ns, hs, freqs_pad, centers, rel, sample_rate,
+                 xcor_len: int, block_len: int,
+                 num_bins: int) -> torch.Tensor:
+    """The banded batch's compiled core (``ops/_graph``; also the
+    single-pair banded Stein path at P = 1): :func:`_banded_batched`,
+    the answer packed."""
+    return _pack(_banded_batched(ns, hs, freqs_pad, centers, rel,
+                                 sample_rate, xcor_len, block_len,
+                                 num_bins))
 
 
 def _os_topk_refine(ns, hs, freqs_all, rowmax, rowlag, sample_rate,
@@ -355,14 +380,47 @@ def _batch(needles, haystacks, device):
     return ns, hs, rdtype
 
 
-def _host(freqs: np.ndarray, peak: CafPeak):
-    """(freqs (P,), lags (P,), values (P,)) numpy arrays of a batch."""
-    return (freqs[peak.freq_idx.cpu().numpy()], peak.lag_idx.cpu().numpy(),
-            peak.value.cpu().numpy())
+def _pack(peak: CafPeak) -> torch.Tensor:
+    """A peak's (value, freq_idx, lag_idx) stacked as one (3, ...) f64
+    tensor (exact for f32/f64 values and int32 indices), so the host
+    reads it in one copy."""
+    return torch.stack([peak.value.double(), peak.freq_idx.double(),
+                        peak.lag_idx.double()])
+
+
+def _host(freqs: np.ndarray, peak, value_dtype=None):
+    """(freqs, lags, values) numpy arrays of a batch's peaks (``(P,)``,
+    or ``(P, k)`` lattices) from a :class:`CafPeak`, or from its
+    :func:`_pack`ed form with the values' ``value_dtype``: one copy to
+    the host."""
+    if isinstance(peak, CafPeak):
+        peak, value_dtype = _pack(peak), peak.value.dtype
+    value, freq_idx, lag = peak.cpu().numpy()
+    return (freqs[freq_idx.astype(np.int64)], lag.astype(np.int32),
+            value.astype(numpy_real(value_dtype)))
 
 
 def _as_tensor(x: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    """A host array on ``device``, copied without waiting for the
+    card."""
+    return torch.from_numpy(np.ascontiguousarray(x)).to(
+        device, non_blocking=True)
+
+
+def _band_tensors(plan, device):
+    """A band plan's ``freqs_pad``, ``centers`` and ``rel`` on
+    ``device``."""
+    return tuple(_as_tensor(plan[k], device)
+                 for k in ("freqs_pad", "centers", "rel"))
+
+
+def _grid_on(freqs_hz, freqs: np.ndarray, device) -> torch.Tensor:
+    """The grid on ``device``: the caller's tensor when it is there
+    already (in the host grid ``freqs``'s dtype), else ``freqs``
+    copied."""
+    if isinstance(freqs_hz, torch.Tensor) and freqs_hz.device == device:
+        return freqs_hz.detach().to(torch.from_numpy(freqs[:0]).dtype)
+    return _as_tensor(freqs, device)
 
 
 def batched_stein_os_peak(needles, haystacks, freqs_hz, sample_rate, *,
@@ -427,12 +485,25 @@ def batched_stein_peak(needles, haystacks, freqs_hz, sample_rate, *,
     one batched exact re-score — the same answers as
     :func:`caf_cookoff_tpu_torch.models.stein.stein_caf_peak` per pair.
     Grids past the single-segment envelope are banded, (pair, band) as
-    the kernel's program axis.  Every FFT ``backend`` name runs
-    ``torch.fft``.
+    the kernel's program axis.  On a card the call is a compiled call
+    (``ops/_graph``): one CUDA graph per shape and static argument,
+    nothing read back but the packed answer.  Every FFT ``backend``
+    name runs ``torch.fft``.
     """
+    resolve_backend(backend)
+    core, traced, static, freqs, vdt = _batched_call(
+        needles, haystacks, freqs_hz, sample_rate, block_len, refine,
+        device)
+    return _host(freqs, _graph.compiled(core, traced, static), vdt)
+
+
+def _batched_call(needles, haystacks, freqs_hz, sample_rate,
+                  block_len: int, refine: bool, device):
+    """:func:`batched_stein_peak`'s checks and plan: ``(core, traced,
+    static, host grid, value dtype)`` of its compiled call, the banded
+    core for grids past the single-segment envelope."""
     from caf_cookoff_tpu_torch.models.stein import _plan_bands
 
-    resolve_backend(backend)
     ns, hs, rdtype = _batch(needles, haystacks, device)
     if ns.ndim != 2 or hs.shape != ns.shape:
         raise ValueError(
@@ -453,16 +524,13 @@ def batched_stein_peak(needles, haystacks, freqs_hz, sample_rate, *,
         plan = _plan_bands(fs, freqs) if refine else None
         if plan is None:
             raise
-        peak = _banded_batched(
-            ns, hs, _as_tensor(plan["freqs_pad"], dev),
-            _as_tensor(plan["centers"], dev), _as_tensor(plan["rel"], dev),
-            fs, m, plan["block_len"], len(freqs))
-        return _host(plan["freqs_pad"], peak)
-    # Pad the needle to whole super-blocks (appended zero blocks add
-    # nothing to any correlation); the haystack and M are untouched.
-    peak = _batched_stein_core(pad_to(ns, n + (-n) % SUPER), hs,
-                               _as_tensor(freqs, dev), fs, m, d, refine)
-    return _host(freqs, peak)
+        traced = (ns, hs, *_band_tensors(plan, dev))
+        return (_banded_core, traced, (fs, m, plan["block_len"], len(freqs)),
+                plan["freqs_pad"], ns.real.dtype)
+    # The coarse values (refine=False) are K1's f32 ranks.
+    return (_batched_core, (ns, hs, _grid_on(freqs_hz, freqs, dev)),
+            (fs, m, d, refine), freqs,
+            ns.real.dtype if refine else torch.float32)
 
 
 # ---------------------------------------------------------------------------

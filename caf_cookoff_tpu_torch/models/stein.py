@@ -34,15 +34,22 @@ from caf_cookoff_tpu_torch.config import (as_grid, floor_pow2,
                                           resolve_backend, xcor_length)
 from caf_cookoff_tpu_torch.errors import (EligibilityError, EngineError,
                                           SpanError)
-from caf_cookoff_tpu_torch.models.batched_stein import (_haystack_extension,
-                                                        _needle_operator)
+from caf_cookoff_tpu_torch.models.batched_stein import (_band_tensors,
+                                                        _banded_core,
+                                                        _grid_on,
+                                                        _haystack_extension,
+                                                        _host,
+                                                        _needle_operator,
+                                                        _pack)
 from caf_cookoff_tpu_torch.models.filterbank import _surface_rows, mag2
-from caf_cookoff_tpu_torch.ops.fused_stein import (SUPER, fused_span,
+from caf_cookoff_tpu_torch.ops import _graph
+from caf_cookoff_tpu_torch.ops.fused_stein import (SUPER, block_centers,
+                                                   fused_span,
                                                    fused_stein_rank,
                                                    stein_synthesis_weights)
 from caf_cookoff_tpu_torch.ops.peak import (CafPeak, doppler_cell_bins,
                                             find_peak_2d, topk_separated)
-from caf_cookoff_tpu_torch.ops.shift import real_dtype_of
+from caf_cookoff_tpu_torch.ops.shift import numpy_real, real_dtype_of
 from caf_cookoff_tpu_torch.ops.xcor import pad_to
 from caf_cookoff_tpu_torch.utils.convert import as_signal
 
@@ -53,6 +60,19 @@ _REFINE_BINS = 8
 _REFINE_SEP_BINS = 4
 
 
+def _block_twist(num_blocks: int, block_len: int, m: int, rdtype,
+                 device) -> torch.Tensor:
+    """(B, M) ``exp(-2 pi j (b D) k / M)``, the shift theorem's twist of
+    each block's spectrum to its true offset: the angles exact in f64
+    on ``device`` (the products are integers), cos / sin rounded to
+    ``rdtype``."""
+    bd = torch.arange(num_blocks, dtype=torch.float64,
+                      device=device) * block_len
+    ang = (-2.0 * np.pi / m) * (
+        bd[:, None] * torch.arange(m, dtype=torch.float64, device=device))
+    return torch.complex(torch.cos(ang).to(rdtype), torch.sin(ang).to(rdtype))
+
+
 def _segment_correlations(needle: torch.Tensor, haystack: torch.Tensor,
                           xcor_len: int, block_len: int) -> torch.Tensor:
     """G (B, M) complex: per-needle-block correlations vs the haystack,
@@ -61,16 +81,10 @@ def _segment_correlations(needle: torch.Tensor, haystack: torch.Tensor,
     d = block_len
     b = -(-n // d)
     m = xcor_len
-    rdtype = real_dtype_of(needle.dtype)
-    np_rdtype = np.float64 if rdtype == torch.float64 else np.float32
     blocks = pad_to(needle, b * d).reshape(b, d)
     s0 = torch.fft.fft(pad_to(blocks, m), dim=-1)         # at-origin
-    ang = (-2.0 * np.pi / m) * (np.arange(b)[:, None] * d
-                                * np.arange(m)[None, :])
-    twist = torch.complex(
-        torch.from_numpy(np.cos(ang).astype(np_rdtype)),
-        torch.from_numpy(np.sin(ang).astype(np_rdtype))).to(needle.device)
-    s_b = s0 * twist
+    s_b = s0 * _block_twist(b, d, m, real_dtype_of(needle.dtype),
+                            needle.device)
     h_spec = torch.fft.fft(pad_to(haystack, m))
     return torch.fft.ifft(h_spec[None, :] * torch.conj(s_b), dim=-1)
 
@@ -82,13 +96,10 @@ def _doppler_synthesis(g: torch.Tensor, freqs_hz: torch.Tensor,
     gr, gi = g.real, g.imag
     b = gr.shape[0]
     rdtype = gr.dtype
-    dev = g.device
-    centers = torch.as_tensor(
-        np.arange(b) * block_len + (block_len - 1) / 2.0, dtype=rdtype,
-        device=dev)
-    scale = (torch.tensor(-2.0 * math.pi, dtype=rdtype, device=dev)
-             / torch.tensor(sample_rate, dtype=rdtype, device=dev))
-    w = scale * torch.outer(freqs_hz.to(rdtype), centers)  # (K, B) phase
+    np_dt = numpy_real(rdtype)
+    scale = float(np_dt(-2.0 * math.pi) / np_dt(sample_rate))
+    w = scale * torch.outer(freqs_hz.to(rdtype),
+                            block_centers(b, block_len, rdtype, g.device))
     wr, wi = torch.cos(w), torch.sin(w)
     ws = torch.cat([torch.cat([wr, -wi], dim=1),
                     torch.cat([wi, wr], dim=1)], dim=0)   # (2K, 2B)
@@ -126,6 +137,15 @@ def _fused_rowmax(needle, haystack, freqs_hz, sample_rate, xcor_len: int,
                                   xcor_len, block_len)
     vals, _ = fused_stein_rank(*ops, b, sup, xcor_len, want_idxs=False)
     return vals[:, 0]
+
+
+def _stein_core(needle, haystack, freqs_hz, sample_rate, xcor_len: int,
+                block_len: int, refine: bool, fused: bool) -> torch.Tensor:
+    """:func:`stein_caf_peak`'s compiled core (``ops/_graph``; the
+    counterpart of JAX's ``_stein_peak_jit``): :func:`_stein_peak`, the
+    answer packed."""
+    return _pack(_stein_peak(needle, haystack, freqs_hz, sample_rate,
+                             xcor_len, block_len, refine, fused))
 
 
 def _stein_peak(needle, haystack, freqs_hz, sample_rate, xcor_len: int,
@@ -174,9 +194,10 @@ def _refine_topk(needle, haystack, freqs_all, rowmax_coarse, sample_rate,
     rowmax = torch.amax(exact, dim=-1)
     top = rowmax == torch.amax(rowmax)
     winner = torch.amin(torch.where(top, cand, torch.iinfo(torch.int32).max))
-    best = torch.argmax((top & (cand == winner)).to(torch.int8))
-    return CafPeak(value=rowmax[best], freq_idx=cand[best],
-                   lag_idx=torch.argmax(exact[best]).to(torch.int32))
+    # A (1,) index: indexing with a 0-d tensor would read it back.
+    best = torch.argmax((top & (cand == winner)).to(torch.int8)).reshape(1)
+    return CafPeak(value=rowmax[best][0], freq_idx=cand[best][0],
+                   lag_idx=torch.argmax(exact[best][0]).to(torch.int32))
 
 
 def _plan_bands(sample_rate: float, freqs_hz: np.ndarray,
@@ -259,22 +280,6 @@ def _band_routing(sample_rate, freqs_np, d: Optional[int], *,
             np.asarray(freqs_np))
 
 
-def _banded_stein_peak(needle, haystack, plan, sample_rate, xcor_len: int,
-                       num_bins: int) -> CafPeak:
-    """Wide-span Stein for one pair: the P=1 case of the banded batch
-    engine (the band centres become the kernel's programs through
-    ``share_h``)."""
-    from caf_cookoff_tpu_torch.models.batched_stein import (_as_tensor,
-                                                            _banded_batched)
-
-    dev = needle.device
-    peak = _banded_batched(
-        needle[None], haystack[None], _as_tensor(plan["freqs_pad"], dev),
-        _as_tensor(plan["centers"], dev), _as_tensor(plan["rel"], dev),
-        sample_rate, xcor_len, plan["block_len"], num_bins)
-    return CafPeak(peak.value[0], peak.freq_idx[0], peak.lag_idx[0])
-
-
 def _auto_block_len(sample_rate: float, freqs_hz: np.ndarray,
                     requested: int) -> int:
     """Clamp the segment length to the approximation's validity range:
@@ -305,7 +310,7 @@ def _prep(needle, haystack, freqs_hz, device):
             f"{xcor_length(n_len)}] for needle length {n_len}")
     rdtype = np.float64 if n.dtype == torch.complex128 else np.float32
     freqs = as_grid(freqs_hz, dtype=rdtype)
-    return n, h, freqs, torch.from_numpy(freqs).to(n.device)
+    return n, h, freqs, _grid_on(freqs_hz, freqs, n.device)
 
 
 def stein_caf_surface(needle, haystack, freqs_hz, sample_rate, *,
@@ -340,8 +345,26 @@ def stein_caf_peak(needle, haystack, freqs_hz, sample_rate, *,
     (``refine=True``, ``fused=None``, a uniform grid): the grid splits
     into bands, the needle is shifted to each band centre (exact: shifts
     compose), and the bands are the programs of one kernel call.
+
+    On a card the call is a compiled call (``ops/_graph``), as JAX's is
+    one jitted program: one CUDA graph per shape and static argument,
+    captured at its first call and replayed after; nothing is read back
+    but the packed answer.
     """
     resolve_backend(backend)
+    core, traced, static, freqs, vdt = _stein_call(
+        needle, haystack, freqs_hz, sample_rate, block_len, refine, fused,
+        device)
+    # The banded core answers a batch of one pair.
+    freq, lag, value = (np.ravel(x)[0] for x in _host(
+        freqs, _graph.compiled(core, traced, static), vdt))
+    return float(freq), int(lag), float(value)
+
+
+def _stein_call(needle, haystack, freqs_hz, sample_rate, block_len: int,
+                refine: bool, fused: Optional[bool], device):
+    """:func:`stein_caf_peak`'s checks and routing: ``(core, traced,
+    static, host grid, value dtype)`` of its compiled call."""
     n, h, freqs, freqs_t = _prep(needle, haystack, freqs_hz, device)
     xl = xcor_length(n.shape[-1])
     fs = float(sample_rate)
@@ -353,9 +376,11 @@ def stein_caf_peak(needle, haystack, freqs_hz, sample_rate, *,
         plan = _plan_bands(fs, freqs) if refine and fused is None else None
         if plan is None or xl % 512:
             raise
-        peak = _banded_stein_peak(n, h, plan, fs, xl, len(freqs))
-        return (float(plan["freqs_pad"][int(peak.freq_idx)]),
-                int(peak.lag_idx), float(peak.value))
+        # The P = 1 case of the banded batch engine (the band centres
+        # become the kernel's programs through ``share_h``).
+        traced = (n[None], h[None], *_band_tensors(plan, n.device))
+        return (_banded_core, traced, (fs, xl, plan["block_len"], len(freqs)),
+                plan["freqs_pad"], n.real.dtype)
     d_fused = floor_pow2(min(block_len, SUPER))
     eligible = refine and d_fused >= 8 and xl % 512 == 0
     if fused is None:
@@ -367,9 +392,8 @@ def stein_caf_peak(needle, haystack, freqs_hz, sample_rate, *,
                 f">= 8 (got {block_len} -> {d_fused}) and a 512-multiple "
                 f"correlation length (got {xl}); use fused=False")
         block_len = d_fused
-    peak = _stein_peak(n, h, freqs_t, fs, xl, block_len, refine, fused)
-    return (float(freqs[int(peak.freq_idx)]), int(peak.lag_idx),
-            float(peak.value))
+    return (_stein_core, (n, h, freqs_t), (fs, xl, block_len, refine, fused),
+            freqs, n.real.dtype)
 
 
 def _segment_spectra_conj(needle: torch.Tensor, fft_len: int,
@@ -380,16 +404,10 @@ def _segment_spectra_conj(needle: torch.Tensor, fft_len: int,
     d = block_len
     b = -(-n // d)
     m = fft_len
-    rdtype = real_dtype_of(needle.dtype)
-    np_rdtype = np.float64 if rdtype == torch.float64 else np.float32
     s0 = torch.fft.fft(pad_to(pad_to(needle, b * d).reshape(b, d), m),
                        dim=-1)
-    ang = (-2.0 * np.pi / m) * (np.arange(b)[:, None] * d
-                                * np.arange(m)[None, :])
-    twist = torch.complex(
-        torch.from_numpy(np.cos(ang).astype(np_rdtype)),
-        torch.from_numpy(np.sin(ang).astype(np_rdtype))).to(needle.device)
-    return torch.conj_physical(s0 * twist)
+    return torch.conj_physical(s0 * _block_twist(
+        b, d, m, real_dtype_of(needle.dtype), needle.device))
 
 
 def _stein_os_scan(needle, haystack, freqs_t, sample_rate, num_lags: int,
@@ -446,7 +464,7 @@ def _prep_long(needle, haystack, freqs_hz, device):
                          f"({n.shape[-1]})")
     rdtype = np.float64 if n.dtype == torch.complex128 else np.float32
     freqs = as_grid(freqs_hz, dtype=rdtype)
-    return n, h, freqs, torch.from_numpy(freqs).to(n.device)
+    return n, h, freqs, _grid_on(freqs_hz, freqs, n.device)
 
 
 def stein_overlap_save_peak(needle, haystack, freqs_hz, sample_rate, *,

@@ -34,7 +34,9 @@ bounds each program's lags.
 * ``LAUNCHES`` counts kernel launches, so a run can show that its main
   path went through the kernel; ``SPLIT_LAUNCHES`` those among them
   whose G rows were shared over a cluster of blocks (2B past one
-  block's shared memory, :func:`kernel_plan`).
+  block's shared memory, :func:`kernel_plan`).  A launch captured into
+  a CUDA graph counts at each replay, not at its capture
+  (``ops/_graph``).
 """
 
 from __future__ import annotations
@@ -89,20 +91,27 @@ def fused_span(num_blocks: int, sup: int, num_lags: int) -> int:
     return -(-span // SPAN_QUANTUM) * SPAN_QUANTUM
 
 
+def block_centers(num_blocks: int, block_len: int, dtype,
+                  device) -> torch.Tensor:
+    """(B,) block centres ``b D + (D-1)/2``, made on ``device`` in f64
+    (exact) and rounded to ``dtype``."""
+    return (torch.arange(num_blocks, dtype=torch.float64, device=device)
+            * block_len + (block_len - 1) / 2.0).to(dtype)
+
+
 def stein_synthesis_weights(freqs_hz, sample_rate, num_blocks: int,
                             block_len: int, device=None):
     """(ws1, ws2) = ([Wr | -Wi], [Wi | Wr]), each (K, 2B) f32, with
-    ``W[k, b] = exp(-j 2 pi f_k (b D + (D-1)/2) / fs)`` built in f32."""
+    ``W[k, b] = exp(-j 2 pi f_k (b D + (D-1)/2) / fs)`` built in f32.
+    Nothing is copied to the card: ``-2 pi / fs`` is the f32 quotient of
+    the f32 operands, taken in numpy (IEEE, as on the card)."""
     f32 = torch.float32
     if device is None and isinstance(freqs_hz, torch.Tensor):
         device = freqs_hz.device
-    centers = torch.as_tensor(
-        np.arange(num_blocks) * block_len + (block_len - 1) / 2.0,
-        dtype=f32, device=device)
-    scale = (torch.tensor(-2.0 * math.pi, dtype=f32, device=device)
-             / torch.tensor(sample_rate, dtype=f32, device=device))
+    scale = float(np.float32(-2.0 * math.pi) / np.float32(sample_rate))
     w = scale * torch.outer(
-        torch.as_tensor(freqs_hz, dtype=f32, device=device), centers)
+        torch.as_tensor(freqs_hz, dtype=f32, device=device),
+        block_centers(num_blocks, block_len, f32, device))
     wr, wi = torch.cos(w), torch.sin(w)
     return (torch.cat([wr, -wi], dim=1), torch.cat([wi, wr], dim=1))
 

@@ -16,6 +16,8 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from caf_cookoff_tpu_torch.ops.shift import numpy_real
+
 
 class CafPeak(NamedTuple):
     """Result triple: surface value, frequency-bin index, lag index."""
@@ -86,13 +88,14 @@ def topk_separated(values: torch.Tensor, k: int, sep) -> torch.Tensor:
 def doppler_cell_bins(freqs_hz: torch.Tensor, needle_len: int,
                       sample_rate) -> torch.Tensor:
     """Doppler mainlobe width (fs/N Hz) in bins of the grid (>= 1,
-    capped at the grid size), computed in the grid's dtype."""
-    dtype = freqs_hz.dtype
+    capped at the grid size), computed in the grid's dtype.  ``fs/N``
+    is the IEEE quotient in that dtype, taken in numpy and filled on the
+    grid's device (nothing is copied there)."""
     k = freqs_hz.shape[-1]
     step = (freqs_hz[min(1, k - 1)] - freqs_hz[0]).abs()
     step = torch.clamp(step, min=1e-30)
-    cell = torch.as_tensor(sample_rate, dtype=dtype,
-                           device=freqs_hz.device) / needle_len
+    np_dt = numpy_real(freqs_hz.dtype)
+    cell = step.new_full((), float(np_dt(sample_rate) / np_dt(needle_len)))
     return torch.clamp(torch.ceil(cell / step), 1.0,
                        float(k)).to(torch.int32)
 

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -19,14 +20,31 @@ def real_dtype_of(dtype: torch.dtype) -> torch.dtype:
                                       torch.float64) else torch.float32
 
 
+def numpy_real(dtype: torch.dtype):
+    """numpy's float64 for torch.float64, else float32."""
+    return np.float64 if dtype == torch.float64 else np.float32
+
+
 def _phase_ramp(freq_hz, num_samples: int, sample_rate, real_dtype,
                 device) -> torch.Tensor:
-    """2*pi*f*n/fs for n in [0, num_samples), shaped (..., num_samples)."""
+    """2*pi*f*n/fs for n in [0, num_samples), shaped (..., num_samples).
+
+    Nothing is copied to the card for a tensor grid: ``fs`` is a 0-d
+    tensor filled there, so ``f / fs`` is a true division (a Python
+    divisor would be a reciprocal product on the card).  Host
+    frequencies take their rate in numpy in ``real_dtype`` (IEEE, as on
+    the card)."""
     n = torch.arange(num_samples, dtype=real_dtype, device=device)
-    f = torch.as_tensor(freq_hz, dtype=real_dtype, device=device)
-    fs = torch.as_tensor(sample_rate, dtype=real_dtype, device=device)
-    two_pi = torch.as_tensor(2.0 * math.pi, dtype=real_dtype, device=device)
-    rate = two_pi * (f / fs)
+    two_pi = numpy_real(real_dtype)(2.0 * math.pi)
+    if isinstance(freq_hz, torch.Tensor):
+        f = freq_hz.to(device=device, dtype=real_dtype)
+        rate = float(two_pi) * (f / f.new_full((), sample_rate))
+    else:
+        np_dt = numpy_real(real_dtype)
+        rate = two_pi * (np.asarray(freq_hz, np_dt) / np_dt(sample_rate))
+        if rate.ndim == 0:
+            return float(rate) * n
+        rate = torch.from_numpy(rate).to(device, non_blocking=True)
     return rate[..., None] * n if rate.ndim else rate * n
 
 

@@ -20,12 +20,17 @@ Then ``--rounds`` rounds: each round calls every selected (cell,
 engine) once, timed with CUDA events, in an order rotated from round to
 round, so slow drift of the host lands on every cell alike.  Last, a
 ``torch.profiler`` pass (apart from the timed rounds) counts the device
-operations of one call and sums their device time.
+operations of one call and sums their device time (kernels replayed
+from a CUDA graph included), and counts the call's host waits on the
+card and its copies between host and card.
 
 One JSON line per (cell, engine): ``metric`` (the port's own names),
 ``value`` (the median ms), ``best_ms``, ``median_ms``, ``spread_ms``
 (max - min), ``rounds``, ``device_ms``, ``device_ops``, ``host_share``
-(1 - device_ms / median_ms: the device's idle share during a call), the
+(1 - device_ms / median_ms: the device's idle share during a call),
+``syncs`` (``cudaStreamSynchronize`` / ``cudaDeviceSynchronize`` /
+``cudaEventSynchronize`` calls a call), ``copies`` (host-to-card and
+card-to-host copies a call), the
 cell's units (ms a surface or a pair, samples a second), the card's
 name and ``nvidia-smi`` power limit, the git commit, and ``reduced``
 where the cell was not run at its full width.  ``headline`` prints one
@@ -705,23 +710,43 @@ def _event_ms(fn) -> float:
     return start.elapsed_time(stop)
 
 
+_SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+          "cudaEventSynchronize")
+
+
 def _device_work(fn, runs: int = 1):
-    """(device ms, device operations) of one call of ``fn``: the kernels,
-    memsets and copies of a ``torch.profiler`` trace of ``runs`` calls,
-    summed and counted, over ``runs``."""
+    """(device ms, device operations, host syncs, host<->card copies) of
+    one call of ``fn``: the kernels, memsets and copies of a
+    ``torch.profiler`` trace of ``runs`` calls, summed and counted, the
+    runtime's synchronising calls and the HtoD / DtoH copies counted,
+    each over ``runs``.  Syncs are counted inside the calls' window only:
+    the profiler and the trace's closing synchronise add their own."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("_device_work.calls"):
+            for _ in range(runs):
+                fn()
         torch.cuda.synchronize()
-    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = prof.events()
+    window = next(e.time_range for e in events
+                  if e.name == "_device_work.calls"
+                  and e.device_type == DeviceType.CPU)
+    # The range's own device-side copy spans the calls' kernels: not one.
+    ops = [e for e in events if e.device_type == DeviceType.CUDA
+           and e.name != "_device_work.calls"]
     field = ("self_device_time_total" if ops and hasattr(
         ops[0], "self_device_time_total") else "self_cuda_time_total")
     us = sum(getattr(e, field) for e in ops)
-    return us / 1e3 / runs, len(ops) / runs
+    syncs = sum(e.name in _SYNCS
+                and window.start <= e.time_range.start <= window.end
+                for e in events if e.device_type == DeviceType.CPU)
+    copies = sum(e.name.startswith(("Memcpy HtoD", "Memcpy DtoH"))
+                 for e in ops)
+    return us / 1e3 / runs, len(ops) / runs, syncs / runs, copies / runs
 
 
 def _commit() -> Optional[str]:
@@ -757,7 +782,8 @@ def measure(cells: List[Cell], rounds: int = ROUNDS, *,
     """Gate every cell, warm up, time ``rounds`` interleaved rounds,
     profile: one line per (cell, engine), and one ``"timed": false`` line
     per untimed cell.  ``timer(fn) -> ms`` and ``work(fn) -> (device ms,
-    device operations)`` default to CUDA events and ``torch.profiler``,
+    device operations, host syncs, host<->card copies)`` default to CUDA
+    events and ``torch.profiler``,
     which refuse a device other than a CUDA card."""
     from caf_cookoff_tpu_torch.utils.bench import _require_card, \
         nvidia_smi_card
@@ -788,13 +814,14 @@ def measure(cells: List[Cell], rounds: int = ROUNDS, *,
         for e in c.engines:
             ms = samples[_metric(c, e)]
             med = statistics.median(ms)
-            dev_ms, dev_ops = work(e.call)
+            dev_ms, dev_ops, syncs, copies = work(e.call)
             lines.append({
                 "metric": _metric(c, e), "value": med, "unit": "ms",
                 "cell": c.name, "engine": e.name, "best_ms": min(ms),
                 "median_ms": med, "spread_ms": max(ms) - min(ms),
                 "rounds": len(ms), "device_ms": dev_ms,
                 "device_ops": dev_ops, "host_share": 1.0 - dev_ms / med,
+                "syncs": syncs, "copies": copies,
                 **e.units(med), "gate": "passed", "reduced": c.reduced,
                 **common})
     return lines

@@ -49,6 +49,16 @@ Phases, each reported on its own line:
    pairs x 1024 bins x 32768 lags, 6 bands x 4 windows) through
    ``batched_stein_os_peak`` must recover every injected (freq, lag).
    K1's launch count, set to 0 before each config, must rise.
+6a. graph — the compiled calls (``ops/_graph``: one CUDA graph per
+   static key, as ``jax.jit`` compiles one program) against their eager
+   cores, bit for bit (value bits, bin, lag): the goldens, config1,
+   wide1000 and a banded +-3000 Hz grid through ``stein_caf_peak``'s
+   plan, config2 and its banded batch through ``batched_stein_peak``'s;
+   the eager cores raise nothing under ``set_sync_debug_mode("error")``;
+   a second grid of config1's shape replays without a capture; the
+   public calls' syncs and host<->card copies (``torch.profiler``: one
+   sync, the answer's read); each key's capture ms and pool memory; a
+   replay's device time by the profiler within CUDA events' time of it.
 7. kernel — K1's top-2 mode (e) held to its bound in both slots, at the
    lattice shapes of phase 8 and in adversarial cases: a same-bin pair
    1.5 sep apart across a tile edge with the stronger's skirt in the
@@ -758,6 +768,143 @@ def run_config(name, cfg):
               f"{got[0]} (want {truths[0]})")
         check(not misses, f"{name} missed emitters {misses}")
     return launches
+
+
+def same_packed_bits(a, b) -> bool:
+    """Two packed (3, ...) f64 answers with the same bits: values,
+    frequency bins and lags."""
+    import torch
+
+    return a.shape == b.shape and torch.equal(a.view(torch.int64),
+                                              b.view(torch.int64))
+
+
+def phase_graph(inputs, cfgs, card):
+    """[graph]: the compiled calls (``ops/_graph``, one CUDA graph per
+    static key) against their eager cores, bit for bit, over the
+    goldens, config1, wide1000, a banded +-3000 Hz grid, config2 and
+    its banded batch; the eager cores under sync-debug "error"; a second
+    grid of one key replaying; syncs and copies a call; capture ms and
+    pool memory a key; a replay's device time by the profiler against
+    CUDA events."""
+    import torch
+
+    from caf_cookoff_tpu_torch import FreqGrid
+    from caf_cookoff_tpu_torch.models.batched_stein import _batched_call
+    from caf_cookoff_tpu_torch.models.stein import _stein_call
+    from caf_cookoff_tpu_torch.ops import _graph
+    from caf_cookoff_tpu_torch.utils import bench_configs as bc
+
+    def on(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(DEVICE)
+
+    def stein(n, h, f):
+        return _stein_call(n, h, f, FS, 64, True, None, DEVICE)
+
+    wide = FreqGrid(-1000.0, 1000.0, 5.0).frequencies(np.float32)
+    band = FreqGrid(-3000.0, 3000.0, 25.0).frequencies(np.float32)
+    cases = [(f"chirp_{idx}", stein(on(n), on(h), f))
+             for (idx, *_), (n, h, f, _, _) in zip(GOLDEN, inputs)]
+    n1, h1, f1 = bc.build_config1()
+    n1, h1 = on(n1), on(h1)
+    needles, hays, f2, _, _ = cfgs["config2"]
+    ns, hs = on(needles), on(hays)
+    cases += [("config1", stein(n1, h1, f1)),
+              ("wide1000", stein(n1, h1, wide)),
+              ("chirp_0 banded +-3000 Hz", stein(n1, h1, band)),
+              ("config2", _batched_call(ns, hs, f2, FS, 64, True, DEVICE)),
+              ("config2 banded +-3000 Hz",
+               _batched_call(ns, hs, band, FS, 64, True, DEVICE))]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager = [core(*traced, *static)
+                 for _, (core, traced, static, *_) in cases]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    print(f"[graph] {len(cases)} eager cores raised nothing under "
+          f"set_sync_debug_mode('error')")
+    c1 = dict(cases)["config1"]
+    for (label, (core, traced, static, grid, _)), want in zip(cases, eager):
+        captures = _graph.CAPTURES
+        t0 = time.perf_counter()
+        first = _graph.compiled(core, traced, static)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        captured = _graph.CAPTURES - captures
+        got = _graph.compiled(core, traced, static)
+        check(_graph.CAPTURES == captures + captured,
+              f"[graph] {label}: a second call captured again")
+        same = same_packed_bits(first, want) and same_packed_bits(got, want)
+        flat = got.reshape(3, -1)
+        print(f"[graph] {label}: {core.__name__} static {static}: "
+              f"{'captured' if captured else 'replayed'} at its first call "
+              f"here ({first_ms:.1f} ms), replay = eager bit for bit: {same};"
+              f" first answer {float(grid[int(flat[1, 0])]):+.3f} Hz, lag "
+              f"{int(flat[2, 0])}")
+        check(same, f"[graph] {label}: the compiled call differs from its "
+                    f"eager core")
+    # A new grid of config1's shape: the same key, no capture, the eager
+    # answer for that grid.
+    call = stein(n1, h1, f1 + np.float32(0.125))
+    captures = _graph.CAPTURES
+    got = _graph.compiled(*call[:3])
+    same = same_packed_bits(got, call[0](*call[1], *call[2]))
+    print(f"[graph] config1's grid + 0.125 Hz: captures "
+          f"{_graph.CAPTURES - captures}, replay = eager: {same}")
+    check(same and _graph.CAPTURES == captures,
+          "[graph] a second grid of one key did not replay its graph")
+    # Syncs and host<->card copies a call: the public calls (replays,
+    # the answer read back), and the eager core with its read.
+    from caf_cookoff_tpu_torch import batched_stein_peak, caf_peak
+
+    per_call = {}
+    for label, fn in (
+            ("config1 caf_peak(stein)",
+             lambda: caf_peak(n1, h1, f1, FS, backend="stein",
+                              device=DEVICE)),
+            ("wide1000 caf_peak(stein)",
+             lambda: caf_peak(n1, h1, wide, FS, backend="stein",
+                              device=DEVICE)),
+            ("config2 batched_stein_peak",
+             lambda: batched_stein_peak(ns, hs, f2, FS, device=DEVICE)),
+            ("config1 eager core + read",
+             lambda: c1[0](*c1[1], *c1[2]).cpu())):
+        fn()
+        dev_ms, ops_, syncs, copies = bc._device_work(fn, 3)
+        per_call[label] = (syncs, copies)
+        print(f"[graph] {label}: {syncs:g} syncs, {copies:g} host<->card "
+              f"copies, {ops_:g} device operations, device {dev_ms:.4f} "
+              f"ms a call  [{card}]")
+    check(all(s == 1 for s, _ in per_call.values()),
+          f"[graph] a call waited on the card more than once: {per_call}")
+    # Each step alone: the eager core (no syncs inside) and the compiled
+    # call, each with the answer read back, in turns.
+    for label in ("config1", "wide1000", "config2"):
+        core, traced, static = dict(cases)[label][:3]
+        eager_ms, graph_ms_ = [], []
+        for _ in range(2):
+            eager_ms.append(cuda_median_ms(
+                lambda: core(*traced, *static).cpu(), 20, 3))
+            graph_ms_.append(cuda_median_ms(
+                lambda: _graph.compiled(core, traced, static).cpu(), 20, 3))
+        print(f"[graph] {label} whole core + read, medians of 20 in turns: "
+              f"eager {eager_ms[0]:.4f} / {eager_ms[1]:.4f} ms, compiled "
+              f"{graph_ms_[0]:.4f} / {graph_ms_[1]:.4f} ms  [{card}]")
+    for key, ms, pool in _graph.entries():
+        print(f"[graph] key {key[0].__name__} {[s for s, _ in key[2]]} "
+              f"{key[3]}: capture {ms:.1f} ms, pool "
+              f"{pool / 2 ** 20:.1f} MiB  [{card}]")
+    # The profiler sees the kernels a graph replays: its device time of
+    # config1's replay against CUDA events around the replay alone.
+    entry = _graph._CACHES[n1.device].get(_graph.static_key(*c1[:3]))
+    replay_ms = cuda_median_ms(entry.graph.replay, 20, 3)
+    prof_ms, prof_ops, _, _ = bc._device_work(entry.graph.replay, 5)
+    print(f"[graph] config1 graph replay alone: {replay_ms:.4f} ms (CUDA "
+          f"events), profiler {prof_ms:.4f} ms device time in {prof_ops:g} "
+          f"operations  [{card}]")
+    check(0.25 * replay_ms <= prof_ms <= 1.05 * replay_ms,
+          "[graph] torch.profiler does not see a replay's kernels")
 
 
 def cuda_median_ms(fn, runs: int, warmup: int = 10) -> float:
@@ -2424,6 +2571,7 @@ def main() -> int:
     err_modes = phase_kernel_modes(cfgs["config3"])
     config_launches = {name: run_config(name, cfg)
                        for name, cfg in cfgs.items()}
+    phase_graph(inputs, cfgs, card)
     lcfgs = lattice_inputs()
     err_top2, top2_shapes = phase_kernel_top2(lcfgs)
     lattice_launches = {name: run_lattice(name, cfg)

@@ -309,7 +309,7 @@ def test_wrong_truth_is_refused_before_timing(small, monkeypatch, name):
     with pytest.raises(bc.GateError, match=name):
         bc.measure(cells, 2, warmup=0,
                    timer=lambda fn: timed.append(fn) or 1.0,
-                   work=lambda fn: (0.5, 3.0), card="stub")
+                   work=lambda fn: (0.5, 3.0, 1.0, 2.0), card="stub")
     assert timed == []
 
 
@@ -338,7 +338,8 @@ def test_lines_with_a_stub_timer(small):
         return ms
 
     lines = bc.measure(cells, 3, warmup=1, timer=timer,
-                       work=lambda fn: (0.5, 7.0), card="stub card")
+                       work=lambda fn: (0.5, 7.0, 1.0, 2.0),
+                       card="stub card")
     engines = [e.call for c in cells for e in c.engines]
     assert len(engines) == 6 and len(lines) == 6
     assert order[:6] == engines
@@ -353,6 +354,7 @@ def test_lines_with_a_stub_timer(small):
         assert line["value"] == line["median_ms"] == float(np.median(ms))
         assert line["spread_ms"] == max(ms) - min(ms)
         assert line["device_ms"] == 0.5 and line["device_ops"] == 7.0
+        assert line["syncs"] == 1.0 and line["copies"] == 2.0
         assert line["host_share"] == pytest.approx(1 - 0.5 / line["value"])
         assert line["card"] == "stub card" and "commit" in line
         assert line["reduced"] and line["gate"] == "passed"

@@ -1262,6 +1262,7 @@ def test_bench_configs_one_cell_on_card(card, capsys):
     assert line["device_ms"] > 0 and line["device_ops"] > 0
     assert line["host_share"] == pytest.approx(
         1 - line["device_ms"] / line["value"])
+    assert line["syncs"] == 1       # the compiled call's one read
     assert line["card"].startswith(torch.cuda.get_device_name(0))
     head = bc.headline(line)
     assert head["vs_baseline"] == pytest.approx(bc.BASELINE_MS
@@ -1288,3 +1289,170 @@ def test_bench_scaling_one_rank_on_card(card, capsys):
         assert "efficiency" not in ln
     with pytest.raises(ValueError, match="N = 1 only"):
         bs.run(["doppler"], [1, 2], "cuda")
+
+
+# ---------------------------------------------------------------------------
+# The compiled call (ops/_graph): one CUDA graph per static key
+# ---------------------------------------------------------------------------
+
+
+def _golden(idx, grid):
+    needle_path, hay_path = ensure_fixtures(DATA)[idx]
+    needle = load_c64(needle_path)
+    return (torch.from_numpy(needle).cuda(),
+            torch.from_numpy(load_c64(hay_path, count=len(needle))).cuda(),
+            FreqGrid(*grid).frequencies(np.float32))
+
+
+def _same_bits(a, b):
+    """The packed answers' bits: values, frequency bins and lags."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int64),
+                                              b.view(torch.int64))
+
+
+def _replay_and_eager(core, traced, static, *_):
+    """A replay of the key's graph (captured first if it is not kept)
+    and the eager core on the same inputs."""
+    from caf_cookoff_tpu_torch.ops import _graph
+
+    _graph.compiled(core, traced, static)
+    captures = _graph.CAPTURES
+    got = _graph.compiled(core, traced, static)
+    assert _graph.CAPTURES == captures
+    return got, core(*traced, *static)
+
+
+def _wide_calls():
+    """chirp_0 on wide1000's grid (one program, D = 8, G's rows over a
+    cluster) and on +-3000 Hz (banded)."""
+    from caf_cookoff_tpu_torch.models.stein import _stein_call
+
+    n, h, _ = _golden(0, GOLDEN[0][1])
+    return [_stein_call(n, h, FreqGrid(-span, span, step).frequencies(
+        np.float32), FS, 64, True, None, "cuda")
+            for span, step in ((1000.0, 5.0), (3000.0, 25.0))]
+
+
+def _batch_calls(pairs=8):
+    """A config-2 batch (its recipe, 8 pairs) on the bench grid and on
+    +-3000 Hz (banded)."""
+    from caf_cookoff_tpu_torch.models.batched_stein import _batched_call
+    from caf_cookoff_tpu_torch.utils import bench_configs as bc
+
+    needles, hays, freqs, _, _ = bc.build_config2(pairs=pairs)
+    ns, hs = torch.from_numpy(needles).cuda(), torch.from_numpy(hays).cuda()
+    wide = FreqGrid(-3000.0, 3000.0, 25.0).frequencies(np.float32)
+    return [_batched_call(ns, hs, g, FS, 64, True, "cuda")
+            for g in (freqs, wide)]
+
+
+@pytest.mark.parametrize("idx,grid,want_freq,want_lag", GOLDEN)
+def test_compiled_call_is_the_eager_core_goldens_on_card(
+        card, idx, grid, want_freq, want_lag):
+    """``stein_caf_peak``'s replayed graph is its eager core bit for bit
+    (value bits, bin, lag) on every golden, K1 fused."""
+    from caf_cookoff_tpu_torch.models.stein import _stein_call
+
+    call = _stein_call(*_golden(idx, grid), FS, 64, True, None, "cuda")
+    assert call[2][-1] is True
+    got, want = _replay_and_eager(*call)
+    assert _same_bits(got, want)
+    assert float(call[3][int(got[1])]) == pytest.approx(want_freq, abs=1e-4)
+    assert int(got[2]) == want_lag
+
+
+def test_compiled_call_is_the_eager_core_wide_and_batched_on_card(card):
+    """wide1000, a banded +-3000 Hz grid, a config-2 batch and the
+    banded batch: each replay bit for bit its eager core."""
+    from caf_cookoff_tpu_torch.models.batched_stein import _banded_core
+
+    calls = _wide_calls() + _batch_calls()
+    assert [c[0] is _banded_core for c in calls] == [False, True, False,
+                                                     True]
+    for call in calls:
+        got, want = _replay_and_eager(*call)
+        assert _same_bits(got, want), call[0].__qualname__
+
+
+def test_second_grid_of_the_same_size_replays_on_card(card):
+    """A new grid of the same K replays the captured graph (no capture)
+    and gives the eager answer for that grid."""
+    from caf_cookoff_tpu_torch.models.stein import _stein_call
+    from caf_cookoff_tpu_torch.ops import _graph
+
+    n, h, freqs = _golden(0, GOLDEN[0][1])
+    first = _stein_call(n, h, freqs, FS, 64, True, None, "cuda")
+    _graph.compiled(*first[:3])
+    second = _stein_call(n, h, freqs + np.float32(0.125), FS, 64, True, None,
+                         "cuda")
+    assert (_graph.static_key(*first[:3])
+            == _graph.static_key(*second[:3]))
+    captures = _graph.CAPTURES
+    got = _graph.compiled(*second[:3])
+    assert _graph.CAPTURES == captures
+    assert _same_bits(got, second[0](*second[1], *second[2]))
+    assert float(second[3][int(got[1])]) != float(freqs[int(got[1])])
+
+
+def test_main_path_makes_no_sync_on_card(card):
+    """With the signals on the card: the plans, the eager cores and a
+    replay raise nothing under ``set_sync_debug_mode("error")``; only
+    reading the answer waits."""
+    from caf_cookoff_tpu_torch.models.stein import _stein_call
+    from caf_cookoff_tpu_torch.ops import _graph
+
+    n, h, freqs = _golden(0, GOLDEN[0][1])
+    calls = [_stein_call(n, h, freqs, FS, 64, True, None, "cuda")]
+    calls += _wide_calls() + _batch_calls()
+    for call in calls:
+        _graph.compiled(*call[:3])       # captured outside the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _stein_call(n, h, freqs, FS, 64, True, None, "cuda")
+        for core, traced, static, *_ in calls:
+            core(*traced, *static)
+            _graph.compiled(core, traced, static)
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            calls[0][0](*calls[0][1], *calls[0][2]).cpu()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def test_launches_count_replays_on_card(card):
+    """K1's counters count every replay's launch (and the split one of
+    wide1000), not the capture."""
+    from caf_cookoff_tpu_torch.models.stein import _stein_call
+    from caf_cookoff_tpu_torch.ops import _graph
+
+    n, h, freqs = _golden(9, GOLDEN[9][1])
+    call = _stein_call(n, h, freqs + np.float32(0.0625), FS, 64, True, None,
+                       "cuda")
+    wide = _wide_calls()[0]
+    before = fs.LAUNCHES, fs.SPLIT_LAUNCHES
+    for _ in range(3):
+        _graph.compiled(*call[:3])
+        _graph.compiled(*wide[:3])
+    assert (fs.LAUNCHES, fs.SPLIT_LAUNCHES) == (before[0] + 6,
+                                                before[1] + 3)
+    keys = [k for k, ms, pool in _graph.entries()
+            if k[0] in (call[0], wide[0])]
+    assert keys and all(ms > 0 and pool >= 0
+                        for k, ms, pool in _graph.entries())
+
+
+def test_failed_capture_raises_and_keeps_nothing_on_card(card):
+    """A core the card cannot capture (it reads a value back) raises,
+    keeps no graph and leaves the caller's stream current."""
+    from caf_cookoff_tpu_torch.ops import _graph
+
+    def reads_back(x):
+        return x * float(x.sum())
+
+    x = torch.ones(4, device="cuda")
+    stream = torch.cuda.current_stream()
+    with pytest.raises(RuntimeError, match="capture of"):
+        _graph.compiled(reads_back, (x,))
+    assert torch.cuda.current_stream() == stream
+    assert not [k for k, *_ in _graph.entries() if k[0] is reads_back]
+    assert float((x * 2.0).sum()) == 8.0
