@@ -325,14 +325,21 @@ def _os_operands(ns, hs, centers, rel, sample_rate, v: int,
     h_ext = _os_window_extensions(hs.real, hs.imag, v, windows,
                                   fused_span(b, sup, v))
     ws1, ws2 = stein_synthesis_weights(rel, sample_rate, b, block_len)
-    # The last window's range may end mid-window, and real capture
-    # samples past it must not shadow in-range peaks inside the per-bin
-    # max: each program is bounded by clip(total - w*V, 0, V).
-    per_w = np.clip(total_lags - np.arange(windows) * v, 0, v)
-    num_valid = torch.as_tensor(np.tile(per_w, p * s), dtype=torch.int32,
-                                device=ns.device)
     return (ws1, ws2, lmat, h_ext), b, sup, {
-        "windows": windows, "share_h": s, "num_valid": num_valid}
+        "windows": windows, "share_h": s,
+        "num_valid": _window_bounds(total_lags, v, windows, p * s,
+                                    ns.device)}
+
+
+def _window_bounds(total_lags: int, v: int, windows: int, programs: int,
+                   device) -> torch.Tensor:
+    """(programs * windows,) int32 lag bounds, made on ``device``: the
+    last window's range may end mid-window, and real capture samples past
+    it must not shadow in-range peaks inside the per-bin max, so window
+    ``w`` of each program is bounded by ``clip(total - w*V, 0, V)``."""
+    w = torch.arange(windows, dtype=torch.int64, device=device)
+    return torch.clamp(total_lags - w * v, 0, v).repeat(programs).to(
+        torch.int32)
 
 
 def _best_window(vals, idxs, v: int, total_lags: int):
@@ -371,6 +378,29 @@ def _stein_os(ns, hs, freqs_all, centers, rel, sample_rate, xcor_len: int,
     return _os_topk_refine(ns, hs, freqs_all, rowmax, rowlag, sample_rate,
                            xcor_len, total_lags, needle_len,
                            num_valid_bins=num_bins)
+
+
+def _os_core(ns, hs, freqs_t, sample_rate, xcor_len: int, block_len: int,
+             windows: int, total_lags: int, needle_len: int) -> torch.Tensor:
+    """:func:`batched_stein_os_peak`'s compiled core (``ops/_graph``; the
+    counterpart of JAX's ``_batched_stein_os_jit``): the needles
+    SUPER-padded, :func:`_stein_os` on the grid, the answer packed."""
+    n = ns.shape[-1]
+    return _pack(_stein_os(pad_to(ns, n + (-n) % SUPER), hs, freqs_t, None,
+                           freqs_t, sample_rate, xcor_len, block_len,
+                           windows, total_lags, needle_len))
+
+
+def _banded_os_core(ns, hs, freqs_pad, centers, rel, sample_rate,
+                    xcor_len: int, block_len: int, windows: int,
+                    total_lags: int, needle_len: int,
+                    num_bins: int) -> torch.Tensor:
+    """The banded windowed engine's compiled core (JAX's
+    ``_banded_stein_os_jit``): :func:`_stein_os` over (pair, band,
+    window) programs, the answer packed."""
+    return _pack(_stein_os(ns, hs, freqs_pad, centers, rel, sample_rate,
+                           xcor_len, block_len, windows, total_lags,
+                           needle_len, num_bins))
 
 
 def _batch(needles, haystacks, device):
@@ -437,12 +467,25 @@ def batched_stein_os_peak(needles, haystacks, freqs_hz, sample_rate, *,
     coarse winning lag.  Uniform grids route through the banded windowed
     engine whenever the band plan's modelled cost wins
     (:func:`caf_cookoff_tpu_torch.models.stein._band_routing`), which
-    covers spans the single-band envelope cannot take at all.  Every FFT
-    ``backend`` name runs ``torch.fft``.
+    covers spans the single-band envelope cannot take at all.  On a card
+    the call is a compiled call (``ops/_graph``): one CUDA graph per
+    shape and static argument, nothing read back but the packed answer.
+    Every FFT ``backend`` name runs ``torch.fft``.
     """
+    resolve_backend(backend)
+    core, traced, static, freqs, vdt = _os_call(
+        needles, haystacks, freqs_hz, sample_rate, num_lags, block_len,
+        device)
+    return _host(freqs, _graph.compiled(core, traced, static), vdt)
+
+
+def _os_call(needles, haystacks, freqs_hz, sample_rate,
+             num_lags: Optional[int], block_len: int, device):
+    """:func:`batched_stein_os_peak`'s checks and routing: ``(core,
+    traced, static, host grid, value dtype)`` of its compiled call, the
+    banded core where the band plan wins."""
     from caf_cookoff_tpu_torch.models.stein import _band_routing
 
-    resolve_backend(backend)
     ns, hs, rdtype = _batch(needles, haystacks, device)
     if ns.ndim != 2 or hs.ndim != 2 or ns.shape[0] != hs.shape[0]:
         raise ValueError(
@@ -465,14 +508,13 @@ def batched_stein_os_peak(needles, haystacks, freqs_hz, sample_rate, *,
     windows = -(-total_lags // m)
     dev = ns.device
     if use_banded:
-        peak = _stein_os(ns, hs, _as_tensor(freqs_pad, dev),
-                         _as_tensor(centers, dev), _as_tensor(rel, dev), fs,
-                         m, d, windows, total_lags, n, len(freqs))
-        return _host(freqs_pad, peak)
-    freqs_t = _as_tensor(freqs, dev)
-    peak = _stein_os(pad_to(ns, n + (-n) % SUPER), hs, freqs_t, None,
-                     freqs_t, fs, m, d, windows, total_lags, n)
-    return _host(freqs, peak)
+        traced = (ns, hs, *(_as_tensor(x, dev)
+                            for x in (freqs_pad, centers, rel)))
+        return (_banded_os_core, traced,
+                (fs, m, d, windows, total_lags, n, len(freqs)), freqs_pad,
+                ns.real.dtype)
+    return (_os_core, (ns, hs, _grid_on(freqs_hz, freqs, dev)),
+            (fs, m, d, windows, total_lags, n), freqs, ns.real.dtype)
 
 
 def batched_stein_peak(needles, haystacks, freqs_hz, sample_rate, *,

@@ -4,9 +4,10 @@ The engine keeps the ``N-1`` tail samples of each chunk, so correlations
 that straddle a chunk boundary are never lost, and carries the running
 global peak (or a top-P lattice) with absolute lag indices.  The state
 stays on the engine's device between chunks: the tail, the running
-best, the carried re-score windows and the floor sums.
+best, the carried re-score windows, the floor sums and the window's
+base lag (int32, as the JAX package traces it).
 
-Each chunk runs one step, a plain function on tensors:
+Each chunk runs one step, a plain function of tensors and static ints:
 
 * cuFFT steps (:func:`_stream_step`, :func:`_stream_lattice_step`): the
   window ``[tail | chunk]`` through ``models/overlap_save.streaming_peak``
@@ -21,6 +22,14 @@ Each chunk runs one step, a plain function on tensors:
   candidate, which :meth:`StreamingCAF.best` / :meth:`StreamingCAF.peaks`
   re-score with exact filterbank rows (:func:`_stein_lattice_rescore`).
 
+The base lag and the valid length are tensors, so a step reads nothing
+back and one compiled call (``ops/_graph``: one CUDA graph per static
+key on a card, as JAX jits each step) serves every chunk of a stream.
+Each step returns ``(*best, *carry, tail, base_lag + valid, local)``:
+the running best's three fields, two carried tensors (the floor sums,
+or the re-score window and its start), the next tail, the next base lag
+and this chunk's peak packed as one (3,) f64 tensor.
+
 On a CUDA device the Stein steps launch K1 (a failed build or launch
 raises); on the CPU K1 runs its plain version.
 """
@@ -34,9 +43,14 @@ import numpy as np
 import torch
 
 from caf_cookoff_tpu_torch.config import as_grid, resolve_backend, xcor_length
+from caf_cookoff_tpu_torch.models.batched_stein import (_as_tensor, _host,
+                                                        _needle_operator,
+                                                        _pack,
+                                                        _pow2_block_len)
 from caf_cookoff_tpu_torch.models.filterbank import _surface_rows, mag2
 from caf_cookoff_tpu_torch.models.overlap_save import (needle_spectra_conj,
                                                        streaming_peak)
+from caf_cookoff_tpu_torch.ops import _graph
 from caf_cookoff_tpu_torch.ops.fused_stein import (SUPER, check_kernel_shape,
                                                    fused_span,
                                                    fused_stein_rank,
@@ -55,6 +69,7 @@ from caf_cookoff_tpu_torch.utils.convert import as_signal
 # here and nowhere else.
 _RESCORE_GUARD = 64
 _RESCORE_PAD = 2 * _RESCORE_GUARD
+_INT32_MAX = 2 ** 31 - 1
 
 
 def _take(take: torch.Tensor, new: CafPeak, old: CafPeak) -> CafPeak:
@@ -62,41 +77,54 @@ def _take(take: torch.Tensor, new: CafPeak, old: CafPeak) -> CafPeak:
     return CafPeak(*(torch.where(take, a, b) for a, b in zip(new, old)))
 
 
-def _stream_step(s_conj, tail, chunk, best, fsum, fcnt, base_lag: int,
-                 valid_len: int, needle_len: int):
+def _next_tail(window: torch.Tensor, num_valid: torch.Tensor,
+               halo: int) -> torch.Tensor:
+    """``window[valid:valid + halo]`` gathered on the device (JAX's
+    ``dynamic_slice``): the next tail ends at the last valid sample."""
+    idx = num_valid.long() + torch.arange(halo, device=window.device)
+    return window.index_select(-1, idx)
+
+
+def _stream_step(s_conj, tail, chunk, best_value, best_freq, best_lag,
+                 fsum, fcnt, base_lag, num_valid, needle_len: int):
     """One cuFFT step: correlate ``[tail | chunk]``, update the best.
 
     The window covers lags ``[base_lag, base_lag + chunk_len)``: each new
     sample admits one new lag, so consecutive windows tile the capture's
-    lag axis.  Lags past ``valid_len`` (a zero-padded short chunk) are
-    masked; ``fsum``/``fcnt`` gain this window's valid cells.  Returns
-    ``(best, local, tail, fsum, fcnt)``."""
+    lag axis.  Lags past ``num_valid`` (a zero-padded short chunk) are
+    masked; ``fsum``/``fcnt`` gain this window's valid cells."""
     window = torch.cat([tail, chunk])
+    total = base_lag + num_valid[0]
     local, wsum, wcnt = streaming_peak(
         s_conj, window, needle_len, chunk.shape[-1], lag_offset=base_lag,
-        total_lags=base_lag + valid_len, with_floor=True)
-    new_tail = window[valid_len:valid_len + needle_len - 1]
-    return (_take(local.value > best.value, local, best), local, new_tail,
-            fsum + wsum, fcnt + wcnt)
+        total_lags=total, with_floor=True)
+    best = _take(local.value > best_value, local,
+                 CafPeak(best_value, best_freq, best_lag))
+    return (*best, fsum + wsum, fcnt + wcnt,
+            _next_tail(window, num_valid, needle_len - 1), total,
+            _pack(local))
 
 
-def _stream_lattice_step(s_conj, tail, chunk, best, fsum, fcnt,
-                         base_lag: int, valid_len: int, needle_len: int,
-                         num_peaks: int, exclude_freq: int,
+def _stream_lattice_step(s_conj, tail, chunk, best_value, best_freq,
+                         best_lag, fsum, fcnt, base_lag, num_valid,
+                         needle_len: int, num_peaks: int, exclude_freq: int,
                          exclude_lag: int):
     """The multi-emitter cuFFT step: this window's top-``num_peaks``
     lattice NMS-merged into the running one, so an emitter whose skirt
-    leaks into the next window is counted once.  Returns ``(best, local,
-    tail, fsum, fcnt)``, ``local`` this window's lattice."""
+    leaks into the next window is counted once; ``local`` is the
+    window's strongest entry."""
     window = torch.cat([tail, chunk])
+    total = base_lag + num_valid[0]
     local, wsum, wcnt = streaming_peak(
         s_conj, window, needle_len, chunk.shape[-1], lag_offset=base_lag,
-        total_lags=base_lag + valid_len, num_peaks=num_peaks,
-        exclude_freq=exclude_freq, exclude_lag=exclude_lag, with_floor=True)
-    merged = merge_peaks(concat_peaks(best, local), num_peaks, exclude_freq,
-                         exclude_lag)
-    new_tail = window[valid_len:valid_len + needle_len - 1]
-    return merged, local, new_tail, fsum + wsum, fcnt + wcnt
+        total_lags=total, num_peaks=num_peaks, exclude_freq=exclude_freq,
+        exclude_lag=exclude_lag, with_floor=True)
+    merged = merge_peaks(
+        concat_peaks(CafPeak(best_value, best_freq, best_lag), local),
+        num_peaks, exclude_freq, exclude_lag)
+    return (*merged, fsum + wsum, fcnt + wcnt,
+            _next_tail(window, num_valid, needle_len - 1), total,
+            _pack(CafPeak(*(x[0] for x in local))))
 
 
 def stein_window_operand(tail, chunk, num_blocks: int, group: int):
@@ -129,40 +157,42 @@ def _carry_slices(wpad: torch.Tensor, tau_loc: torch.Tensor, carry: int):
     return wpad[idx], starts
 
 
-def _stein_stream_step(ws1, ws2, lmat, tail, chunk, best, bw, bw_start,
-                       num_valid, base_lag: int, valid_len: int,
+def _stein_stream_step(ws1, ws2, lmat, tail, chunk, best_value, best_freq,
+                       best_lag, bw, bw_start, base_lag, num_valid,
                        num_blocks: int, group: int, needle_len: int,
                        carry: int):
     """One Stein step: K1 over ``[tail | chunk]``, the bin argmax (the
     lowest bin on ties), the running best, and — where this window's
     peak wins — its carried window slice for :meth:`StreamingCAF.best`'s
-    exact re-score.  Returns ``(best, local, tail, bw, bw_start)``."""
+    exact re-score."""
     wpad, (vals, idxs) = _stein_window(ws1, ws2, lmat, tail, chunk,
                                        num_blocks, group, num_valid, carry)
     vals = vals[:, 0]
-    k_loc = torch.argmax(vals)
-    tau_loc = idxs[k_loc, 0]
-    local = CafPeak(vals[k_loc], k_loc.to(torch.int32), tau_loc + base_lag)
-    take = local.value > best.value
+    # A (1,) index: a 0-d tensor index would be read back to the host.
+    k_loc = torch.argmax(vals).reshape(1)
+    tau_loc = idxs[:, 0].index_select(0, k_loc)[0]
+    local = CafPeak(vals.index_select(0, k_loc)[0], k_loc[0].to(torch.int32),
+                    tau_loc + base_lag)
+    take = local.value > best_value
     cand, start = _carry_slices(wpad, tau_loc, carry)
-    new_tail = wpad[valid_len:valid_len + needle_len - 1]
-    return (_take(take, local, best), local, new_tail,
-            torch.where(take, cand, bw),
-            torch.where(take, start + base_lag, bw_start))
+    best = _take(take, local, CafPeak(best_value, best_freq, best_lag))
+    return (*best, torch.where(take, cand, bw),
+            torch.where(take, start + base_lag, bw_start),
+            _next_tail(wpad, num_valid, needle_len - 1),
+            base_lag + num_valid[0], _pack(local))
 
 
-def _stein_stream_lattice_step(ws1, ws2, lmat, tail, chunk, best, bws,
-                               bw_starts, num_valid, base_lag: int,
-                               valid_len: int, num_blocks: int, group: int,
+def _stein_stream_lattice_step(ws1, ws2, lmat, tail, chunk, best_value,
+                               best_freq, best_lag, bws, bw_starts, base_lag,
+                               num_valid, num_blocks: int, group: int,
                                needle_len: int, carry: int, num_peaks: int,
                                exclude_freq: int, exclude_lag: int):
     """The multi-emitter Stein step: K1's top-2 mode (e) gives two lag
     candidates a bin more than ``exclude_lag`` apart (exact for any pair
     past ``sep``); both slots fold into this window's NMS lattice, each
     entry gathers its own window slice, and the lattice merges into the
-    carried one with the slices following their entries.  Returns
-    ``(best, bws, bw_starts, local, tail)``, ``local`` this window's
-    strongest entry."""
+    carried one with the slices following their entries; ``local`` is
+    the window's strongest entry."""
     wpad, (vals, idxs, vals2, idxs2) = _stein_window(
         ws1, ws2, lmat, tail, chunk, num_blocks, group, num_valid, carry,
         want_top2=True, sep=exclude_lag)
@@ -175,14 +205,15 @@ def _stein_stream_lattice_step(ws1, ws2, lmat, tail, chunk, best, bws,
     chunk_lat = merge_peaks(cands, num_peaks, exclude_freq, exclude_lag)
     chunk_bws, starts = _carry_slices(wpad, chunk_lat.lag_idx - base_lag,
                                       carry)
-    merged, sel = merge_peaks(concat_peaks(best, chunk_lat), num_peaks,
-                              exclude_freq, exclude_lag, return_indices=True)
+    merged, sel = merge_peaks(
+        concat_peaks(CafPeak(best_value, best_freq, best_lag), chunk_lat),
+        num_peaks, exclude_freq, exclude_lag, return_indices=True)
     sel = sel.long()
-    new_bws = torch.cat([bws, chunk_bws])[sel]
-    new_starts = torch.cat([bw_starts, starts + base_lag])[sel]
-    local = CafPeak(*(x[0] for x in chunk_lat))
-    new_tail = wpad[valid_len:valid_len + needle_len - 1]
-    return merged, new_bws, new_starts, local, new_tail
+    return (*merged, torch.cat([bws, chunk_bws])[sel],
+            torch.cat([bw_starts, starts + base_lag])[sel],
+            _next_tail(wpad, num_valid, needle_len - 1),
+            base_lag + num_valid[0],
+            _pack(CafPeak(*(x[0] for x in chunk_lat))))
 
 
 def _stein_lattice_rescore(needle, bws, offs, freqs_t, sample_rate: float,
@@ -206,13 +237,22 @@ def _stein_lattice_rescore(needle, bws, offs, freqs_t, sample_rate: float,
     return find_peak_2d(torch.where(keep[:, None, :], surf, -math.inf))
 
 
-def _energy(chunk) -> float:
+def _energy(chunk, device: torch.device):
     """Σ|h|² of a chunk as the JAX package sums it: each float plane's
-    squares summed in the plane's dtype, on the host for host arrays."""
+    squares summed in the plane's dtype.  A tensor on ``device`` gives a
+    0-d f64 tensor there (nothing read back); a host chunk a float."""
     if isinstance(chunk, torch.Tensor):
-        return float((chunk.real.square().sum()
-                      + chunk.imag.square().sum()).item())
+        e = chunk.real.square().sum() + chunk.imag.square().sum()
+        return e.double() if chunk.device == device else float(e.item())
     return float(np.sum(chunk.real ** 2) + np.sum(chunk.imag ** 2))
+
+
+def _upload(chunk, device: torch.device) -> torch.Tensor:
+    """A chunk as a complex tensor on ``device``; one from the host goes
+    up without waiting for the card."""
+    x = as_signal(chunk, chunk.device if isinstance(chunk, torch.Tensor)
+                  else "cpu")
+    return x.to(device, non_blocking=x.device.type == "cpu")
 
 
 class StreamingCAF:
@@ -241,6 +281,13 @@ class StreamingCAF:
     gives D = 8 and 2B = 1024, which K1 shares over a cluster of 2
     blocks a lag tile.  Past K1's ceiling (9984 rows at D <= 128) a Stein
     stream raises ``VmemBudgetError`` here, at construction.
+
+    On a card each step, the needle's spectra and the exact re-score are
+    compiled calls (``ops/_graph``): one CUDA graph per static key, so a
+    stream's chunks, a short last one padded to the pinned length among
+    them, replay one graph.  A chunk reads back only its packed peak.
+    Lags are int32, as in the JAX package: past 2**31 - 1 a step raises
+    ``OverflowError``.
     """
 
     def __init__(self, needle, freqs_hz, sample_rate, *,
@@ -263,8 +310,7 @@ class StreamingCAF:
         self.sample_rate = float(sample_rate)
         rdtype = np.float64 if n.dtype == torch.complex128 else np.float32
         self._freqs = as_grid(freqs_hz, dtype=rdtype)
-        freqs_t = self._freqs_t = torch.from_numpy(self._freqs).to(
-            self.device)
+        freqs_t = self._freqs_t = _as_tensor(self._freqs, self.device)
         n_host = n.cpu().numpy()
         # Resolution once, after input validation, and only where used.
         if self._stein or (self._num_peaks > 1 and
@@ -278,9 +324,6 @@ class StreamingCAF:
         p = self._num_peaks
         slots = (p,) if p > 1 else ()
         if self._stein:
-            from caf_cookoff_tpu_torch.models.batched_stein import (
-                _needle_operator, _pow2_block_len)
-
             # The exact re-score's slack around each carried candidate
             # is resolution-derived (at least 4 samples, for bf16
             # flat-top ties), whatever the NMS windows.
@@ -299,18 +342,21 @@ class StreamingCAF:
             self._bw = n.new_zeros(slots + (self._carry,))
             self._bw_start = torch.zeros(slots, dtype=torch.int32,
                                          device=self.device)
-            self._num_valid = {}      # valid length -> its (1,) tensor
         else:
-            self._s_conj = needle_spectra_conj(
-                n, freqs_t, self.sample_rate, xcor_length(self.needle_len))
+            self._s_conj = _graph.compiled(
+                needle_spectra_conj, (n, freqs_t),
+                (self.sample_rate, xcor_length(self.needle_len)))
+        self._num_valid = {}      # valid length -> its (1,) int32 tensor
         self._tail = n.new_zeros(self.needle_len - 1)
         # Floor state: measured (sum, count) accumulators for the cuFFT
         # steps; sample-energy sums for the Stein steps' model floor (K1
-        # reduces each bin to its (max, argmax): no cells to average).
+        # reduces each bin to its (max, argmax): no cells to average),
+        # an f64 sum of each chunk's plane sums, as a Python float adds.
         self._fsum = torch.zeros((), dtype=n.real.dtype, device=self.device)
         self._fcnt = torch.zeros_like(self._fsum)
-        self._h2_sum = 0.0
-        self._needle_energy = _energy(n_host)
+        self._h2_sum = torch.zeros((), dtype=torch.float64,
+                                   device=self.device)
+        self._needle_energy = _energy(n_host, None)
         self._best = CafPeak(
             torch.full(slots, -math.inf, dtype=n.real.dtype,
                        device=self.device),
@@ -323,8 +369,11 @@ class StreamingCAF:
         # ones split.
         self._chunk_len = int(chunk_len) if chunk_len else None
         # Lag t needs samples [t, t + N); the first tail is synthetic
-        # zeros, so window lags start at -(N-1).
+        # zeros, so window lags start at -(N-1).  The steps carry it on
+        # the device; the host copy checks int32's range.
         self._base_lag = -(self.needle_len - 1)
+        self._base = torch.full((), self._base_lag, dtype=torch.int32,
+                                device=self.device)
 
     @property
     def samples_seen(self) -> int:
@@ -341,7 +390,8 @@ class StreamingCAF:
         if self._stein:
             if self._samples_seen == 0:
                 return 0.0
-            return self._needle_energy * self._h2_sum / self._samples_seen
+            return (self._needle_energy * float(self._h2_sum)
+                    / self._samples_seen)
         fsum, cnt = torch.stack([self._fsum, self._fcnt]).tolist()
         return fsum / cnt if cnt > 0 else 0.0
 
@@ -381,50 +431,55 @@ class StreamingCAF:
 
     def _step(self, chunk) -> Tuple[float, int, float]:
         valid = int(chunk.shape[-1])
+        if self._base_lag > _INT32_MAX:
+            raise OverflowError(
+                f"window base lag {self._base_lag} past int32: a stream's "
+                f"lags are int32, as in the JAX package")
         if self._stein:
-            # Model-floor input from the valid samples, before upload.
-            self._h2_sum += _energy(chunk)
-        ch = pad_to(as_signal(chunk, self.device).to(self._cdtype),
+            # Model-floor input from the valid samples, before padding.
+            self._h2_sum = self._h2_sum + _energy(chunk, self.device)
+        ch = pad_to(_upload(chunk, self.device).to(self._cdtype),
                     self._chunk_len)
-        base = self._base_lag
+        nv = self._num_valid.get(valid)
+        if nv is None:
+            nv = self._num_valid[valid] = torch.full(
+                (1,), valid, dtype=torch.int32, device=self.device)
+        lattice = ((self._num_peaks, *self._exclude)
+                   if self._num_peaks > 1 else ())
         if self._stein:
-            nv = self._num_valid.get(valid)
-            if nv is None:
-                nv = self._num_valid[valid] = torch.tensor(
-                    [valid], dtype=torch.int32, device=self.device)
-            ops = (*self._ws, self._lmat, self._tail, ch, self._best,
-                   self._bw, self._bw_start, nv, base, valid,
-                   self._num_blocks, self._group, self.needle_len,
-                   self._carry)
-            if self._num_peaks > 1:
-                (self._best, self._bw, self._bw_start, local,
-                 self._tail) = _stein_stream_lattice_step(
-                    *ops, self._num_peaks, *self._exclude)
-            else:
-                (self._best, local, self._tail, self._bw,
-                 self._bw_start) = _stein_stream_step(*ops)
+            core = (_stein_stream_lattice_step if lattice
+                    else _stein_stream_step)
+            traced = (*self._ws, self._lmat, self._tail, ch, *self._best,
+                      self._bw, self._bw_start, self._base, nv)
+            static = (self._num_blocks, self._group, self.needle_len,
+                      self._carry, *lattice)
         else:
-            ops = (self._s_conj, self._tail, ch, self._best, self._fsum,
-                   self._fcnt, base, valid, self.needle_len)
-            if self._num_peaks > 1:
-                (self._best, local, self._tail, self._fsum,
-                 self._fcnt) = _stream_lattice_step(
-                    *ops, self._num_peaks, *self._exclude)
-                local = CafPeak(*(x[0] for x in local))
-            else:
-                (self._best, local, self._tail, self._fsum,
-                 self._fcnt) = _stream_step(*ops)
+            core = _stream_lattice_step if lattice else _stream_step
+            traced = (self._s_conj, self._tail, ch, *self._best, self._fsum,
+                      self._fcnt, self._base, nv)
+            static = (self.needle_len, *lattice)
+        *best, c0, c1, self._tail, self._base, local = _graph.compiled(
+            core, traced, static)
+        self._best = CafPeak(*best)
+        if self._stein:
+            self._bw, self._bw_start = c0, c1
+        else:
+            self._fsum, self._fcnt = c0, c1
         self._samples_seen += valid
         self._base_lag += valid
-        value, f, lag = torch.stack([x.double() for x in local]).tolist()
+        value, f, lag = local.tolist()
         return float(self._freqs[int(f)]), int(lag), value
 
     def _rescore(self, bws, offs) -> CafPeak:
-        return _stein_lattice_rescore(
-            self._n_padded, bws, offs, self._freqs_t, self.sample_rate,
-            xcor_length(self._needle_pad),
-            self._needle_pad + _RESCORE_PAD - self.needle_len,
-            self._rescore_win)
+        """:func:`_stein_lattice_rescore` as a compiled call (JAX's
+        ``_stein_lattice_rescore_jit``; ``xl``, ``max_lag`` and ``win``
+        static)."""
+        return CafPeak(*_graph.compiled(
+            _stein_lattice_rescore,
+            (self._n_padded, bws, offs, self._freqs_t),
+            (self.sample_rate, xcor_length(self._needle_pad),
+             self._needle_pad + _RESCORE_PAD - self.needle_len,
+             self._rescore_win)))
 
     def best(self) -> Tuple[float, int, float]:
         """Global running (freq_hz, lag, value) over everything seen.
@@ -479,8 +534,7 @@ class StreamingCAF:
             return (freqs, lags, vals) + ((snr,) if with_snr else ())
 
         if not self._stein:
-            value, f, lag = (x.cpu().numpy() for x in self._best)
-            return finish(self._freqs[f], lag, value)
+            return finish(*_host(self._freqs, self._best))
         pk = self._rescore(self._bw, self._best.lag_idx - self._bw_start)
         coarse, vals, bins, lags = torch.stack(
             [self._best.value.double(), pk.value.double(),

@@ -1,5 +1,6 @@
 """Compiled calls: one CUDA graph per static key, the port's counterpart
-of ``jax.jit`` on the Stein main path.
+of ``jax.jit`` on the Stein main path, the streams' steps and the
+windowed engines.
 
 ``compiled(core, traced, static)`` returns ``core(*traced, *static)``,
 a tensor or a tuple of tensors.  CPU tensors call ``core`` directly.  On
@@ -38,7 +39,11 @@ from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 
-MAX_GRAPHS = 16    # graphs a device keeps (each holds its pool's memory)
+# Graphs a device keeps (each holds its pool's memory): the benchmark's
+# cells alone make ~16 keys, the streams' and windowed engines' among
+# them, and a run that cycles through more keys than this captures anew
+# at every call.
+MAX_GRAPHS = 32
 CAPTURES = 0
 REPLAYS = 0
 

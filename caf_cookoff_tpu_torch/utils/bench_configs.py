@@ -30,7 +30,9 @@ One JSON line per (cell, engine): ``metric`` (the port's own names),
 (1 - device_ms / median_ms: the device's idle share during a call),
 ``syncs`` (``cudaStreamSynchronize`` / ``cudaDeviceSynchronize`` /
 ``cudaEventSynchronize`` calls a call), ``copies`` (host-to-card and
-card-to-host copies a call), the
+card-to-host copies a call), ``captures`` (CUDA graphs the compiled
+calls captured during the engine's timed rounds: 0 unless a key was
+evicted from ``ops/_graph``'s cache and captured again), the
 cell's units (ms a surface or a pair, samples a second), the card's
 name and ``nvidia-smi`` power limit, the git commit, and ``reduced``
 where the cell was not run at its full width.  ``headline`` prints one
@@ -60,6 +62,8 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+
+from caf_cookoff_tpu_torch.ops import _graph
 
 FS = 48_000.0
 BASELINE_MS = 28.0     # the reference's CPU ms a surface (RustFFT + pool)
@@ -801,10 +805,13 @@ def measure(cells: List[Cell], rounds: int = ROUNDS, *,
         for _ in range(warmup):
             e.call()
     samples: Dict[str, List[float]] = {_metric(c, e): [] for c, e in timed}
+    captures = dict.fromkeys(samples, 0)
     for r in range(rounds):
         k = r % max(len(timed), 1)
         for c, e in timed[k:] + timed[:k]:
+            before = _graph.CAPTURES
             samples[_metric(c, e)].append(timer(e.call))
+            captures[_metric(c, e)] += _graph.CAPTURES - before
     common = {"card": card, "commit": _commit(), "source": _source_digest()}
     lines = []
     for c in cells:
@@ -822,6 +829,7 @@ def measure(cells: List[Cell], rounds: int = ROUNDS, *,
                 "rounds": len(ms), "device_ms": dev_ms,
                 "device_ops": dev_ops, "host_share": 1.0 - dev_ms / med,
                 "syncs": syncs, "copies": copies,
+                "captures": captures[_metric(c, e)],
                 **e.units(med), "gate": "passed", "reduced": c.reduced,
                 **common})
     return lines

@@ -59,6 +59,16 @@ Phases, each reported on its own line:
    public calls' syncs and host<->card copies (``torch.profiler``: one
    sync, the answer's read); each key's capture ms and pool memory; a
    replay's device time by the profiler within CUDA events' time of it.
+   Then the streams and the windowed engines: stream3's Stein, cuFFT and
+   Stein-lattice streams and stream1000's Stein stream chunk by chunk
+   with ``best()`` / ``peaks()``, and ``batched_stein_os_peak`` at
+   configs 3 and 4 on their grids (banded) and on +-100 Hz (one band):
+   every compiled call — each step, the re-score, the needle spectra,
+   the windowed cores — against its eager core bit for bit, the eager
+   core under ``set_sync_debug_mode("error")``; a second stream of the
+   same shapes (other values) captures nothing; syncs a whole run
+   (at most 12) and a chunk (one) and a windowed call (one); the device
+   operations and time of a chunk; each new key's capture ms and pool.
 7. kernel — K1's top-2 mode (e) held to its bound in both slots, at the
    lattice shapes of phase 8 and in adversarial cases: a same-bin pair
    1.5 sep apart across a tile edge with the stronger's skirt in the
@@ -150,9 +160,10 @@ Phases, each reported on its own line:
    included), each printed beside the card's name and power limit.
 16. bench  — the port's benchmark (``python -m
    caf_cookoff_tpu_torch.utils.bench_configs``) over every cell at full
-   width in 3 interleaved rounds: every cell's gate must pass, then one
-   ``[bench]`` line a (cell, engine) with its median, best and spread,
-   device time and host share.
+   width in 3 interleaved rounds, in a child process: every cell's gate
+   must pass, then one ``[bench]`` line a (cell, engine) with its
+   median, best and spread, device time and host share, and no graph
+   captured during the timed rounds.
 17. scaling — the scaling harness (``utils/bench_scaling``) at N = 1 on
    NCCL in a child process, ``doppler`` and ``time``: gated and timed,
    no efficiency (one card gives no scaling number).
@@ -905,6 +916,182 @@ def phase_graph(inputs, cfgs, card):
           f"operations  [{card}]")
     check(0.25 * replay_ms <= prof_ms <= 1.05 * replay_ms,
           "[graph] torch.profiler does not see a replay's kernels")
+
+
+def outputs_bits(out):
+    """A compiled call's outputs as (dtype, shape, bytes) triples."""
+    import torch
+
+    out = (out,) if isinstance(out, torch.Tensor) else tuple(out)
+    return [(t.dtype, tuple(t.shape),
+             (torch.view_as_real(t.resolve_conj()) if t.is_complex()
+              else t)
+             .contiguous().view(-1).view(torch.uint8).cpu())
+            for t in out]
+
+
+def same_outputs(a, b) -> bool:
+    import torch
+
+    a, b = outputs_bits(a), outputs_bits(b)
+    return len(a) == len(b) and all(
+        x[:2] == y[:2] and torch.equal(x[2], y[2]) for x, y in zip(a, b))
+
+
+def phase_graph_streams(cfgs, card):
+    """[graph], the streams and the windowed engines: every compiled call
+    of stream3's three streams, stream1000's and configs 3 and 4 (banded
+    and one band) against its eager core bit for bit, the eager core
+    under sync-debug "error"; a second stream of the same shapes
+    captures nothing; syncs a run, a chunk and a call; each new key's
+    capture ms and pool memory."""
+    import torch
+
+    from caf_cookoff_tpu_torch import StreamingCAF, batched_stein_os_peak
+    from caf_cookoff_tpu_torch.models.batched_stein import _os_call
+    from caf_cookoff_tpu_torch.ops import _graph
+    from caf_cookoff_tpu_torch.utils import bench_configs as bc
+
+    needle, hay, two, freqs3, _, _ = bc.build_stream3()
+    n, h, h2 = (torch.from_numpy(x).to(DEVICE) for x in (needle, hay, two))
+    f1000 = np.linspace(-1000, 1000, 2000, endpoint=False).astype(
+        np.float32)
+    streams = [("stream3 Stein", h, freqs3, {"backend": "stein"}),
+               ("stream3 cuFFT", h, freqs3, {}),
+               ("stream3 Stein lattice", h2, freqs3,
+                {"backend": "stein", "num_peaks": 3}),
+               ("stream1000 Stein", h, f1000, {"backend": "stein"})]
+
+    def run(capture, freqs, kw, needle_t=n):
+        s = StreamingCAF(needle_t, freqs, FS, chunk_len=STREAM_CHUNK,
+                         device=DEVICE, **kw)
+        for i in range(0, capture.shape[-1], STREAM_CHUNK):
+            s.process(capture[i:i + STREAM_CHUNK])
+        return s.peaks() if s._num_peaks > 1 else s.best()
+
+    compiled, log = _graph.compiled, []
+
+    def eager_checked(core, traced, static=()):
+        out = compiled(core, traced, static)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eager = core(*traced, *static)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        log.append((core.__name__, same_outputs(out, eager)))
+        return out
+
+    narrow = np.arange(-100.0, 100.0, 0.5, dtype=np.float32)
+    windowed = []
+    for name in ("config3", "config4"):
+        ns, hs, freqs, lags, _ = cfgs[name]
+        ns, hs = torch.from_numpy(ns).to(DEVICE), torch.from_numpy(hs).to(
+            DEVICE)
+        windowed += [(f"{name} {label}", ns, hs, g, lags)
+                     for label, g in (("banded", freqs),
+                                      ("+-100 Hz one band", narrow))]
+    _graph.compiled = eager_checked
+    try:
+        for label, capture, freqs, kw in streams:
+            log.clear()
+            captures = _graph.CAPTURES
+            answer = run(capture, freqs, kw)
+            captured = _graph.CAPTURES - captures
+            steps = [name for name, _ in log if "step" in name]
+            same = all(ok for _, ok in log)
+            print(f"[graph] {label}: {len(steps)} steps ({steps[:1]}), "
+                  f"{len(log) - len(steps)} other compiled calls "
+                  f"({sorted({nm for nm, _ in log} - set(steps))}), "
+                  f"{captured} captured; every call = its eager core bit "
+                  f"for bit: {same}; answer {answer}")
+            check(same and len(steps) == 9,
+                  f"[graph] {label}: a compiled call differs from its "
+                  f"eager core")
+            captures = _graph.CAPTURES
+            run(capture * 2.0, freqs + np.float32(0.25), kw, n * 0.5)
+            print(f"[graph] {label}, a second stream of the same shapes "
+                  f"(other values): captures {_graph.CAPTURES - captures}")
+            check(_graph.CAPTURES == captures and all(ok for _, ok in log),
+                  f"[graph] {label}: a second stream captured or differed")
+        for label, ns, hs, g, lags in windowed:
+            log.clear()
+            core = _os_call(ns, hs, g, FS, lags, 64, DEVICE)[0]
+            first = batched_stein_os_peak(ns, hs, g, FS, num_lags=lags,
+                                          device=DEVICE)
+            again = batched_stein_os_peak(ns, hs, g, FS, num_lags=lags,
+                                          device=DEVICE)
+            same = len(log) == 2 and all(ok for _, ok in log)
+            print(f"[graph] {label}: {core.__name__}, first call and "
+                  f"replay = eager bit for bit: {same}; first pair "
+                  f"({float(first[0][0]):+.3f} Hz, {int(first[1][0])})")
+            check(same and all(np.array_equal(a, b)
+                               for a, b in zip(first, again)),
+                  f"[graph] {label}: the compiled call differs from its "
+                  f"eager core")
+    finally:
+        _graph.compiled = compiled
+    print(f"[graph] the streams' and windowed engines' eager cores raised "
+          f"nothing under set_sync_debug_mode('error')")
+    # Syncs: a whole run as the benchmark times it, and a chunk each.
+    runs = {}
+    for label, capture, freqs, kw in streams:
+        fn = (lambda c=capture, f=freqs, k=kw: run(c, f, k))
+        dev_ms, ops_, syncs, copies = bc._device_work(fn, 1)
+        s = StreamingCAF(n, freqs, FS, chunk_len=STREAM_CHUNK,
+                         device=DEVICE, **kw)
+        chunks = iter([capture[i:i + STREAM_CHUNK]
+                       for i in range(0, capture.shape[-1], STREAM_CHUNK)])
+        c_ms, c_ops, c_syncs, c_copies = bc._device_work(
+            lambda: s.process(next(chunks)), 9)
+        runs[label] = (syncs, c_syncs)
+        print(f"[graph] {label} whole run (build, 9 chunks, best/peaks): "
+              f"{syncs:g} syncs, {copies:g} host<->card copies, {ops_:g} "
+              f"device operations, device {dev_ms:.4f} ms; a chunk: "
+              f"{c_syncs:g} syncs, {c_ops:g} device operations, device "
+              f"{c_ms:.4f} ms  [{card}]")
+    for label, ns, hs, g, lags in windowed:
+        fn = (lambda a=ns, b=hs, c=g, d=lags: batched_stein_os_peak(
+            a, b, c, FS, num_lags=d, device=DEVICE))
+        dev_ms, ops_, syncs, copies = bc._device_work(fn, 3)
+        runs[label] = (syncs, syncs)
+        print(f"[graph] {label} batched_stein_os_peak: {syncs:g} syncs, "
+              f"{copies:g} host<->card copies, {ops_:g} device operations, "
+              f"device {dev_ms:.4f} ms a call  [{card}]")
+    check(all(run_ <= 12 and one == 1 for run_, one in runs.values()),
+          f"[graph] syncs a run / a chunk or call: {runs}")
+    # Where a run's host time goes: the build (the needle's read among
+    # it), each chunk (its read waits for its replay), best() / peaks().
+    for label, capture, freqs, kw in streams:
+        parts = {"build": [], "chunk": [], "best": []}
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s = StreamingCAF(n, freqs, FS, chunk_len=STREAM_CHUNK,
+                             device=DEVICE, **kw)
+            torch.cuda.synchronize()
+            parts["build"].append((time.perf_counter() - t0) * 1e3)
+            for i in range(0, capture.shape[-1], STREAM_CHUNK):
+                t0 = time.perf_counter()
+                s.process(capture[i:i + STREAM_CHUNK])
+                parts["chunk"].append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            s.peaks() if s._num_peaks > 1 else s.best()
+            parts["best"].append((time.perf_counter() - t0) * 1e3)
+        med = {k: statistics.median(v) for k, v in parts.items()}
+        print(f"[graph] {label} host clock, medians of 3 runs: build "
+              f"{med['build']:.4f} ms, a chunk {med['chunk']:.4f} ms "
+              f"(9 a run), best/peaks {med['best']:.4f} ms  [{card}]")
+    new = {"_stream_step", "_stream_lattice_step", "_stein_stream_step",
+           "_stein_stream_lattice_step", "_stein_lattice_rescore",
+           "needle_spectra_conj", "_os_core", "_banded_os_core"}
+    kept = _graph.entries()
+    for key, ms, pool in kept:
+        if key[0].__name__ in new:
+            print(f"[graph] key {key[0].__name__} "
+                  f"{[sh for sh, _ in key[2]][:6]} {key[3]}: capture "
+                  f"{ms:.1f} ms, pool {pool / 2 ** 20:.1f} MiB  [{card}]")
+    print(f"[graph] {len(kept)} keys kept (bound {_graph.MAX_GRAPHS})")
 
 
 def cuda_median_ms(fn, runs: int, warmup: int = 10) -> float:
@@ -2469,23 +2656,34 @@ def phase_rate_times(rcfgs, rshape, rate_launches, refine_inputs, card):
 
 def phase_bench(card):
     """The port's benchmark (``utils/bench_configs``) over every cell at
-    full width, 3 interleaved rounds: each cell's gate must pass (a
-    failed gate fails the run), then one line a (cell, engine) with its
-    median, best, spread, device time and host share."""
-    from caf_cookoff_tpu_torch.utils import bench_configs as bc
+    full width, 3 interleaved rounds, in a process of its own, as a user
+    runs it (late in a process that has profiled many times,
+    ``torch.profiler`` loses device records): each cell's gate must pass
+    (a failed gate fails the run), then one line a (cell, engine) with
+    its median, best, spread, device time and host share, and no graph
+    captured during the timed rounds."""
+    import subprocess
 
+    out = ROOT / "build" / "chip_smoke_bench.json"
+    out.parent.mkdir(exist_ok=True)
     t0 = time.perf_counter()
-    try:
-        lines = bc.measure(bc.build_cells(list(bc.CELLS), DEVICE), 3)
-    except bc.GateError as exc:
-        check(False, f"[bench] gate: {exc}")
+    proc = subprocess.run(
+        [sys.executable, "-m", "caf_cookoff_tpu_torch.utils.bench_configs",
+         "--rounds", "3", "--out", str(out)], cwd=ROOT, capture_output=True,
+        text=True, timeout=900)
+    check(proc.returncode == 0,
+          f"[bench] exit {proc.returncode}: {proc.stderr[-2000:]}")
+    lines = json.loads(out.read_text())["lines"]
     for line in lines:
         print(f"[bench] {json.dumps(line)}")
     timed = [ln for ln in lines if ln.get("timed", True)]
-    check(all(ln["gate"] == "passed" for ln in lines)
+    check(len(lines) >= 12 and all(ln["gate"] == "passed" for ln in lines)
           and all(ln["median_ms"] > 0 and ln["device_ms"] > 0
                   and ln["rounds"] == 3 for ln in timed),
           "[bench] lines")
+    check(all(ln["captures"] == 0 for ln in timed),
+          "[bench] a compiled call captured again during the timed rounds "
+          "(a key evicted from ops/_graph's cache)")
     print(f"[bench] {len(timed)} timed (cell, engine) lines and "
           f"{len(lines) - len(timed)} gate-only cell(s) in "
           f"{time.perf_counter() - t0:.1f} s  [{card}]")
@@ -2572,6 +2770,7 @@ def main() -> int:
     config_launches = {name: run_config(name, cfg)
                        for name, cfg in cfgs.items()}
     phase_graph(inputs, cfgs, card)
+    phase_graph_streams(cfgs, card)
     lcfgs = lattice_inputs()
     err_top2, top2_shapes = phase_kernel_top2(lcfgs)
     lattice_launches = {name: run_lattice(name, cfg)

@@ -370,3 +370,22 @@ def test_lines_with_a_stub_timer(small):
     head = bc.headline({**c4, "value": 2.0})
     assert head["metric"] == "cuda_caf_surface_peak_400x8192_ms"
     assert head["vs_baseline"] == 14.0
+
+
+def test_lines_count_captures_in_the_timed_rounds(small, monkeypatch):
+    """A compiled call that captures during the timed rounds (a key the
+    graph cache dropped) shows as a count on its own line."""
+    from caf_cookoff_tpu_torch.ops import _graph
+
+    monkeypatch.setattr(_graph, "CAPTURES", _graph.CAPTURES)
+    cells = bc.build_cells(["config3", "stream3"], "cpu", small)
+    evicted = cells[1].engines[0].call
+
+    def timer(fn):
+        if fn is evicted:
+            _graph.CAPTURES += 1
+        return 1.0
+
+    lines = bc.measure(cells, 3, warmup=1, timer=timer,
+                       work=lambda fn: (0.5, 7.0, 1.0, 2.0), card="stub")
+    assert [ln["captures"] for ln in lines] == [0, 3, 0, 0]

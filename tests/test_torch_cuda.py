@@ -1456,3 +1456,188 @@ def test_failed_capture_raises_and_keeps_nothing_on_card(card):
     assert torch.cuda.current_stream() == stream
     assert not [k for k, *_ in _graph.entries() if k[0] is reads_back]
     assert float((x * 2.0).sum()) == 8.0
+
+
+# ---------------------------------------------------------------------------
+# The streams and the windowed engines as compiled calls
+# ---------------------------------------------------------------------------
+
+
+def _tensor_bits(t):
+    t = torch.view_as_real(t.resolve_conj()) if t.is_complex() else t
+    return t.dtype, tuple(t.shape), t.contiguous().view(-1).view(torch.uint8)
+
+
+def _same_outputs(a, b):
+    a = (a,) if isinstance(a, torch.Tensor) else tuple(a)
+    b = (b,) if isinstance(b, torch.Tensor) else tuple(b)
+    return len(a) == len(b) and all(
+        x[:2] == y[:2] and torch.equal(x[2], y[2])
+        for x, y in zip(map(_tensor_bits, a), map(_tensor_bits, b)))
+
+
+@pytest.fixture
+def checked(monkeypatch):
+    """Every compiled call, then its eager core on the same inputs under
+    ``set_sync_debug_mode("error")``: a log of (core name, same bits)."""
+    from caf_cookoff_tpu_torch.ops import _graph
+
+    compiled, log = _graph.compiled, []
+
+    def check(core, traced, static=()):
+        out = compiled(core, traced, static)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eager = core(*traced, *static)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        log.append((core.__name__, _same_outputs(out, eager)))
+        return out
+
+    monkeypatch.setattr(_graph, "compiled", check)
+    return log
+
+
+def _stream3(bins=None):
+    """stream3's needle, capture, two-emitter capture and grid on the card
+    (``bins``: stream1000's +-1000 Hz grid)."""
+    from caf_cookoff_tpu_torch.utils import bench_configs as bc
+
+    needle, hay, two, freqs, _, _ = bc.build_stream3()
+    if bins:
+        freqs = np.linspace(-1000, 1000, bins, endpoint=False).astype(
+            np.float32)
+    return (torch.from_numpy(needle).cuda(), torch.from_numpy(hay).cuda(),
+            torch.from_numpy(two).cuda(), freqs)
+
+
+STREAM_ENGINES = [("stein", {"backend": "stein"}, None),
+                  ("cufft", {}, None),
+                  ("stein_lattice", {"backend": "stein", "num_peaks": 3},
+                   None),
+                  ("stein_1000", {"backend": "stein"}, 2000)]
+
+
+def _run_stream(needle, capture, freqs, chunk=8192, **kw):
+    from caf_cookoff_tpu_torch import StreamingCAF
+
+    s = StreamingCAF(needle, freqs, FS, chunk_len=chunk, device="cuda", **kw)
+    chunks = [s.process(capture[i:i + chunk])
+              for i in range(0, capture.shape[-1], chunk)]
+    return s, chunks
+
+
+@pytest.mark.parametrize("name,kw,bins", STREAM_ENGINES,
+                         ids=[e[0] for e in STREAM_ENGINES])
+def test_stream_replays_are_the_eager_steps_on_card(card, checked, name, kw,
+                                                    bins):
+    """stream3's streams (and stream1000's Stein stream): every chunk's
+    compiled step — the first call of its key and every replay, the short
+    last chunk's among them — and best() / peaks()' re-score equal their
+    eager cores bit for bit, which raise nothing under sync-debug
+    "error"."""
+    needle, hay, two, freqs = _stream3(bins)
+    s, chunks = _run_stream(needle, two if "lattice" in name else hay, freqs,
+                            **kw)
+    s.peaks() if "lattice" in name else s.best()
+    assert len(chunks) == 9
+    steps = [n for n, _ in checked if "step" in n]
+    assert len(steps) == 9
+    assert all(same for _, same in checked), checked
+    if name != "cufft":
+        assert "_stein_lattice_rescore" in dict(checked)
+
+
+@pytest.mark.parametrize("name,kw,bins", STREAM_ENGINES,
+                         ids=[e[0] for e in STREAM_ENGINES])
+def test_stream_makes_one_sync_a_chunk_on_card(card, name, kw, bins):
+    """``process`` waits on the card once a chunk (its packed peak's
+    read): the profiler counts one sync a chunk, on a stream whose keys
+    were captured by an earlier one."""
+    from caf_cookoff_tpu_torch import StreamingCAF
+    from caf_cookoff_tpu_torch.utils.bench_configs import _device_work
+
+    needle, hay, two, freqs = _stream3(bins)
+    capture = two if "lattice" in name else hay
+    _run_stream(needle, capture, freqs, **kw)
+    s = StreamingCAF(needle, freqs, FS, chunk_len=8192, device="cuda", **kw)
+    chunks = iter(capture[i:i + 8192]
+                  for i in range(0, capture.shape[-1], 8192))
+    _, _, syncs, _ = _device_work(lambda: s.process(next(chunks)), 9)
+    assert syncs == 1.0
+
+
+@pytest.mark.parametrize("name,kw,bins", STREAM_ENGINES,
+                         ids=[e[0] for e in STREAM_ENGINES])
+def test_second_stream_of_the_same_shapes_captures_nothing_on_card(
+        card, name, kw, bins):
+    """A second stream of the same shapes, other values (the capture
+    scaled, the grid shifted), replays the first one's graphs: no
+    capture, and its chunks are the eager steps' (checked elsewhere)."""
+    from caf_cookoff_tpu_torch.ops import _graph
+
+    needle, hay, two, freqs = _stream3(bins)
+    capture = two if "lattice" in name else hay
+    first, _ = _run_stream(needle, capture, freqs, **kw)
+    first.peaks() if "lattice" in name else first.best()
+    captures = _graph.CAPTURES
+    second, chunks = _run_stream(needle * 0.5, capture * 2.0,
+                                 freqs + np.float32(0.25), **kw)
+    second.peaks() if "lattice" in name else second.best()
+    assert _graph.CAPTURES == captures
+    assert len(chunks) == 9
+
+
+def _windowed_calls():
+    """config3 and config4 on their bench grids (banded) and on +-100 Hz
+    step 0.5 (one band), through batched_stein_os_peak's plan."""
+    from caf_cookoff_tpu_torch.models.batched_stein import _os_call
+    from caf_cookoff_tpu_torch.utils import bench_configs as bc
+
+    narrow = np.arange(-100.0, 100.0, 0.5, dtype=np.float32)
+    calls = []
+    for build in (bc.build_config3, bc.build_config4):
+        ns, hs, freqs, lags = build()[:4]
+        ns, hs = torch.from_numpy(ns).cuda(), torch.from_numpy(hs).cuda()
+        calls += [_os_call(ns, hs, g, FS, lags, 64, "cuda")
+                  for g in (freqs, narrow)]
+    return calls
+
+
+def test_windowed_replays_are_the_eager_cores_on_card(card):
+    """batched_stein_os_peak's replayed graphs equal their eager cores
+    bit for bit at config3 and config4, banded and not; one sync a
+    call."""
+    from caf_cookoff_tpu_torch.models.batched_stein import (
+        _banded_os_core, batched_stein_os_peak)
+    from caf_cookoff_tpu_torch.utils import bench_configs as bc
+    from caf_cookoff_tpu_torch.utils.bench_configs import _device_work
+
+    calls = _windowed_calls()
+    assert [c[0] is _banded_os_core for c in calls] == [True, False] * 2
+    for call in calls:
+        got, want = _replay_and_eager(*call)
+        assert _same_bits(got, want), call[0].__qualname__
+    ns, hs, freqs, lags = bc.build_config3()[:4]
+    ns, hs = torch.from_numpy(ns).cuda(), torch.from_numpy(hs).cuda()
+    batched_stein_os_peak(ns, hs, freqs, FS, num_lags=lags, device="cuda")
+    _, _, syncs, _ = _device_work(lambda: batched_stein_os_peak(
+        ns, hs, freqs, FS, num_lags=lags, device="cuda"), 3)
+    assert syncs == 1.0
+
+
+def test_windowed_eager_cores_make_no_sync_on_card(card):
+    from caf_cookoff_tpu_torch.ops import _graph
+
+    calls = _windowed_calls()
+    for call in calls:
+        _graph.compiled(*call[:3])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for core, traced, static, *_ in calls:
+            core(*traced, *static)
+            _graph.compiled(core, traced, static)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)

@@ -1,5 +1,7 @@
 """The compiled call (``ops/_graph``) and the Stein main path's constants
-built without copies to the card, on the CPU.
+built without copies to the card, on the CPU; the static keys of the
+streams' steps and the windowed engines, and their cores free of host
+reads and uploads.
 
 The static key must follow ``jax.jit``'s: each static argument, traced
 shape and dtype changes it, traced values never do.  The graph cache is
@@ -426,3 +428,199 @@ def test_the_cores_read_nothing_back():
     with _HostReads() as mode:
         torch.arange(3.0)[torch.tensor(1)]    # a 0-d index reads it back
     assert mode.reads
+
+
+# ---------------------------------------------------------------------------
+# The streams and the windowed engines
+# ---------------------------------------------------------------------------
+
+
+STREAM_FREQS = np.arange(-1000.0, 1000.0, 125.0, dtype=np.float32)
+STREAM_SPLITS = [0, 512, 900, 2200, 2601, 3000]   # short and oversized
+STREAM_MODES = {"cufft": {}, "cufft_lattice": {"num_peaks": 3},
+                "stein": {"backend": "stein"},
+                "stein_lattice": {"backend": "stein", "num_peaks": 3}}
+
+
+@pytest.fixture
+def recorded(monkeypatch):
+    """Every compiled call made, as ``(core, traced, static)``."""
+    calls = []
+    compiled = _graph.compiled
+
+    def record(core, traced, static=()):
+        calls.append((core, tuple(traced), tuple(static)))
+        return compiled(core, traced, static)
+
+    monkeypatch.setattr(_graph, "compiled", record)
+    return calls
+
+
+def _stream_run(mode, seed=0, n=256, cdt=np.complex64, freqs=STREAM_FREQS,
+                **kw):
+    """A stream over a seeded capture cut at STREAM_SPLITS, then its
+    best() or peaks()."""
+    from caf_cookoff_tpu_torch import StreamingCAF
+
+    rng = np.random.default_rng(seed)
+    needle = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(
+        cdt)
+    cap = (rng.standard_normal(3000) + 1j * rng.standard_normal(3000)
+           ).astype(cdt)
+    cap[700:700 + n] += needle
+    opts = {"chunk_len": 512, **STREAM_MODES[mode], **kw}
+    s = StreamingCAF(needle, freqs, FS, device="cpu", **opts)
+    for a, b in zip(STREAM_SPLITS[:-1], STREAM_SPLITS[1:]):
+        s.process(cap[a:b])
+    s.peaks() if s._num_peaks > 1 else s.best()
+    return s
+
+
+def _keys(calls, core):
+    return [_graph.static_key(c, t, st) for c, t, st in calls if c is core]
+
+
+STEPS = {"cufft": "_stream_step", "cufft_lattice": "_stream_lattice_step",
+         "stein": "_stein_stream_step",
+         "stein_lattice": "_stein_stream_lattice_step"}
+
+
+@pytest.mark.parametrize("mode", list(STREAM_MODES))
+def test_stream_step_keys_as_jax_jits(recorded, mode):
+    """One key serves every chunk of a stream — full, short (padded to
+    the pinned length) and the slices of an oversized one — and another
+    stream of the same shapes (other needle, capture and grid values);
+    the key follows chunk_len, num_peaks, the exclusions, the needle
+    length and the dtype, as JAX's ``static_argnames`` and shapes do."""
+    from caf_cookoff_tpu_torch.models import streaming as tst
+
+    core = getattr(tst, STEPS[mode])
+    _stream_run(mode)
+    keys = _keys(recorded, core)
+    assert len(keys) == 7 and len(set(keys)) == 1       # 5 chunks, 7 steps
+    recorded.clear()
+    _stream_run(mode, seed=1, freqs=STREAM_FREQS + np.float32(3.0))
+    assert set(_keys(recorded, core)) == set(keys)
+    variants = [{"chunk_len": 256}, {"n": 200},
+                {"cdt": np.complex128}]
+    if "lattice" in mode:
+        variants += [{"num_peaks": 2}, {"exclude_freq": 1, "exclude_lag": 9}]
+    for kw in variants:
+        recorded.clear()
+        _stream_run(mode, **kw)
+        other = set(_keys(recorded, core))
+        assert len(other) == 1 and not other & set(keys), kw
+
+
+@pytest.mark.parametrize("mode", ["stein", "stein_lattice", "cufft"])
+def test_stream_rescore_and_spectra_key_on_shapes_only(recorded, mode):
+    """``best()`` / ``peaks()``' exact re-score keys on (xl, max_lag,
+    win) and shapes, never on the carried state; the cuFFT stream's
+    needle spectra on (fs, fft_len) and shapes."""
+    from caf_cookoff_tpu_torch.models import overlap_save as tos
+    from caf_cookoff_tpu_torch.models import streaming as tst
+
+    s = _stream_run(mode)
+    core = tst._stein_lattice_rescore if mode != "cufft" else \
+        tos.needle_spectra_conj
+    keys = _keys(recorded, core)
+    assert len(keys) == 1
+    recorded.clear()
+    _stream_run(mode, seed=2, freqs=STREAM_FREQS - np.float32(7.0))
+    assert _keys(recorded, core) == keys
+    static = keys[0][3]
+    if mode == "cufft":
+        assert static == (FS, 512)
+    else:
+        assert static == (FS, 512, s._needle_pad + tst._RESCORE_PAD - 256,
+                          s._rescore_win)
+        assert [shape for shape, _ in keys[0][2]][1] == (
+            s._num_peaks if s._num_peaks > 1 else 1, s._carry)
+
+
+def _os_inputs(n=256, hay=3000, p=2, seed=5):
+    rng = np.random.default_rng(seed)
+    ns = (rng.standard_normal((p, n))
+          + 1j * rng.standard_normal((p, n))).astype(np.complex64)
+    hs = (1e-2 * (rng.standard_normal((p, hay))
+                  + 1j * rng.standard_normal((p, hay)))).astype(np.complex64)
+    hs[:, 1500:1500 + n] += ns
+    return ns, hs
+
+
+def test_os_plans_key_as_jax_jits():
+    """``batched_stein_os_peak``'s compiled call: the windowed core with
+    (fs, xcor_len, block_len, windows, total_lags, needle_len) static, or
+    the banded core with num_bins too (JAX's ``_batched_stein_os_jit`` /
+    ``_banded_stein_os_jit``); its CPU answer is the eager core's."""
+    ns, hs = _os_inputs()
+    freqs = np.arange(-100.0, 100.0, 12.5, dtype=np.float32)
+    core, traced, static, grid, vdt = tbs._os_call(ns, hs, freqs, FS, None,
+                                                   64, "cpu")
+    assert core is tbs._os_core and vdt == torch.float32
+    total = 3000 - 256 + 1
+    assert static[:2] == (FS, 512) and static[3:] == (-(-total // 512),
+                                                      total, 256)
+    assert [tuple(t.shape) for t in traced] == [(2, 256), (2, 3000), (16,)]
+    fr, lg, vv = tbs.batched_stein_os_peak(ns, hs, freqs, FS, device="cpu")
+    for got, want in zip(tbs._host(grid, core(*traced, *static), vdt),
+                         (fr, lg, vv)):
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+    assert lg.tolist() == [1500, 1500]
+    _, _, static2, _, _ = tbs._os_call(ns, hs, freqs, FS, 2000, 64, "cpu")
+    assert static2[3:5] == (4, 2000)
+    wide = np.arange(-3000.0, 3000.0, 25.0, dtype=np.float32)
+    core, traced, static, grid, _ = tbs._os_call(ns, hs, wide, FS, None, 64,
+                                                 "cpu")
+    assert core is tbs._banded_os_core and static[-1] == len(wide)
+    assert len(traced) == 5 and np.array_equal(grid, traced[2].numpy())
+    fr, lg, vv = tbs.batched_stein_os_peak(ns, hs, wide, FS, device="cpu")
+    assert np.array_equal(fr, tbs._host(grid, core(*traced, *static))[0])
+
+
+def test_os_key_ignores_values():
+    freqs = np.arange(-100.0, 100.0, 12.5, dtype=np.float32)
+    a = tbs._os_call(*_os_inputs(seed=1), freqs, FS, None, 64, "cpu")
+    b = tbs._os_call(*_os_inputs(seed=2), freqs + np.float32(1.0), FS, None,
+                     64, "cpu")
+    assert _graph.static_key(*a[:3]) == _graph.static_key(*b[:3])
+
+
+class _Uploads(_HostReads):
+    """Also records tensors made from host data (``torch.tensor``,
+    ``torch.as_tensor`` of numpy): on a card each is a copy to it."""
+
+    def __init__(self):
+        super().__init__()
+        self.uploads = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.__name__.split(".")[0] == "lift_fresh":
+            self.uploads.append(func.__name__)
+        return super().__torch_dispatch__(func, types, args, kwargs)
+
+
+def test_the_stream_and_windowed_cores_read_and_upload_nothing(recorded):
+    """Each new compiled core — the four steps, the re-score, the needle
+    spectra and the two windowed cores — runs without a host read and
+    without a tensor made from host data, as its capture needs."""
+    for mode in STREAM_MODES:
+        _stream_run(mode)
+    ns, hs = _os_inputs()
+    grids = (np.arange(-100.0, 100.0, 12.5, dtype=np.float32),
+             np.arange(-3000.0, 3000.0, 25.0, dtype=np.float32))
+    calls = [tbs._os_call(ns, hs, g, FS, None, 64, "cpu")[:3] for g in grids]
+    seen = {}
+    for core, traced, static in recorded + calls:
+        seen.setdefault(core.__name__, (core, traced, static))
+    assert sorted(seen) == sorted([
+        "_stream_step", "_stream_lattice_step", "_stein_stream_step",
+        "_stein_stream_lattice_step", "_stein_lattice_rescore",
+        "needle_spectra_conj", "_os_core", "_banded_os_core"])
+    for name, (core, traced, static) in seen.items():
+        with _Uploads() as mode:
+            core(*traced, *static)
+        assert mode.reads == [] and mode.uploads == [], name
+    with _Uploads() as mode:
+        torch.as_tensor(np.arange(3), dtype=torch.int32)
+    assert mode.uploads
