@@ -1,0 +1,8 @@
+"""idle_share (%): the share of the traced window in which no kernel,
+memcpy or memset ran on the card."""
+
+
+def read(run):
+    if run.trace is None:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s / run.trace.window_s)
