@@ -55,6 +55,7 @@ from caf_cookoff_tpu_torch.ops.peak import (CafPeak, _lag_distance,
 from caf_cookoff_tpu_torch.ops.shift import numpy_real
 from caf_cookoff_tpu_torch.ops.xcor import pad_to
 from caf_cookoff_tpu_torch.utils.convert import as_signal
+from caf_cookoff_tpu_torch.utils.profiling import recording, span
 
 
 def _pow2_block_len(sample_rate: float, freqs_hz: np.ndarray,
@@ -423,11 +424,28 @@ def _host(freqs: np.ndarray, peak, value_dtype=None):
     or ``(P, k)`` lattices) from a :class:`CafPeak`, or from its
     :func:`_pack`ed form with the values' ``value_dtype``: one copy to
     the host."""
-    if isinstance(peak, CafPeak):
-        peak, value_dtype = _pack(peak), peak.value.dtype
-    value, freq_idx, lag = peak.cpu().numpy()
-    return (freqs[freq_idx.astype(np.int64)], lag.astype(np.int32),
-            value.astype(numpy_real(value_dtype)))
+    with span("caf.read"):
+        if isinstance(peak, CafPeak):
+            peak, value_dtype = _pack(peak), peak.value.dtype
+        value, freq_idx, lag = peak.cpu().numpy()
+        return (freqs[freq_idx.astype(np.int64)], lag.astype(np.int32),
+                value.astype(numpy_real(value_dtype)))
+
+
+def _compiled_call(backend, plan, *args):
+    """A public call: ``plan(*args)``'s checks and routing (``(core,
+    traced, static, host grid, value dtype)``), its compiled call and the
+    packed read, with the spans ``caf.call`` and ``caf.prep`` while a
+    profiler runs."""
+    if not recording():
+        resolve_backend(backend)
+        core, traced, static, freqs, vdt = plan(*args)
+        return _host(freqs, _graph.compiled(core, traced, static), vdt)
+    with span("caf.call"):
+        with span("caf.prep"):
+            resolve_backend(backend)
+            core, traced, static, freqs, vdt = plan(*args)
+        return _host(freqs, _graph.compiled(core, traced, static), vdt)
 
 
 def _as_tensor(x: np.ndarray, device) -> torch.Tensor:
@@ -472,11 +490,8 @@ def batched_stein_os_peak(needles, haystacks, freqs_hz, sample_rate, *,
     shape and static argument, nothing read back but the packed answer.
     Every FFT ``backend`` name runs ``torch.fft``.
     """
-    resolve_backend(backend)
-    core, traced, static, freqs, vdt = _os_call(
-        needles, haystacks, freqs_hz, sample_rate, num_lags, block_len,
-        device)
-    return _host(freqs, _graph.compiled(core, traced, static), vdt)
+    return _compiled_call(backend, _os_call, needles, haystacks, freqs_hz,
+                          sample_rate, num_lags, block_len, device)
 
 
 def _os_call(needles, haystacks, freqs_hz, sample_rate,
@@ -532,11 +547,8 @@ def batched_stein_peak(needles, haystacks, freqs_hz, sample_rate, *,
     nothing read back but the packed answer.  Every FFT ``backend``
     name runs ``torch.fft``.
     """
-    resolve_backend(backend)
-    core, traced, static, freqs, vdt = _batched_call(
-        needles, haystacks, freqs_hz, sample_rate, block_len, refine,
-        device)
-    return _host(freqs, _graph.compiled(core, traced, static), vdt)
+    return _compiled_call(backend, _batched_call, needles, haystacks,
+                          freqs_hz, sample_rate, block_len, refine, device)
 
 
 def _batched_call(needles, haystacks, freqs_hz, sample_rate,

@@ -31,6 +31,7 @@ from caf_cookoff_tpu_torch.ops.peak import find_peak_2d
 from caf_cookoff_tpu_torch.ops.shift import phasor_bank, real_dtype_of
 from caf_cookoff_tpu_torch.ops.xcor import pad_to
 from caf_cookoff_tpu_torch.utils.convert import as_signal
+from caf_cookoff_tpu_torch.utils.profiling import span
 
 
 def mag2(rows: torch.Tensor) -> torch.Tensor:
@@ -107,20 +108,24 @@ def caf_peak(needle, haystack, freqs_hz, sample_rate, *,
     if backend.startswith("stein"):
         from caf_cookoff_tpu_torch.models.stein import stein_caf_peak
 
+        # stein_caf_peak opens the call's one caf.call span.
         return stein_caf_peak(needle, haystack, freqs_hz, sample_rate,
                               refine=not backend.endswith("-raw"),
                               device=device)
-    n, h, freqs = _pair(needle, haystack, freqs_hz, device)
-    if backend.startswith("pallas"):
-        _, _, tier = backend.partition("-")
-        peak = pallas_caf_peak(n, h, freqs, float(sample_rate),
-                               xcor_length(n.shape[-1]),
-                               precision=tier or "high")
-    else:
-        peak = find_peak_2d(mag2(_surface_rows(
-            n, h, freqs, float(sample_rate), xcor_length(n.shape[-1]))))
-    return (float(freqs[int(peak.freq_idx)]), int(peak.lag_idx),
-            float(peak.value))
+    with span("caf.call"):
+        with span("caf.prep"):
+            n, h, freqs = _pair(needle, haystack, freqs_hz, device)
+        if backend.startswith("pallas"):
+            _, _, tier = backend.partition("-")
+            peak = pallas_caf_peak(n, h, freqs, float(sample_rate),
+                                   xcor_length(n.shape[-1]),
+                                   precision=tier or "high")
+        else:
+            peak = find_peak_2d(mag2(_surface_rows(
+                n, h, freqs, float(sample_rate), xcor_length(n.shape[-1]))))
+        with span("caf.read"):
+            return (float(freqs[int(peak.freq_idx)]), int(peak.lag_idx),
+                    float(peak.value))
 
 
 def amb_surf(needle, haystack, freqs_hz, samp_rate,

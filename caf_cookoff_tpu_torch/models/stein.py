@@ -36,13 +36,12 @@ from caf_cookoff_tpu_torch.errors import (EligibilityError, EngineError,
                                           SpanError)
 from caf_cookoff_tpu_torch.models.batched_stein import (_band_tensors,
                                                         _banded_core,
+                                                        _compiled_call,
                                                         _grid_on,
                                                         _haystack_extension,
-                                                        _host,
                                                         _needle_operator,
                                                         _pack)
 from caf_cookoff_tpu_torch.models.filterbank import _surface_rows, mag2
-from caf_cookoff_tpu_torch.ops import _graph
 from caf_cookoff_tpu_torch.ops.fused_stein import (SUPER, block_centers,
                                                    fused_span,
                                                    fused_stein_rank,
@@ -351,13 +350,10 @@ def stein_caf_peak(needle, haystack, freqs_hz, sample_rate, *,
     captured at its first call and replayed after; nothing is read back
     but the packed answer.
     """
-    resolve_backend(backend)
-    core, traced, static, freqs, vdt = _stein_call(
-        needle, haystack, freqs_hz, sample_rate, block_len, refine, fused,
-        device)
     # The banded core answers a batch of one pair.
-    freq, lag, value = (np.ravel(x)[0] for x in _host(
-        freqs, _graph.compiled(core, traced, static), vdt))
+    freq, lag, value = (np.ravel(x)[0] for x in _compiled_call(
+        backend, _stein_call, needle, haystack, freqs_hz, sample_rate,
+        block_len, refine, fused, device))
     return float(freq), int(lag), float(value)
 
 

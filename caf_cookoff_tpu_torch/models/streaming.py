@@ -60,6 +60,7 @@ from caf_cookoff_tpu_torch.ops.peak import (CafPeak, apply_detection_threshold,
                                             merge_peaks, resolve_exclusions)
 from caf_cookoff_tpu_torch.ops.xcor import pad_to
 from caf_cookoff_tpu_torch.utils.convert import as_signal
+from caf_cookoff_tpu_torch.utils.profiling import recording, span
 
 # Guard samples on EACH side of a carried re-score window: the Stein
 # steps slice the window so the winning lag sits ~_RESCORE_GUARD samples
@@ -297,6 +298,19 @@ class StreamingCAF:
                  exclude_freq: Optional[int] = None,
                  exclude_lag: Optional[int] = None,
                  device=None):
+        with span("caf.stream.build"):
+            with span("caf.prep"):
+                n, d = self._plan(needle, freqs_hz, sample_rate, chunk_len,
+                                  backend, num_peaks, exclude_freq,
+                                  exclude_lag, device)
+            with span("caf.stream.operator"):
+                self._build(n, d)
+
+    def _plan(self, needle, freqs_hz, sample_rate, chunk_len, backend,
+              num_peaks, exclude_freq, exclude_lag, device):
+        """The build's host part: checks, the grid, the exclusions and
+        the host state.  Returns the needle on the device and the Stein
+        block length (None for cuFFT steps)."""
         backend = resolve_backend(backend)
         self._stein = backend.startswith("stein")
         self._num_peaks = int(num_peaks)
@@ -310,7 +324,7 @@ class StreamingCAF:
         self.sample_rate = float(sample_rate)
         rdtype = np.float64 if n.dtype == torch.complex128 else np.float32
         self._freqs = as_grid(freqs_hz, dtype=rdtype)
-        freqs_t = self._freqs_t = _as_tensor(self._freqs, self.device)
+        self._freqs_t = _as_tensor(self._freqs, self.device)
         n_host = n.cpu().numpy()
         # Resolution once, after input validation, and only where used.
         if self._stein or (self._num_peaks > 1 and
@@ -321,14 +335,32 @@ class StreamingCAF:
             self._exclude = (
                 auto[0] if exclude_freq is None else int(exclude_freq),
                 auto[1] if exclude_lag is None else int(exclude_lag))
-        p = self._num_peaks
-        slots = (p,) if p > 1 else ()
+        d = None
         if self._stein:
             # The exact re-score's slack around each carried candidate
             # is resolution-derived (at least 4 samples, for bf16
             # flat-top ties), whatever the NMS windows.
             self._rescore_win = max(auto[1], 4)
             d = _pow2_block_len(self.sample_rate, self._freqs, 64)
+        self._needle_energy = _energy(n_host, None)
+        self._cdtype, self._np_cdtype = n.dtype, n_host.dtype
+        self._samples_seen = 0
+        # The chunk length is pinned here or by the first chunk: shorter
+        # chunks are zero-padded with their surplus lags masked, longer
+        # ones split.
+        self._chunk_len = int(chunk_len) if chunk_len else None
+        # Lag t needs samples [t, t + N); the first tail is synthetic
+        # zeros, so window lags start at -(N-1).  The steps carry it on
+        # the device; the host copy checks int32's range.
+        self._base_lag = -(self.needle_len - 1)
+        return n, d
+
+    def _build(self, n: torch.Tensor, d: Optional[int]) -> None:
+        """The build's device part: the needle's operator and weights
+        (Stein) or spectra (cuFFT), and the state tensors."""
+        p = self._num_peaks
+        slots = (p,) if p > 1 else ()
+        if self._stein:
             n_pad = pad_to(n, self.needle_len + (-self.needle_len) % SUPER)
             self._needle_pad = int(n_pad.shape[-1])
             self._n_padded = n_pad
@@ -336,7 +368,8 @@ class StreamingCAF:
             self._lmat, self._group = _needle_operator(
                 n_pad.real[None], n_pad.imag[None], d)
             check_kernel_shape(self._lmat.shape[1], self._group)
-            self._ws = stein_synthesis_weights(freqs_t, self.sample_rate,
+            self._ws = stein_synthesis_weights(self._freqs_t,
+                                               self.sample_rate,
                                                self._num_blocks, d)
             self._carry = self._needle_pad + _RESCORE_PAD
             self._bw = n.new_zeros(slots + (self._carry,))
@@ -344,7 +377,7 @@ class StreamingCAF:
                                          device=self.device)
         else:
             self._s_conj = _graph.compiled(
-                needle_spectra_conj, (n, freqs_t),
+                needle_spectra_conj, (n, self._freqs_t),
                 (self.sample_rate, xcor_length(self.needle_len)))
         self._num_valid = {}      # valid length -> its (1,) int32 tensor
         self._tail = n.new_zeros(self.needle_len - 1)
@@ -356,22 +389,11 @@ class StreamingCAF:
         self._fcnt = torch.zeros_like(self._fsum)
         self._h2_sum = torch.zeros((), dtype=torch.float64,
                                    device=self.device)
-        self._needle_energy = _energy(n_host, None)
         self._best = CafPeak(
             torch.full(slots, -math.inf, dtype=n.real.dtype,
                        device=self.device),
             torch.zeros(slots, dtype=torch.int32, device=self.device),
             torch.zeros(slots, dtype=torch.int32, device=self.device))
-        self._cdtype, self._np_cdtype = n.dtype, n_host.dtype
-        self._samples_seen = 0
-        # The chunk length is pinned here or by the first chunk: shorter
-        # chunks are zero-padded with their surplus lags masked, longer
-        # ones split.
-        self._chunk_len = int(chunk_len) if chunk_len else None
-        # Lag t needs samples [t, t + N); the first tail is synthetic
-        # zeros, so window lags start at -(N-1).  The steps carry it on
-        # the device; the host copy checks int32's range.
-        self._base_lag = -(self.needle_len - 1)
         self._base = torch.full((), self._base_lag, dtype=torch.int32,
                                 device=self.device)
 
@@ -410,6 +432,12 @@ class StreamingCAF:
         pinned length and their surplus lags masked, oversized ones run
         in slices (the reported peak is the best slice's).  One small
         tensor comes back to the host a chunk."""
+        if not recording():
+            return self._process(chunk, False)
+        with span("caf.stream.chunk"):
+            return self._process(chunk, True)
+
+    def _process(self, chunk, spans: bool) -> Tuple[float, int, float]:
         if not isinstance(chunk, torch.Tensor):
             chunk = np.asarray(chunk)
         if chunk.ndim == 0 or chunk.shape[-1] == 0:
@@ -421,20 +449,37 @@ class StreamingCAF:
             self._chunk_len = valid
         fixed = self._chunk_len
         if valid <= fixed:
-            return self._step(chunk)
+            return self._step(chunk, spans)
         best = None
         for off in range(0, valid, fixed):
-            local = self._step(chunk[off:off + fixed])
+            local = self._step(chunk[off:off + fixed], spans)
             if best is None or local[2] > best[2]:
                 best = local
         return best
 
-    def _step(self, chunk) -> Tuple[float, int, float]:
+    def _step(self, chunk, spans: bool) -> Tuple[float, int, float]:
+        """One step: the chunk staged on the device, the compiled step,
+        its peak read back; the first and last in their spans when
+        ``spans``."""
         valid = int(chunk.shape[-1])
         if self._base_lag > _INT32_MAX:
             raise OverflowError(
                 f"window base lag {self._base_lag} past int32: a stream's "
                 f"lags are int32, as in the JAX package")
+        if not spans:
+            value, f, lag = self._advance(*self._stage(chunk, valid),
+                                          valid).tolist()
+        else:
+            with span("caf.stream.upload"):
+                staged = self._stage(chunk, valid)
+            local = self._advance(*staged, valid)
+            with span("caf.read"):
+                value, f, lag = local.tolist()
+        return float(self._freqs[int(f)]), int(lag), value
+
+    def _stage(self, chunk, valid: int):
+        """The chunk padded to the pinned length on the device, and its
+        valid length as a (1,) int32 tensor there."""
         if self._stein:
             # Model-floor input from the valid samples, before padding.
             self._h2_sum = self._h2_sum + _energy(chunk, self.device)
@@ -444,6 +489,11 @@ class StreamingCAF:
         if nv is None:
             nv = self._num_valid[valid] = torch.full(
                 (1,), valid, dtype=torch.int32, device=self.device)
+        return ch, nv
+
+    def _advance(self, ch, nv, valid: int) -> torch.Tensor:
+        """The compiled step on a staged chunk: the state moves on and
+        the chunk's peak comes back packed, on the device."""
         lattice = ((self._num_peaks, *self._exclude)
                    if self._num_peaks > 1 else ())
         if self._stein:
@@ -467,8 +517,7 @@ class StreamingCAF:
             self._fsum, self._fcnt = c0, c1
         self._samples_seen += valid
         self._base_lag += valid
-        value, f, lag = local.tolist()
-        return float(self._freqs[int(f)]), int(lag), value
+        return local
 
     def _rescore(self, bws, offs) -> CafPeak:
         """:func:`_stein_lattice_rescore` as a compiled call (JAX's
@@ -487,12 +536,17 @@ class StreamingCAF:
         Stein steps only ranked bins: the carried best window is
         re-scored here with exact filterbank rows (the rank-then-score
         contract), which restores the bin-exact frequency and lag."""
+        with span("caf.stream.best"):
+            return self._best_now()
+
+    def _best_now(self) -> Tuple[float, int, float]:
         if self._num_peaks > 1:
             if self._stein:
                 fr, lg, vv = self.peaks()
                 return float(fr[0]), int(lg[0]), float(vv[0])
-            value, f, lag = (torch.stack([x[0].double() for x in self._best])
-                             .tolist())
+            with span("caf.read"):
+                value, f, lag = (torch.stack([x[0].double()
+                                              for x in self._best]).tolist())
             return float(self._freqs[int(f)]), int(lag), value
         row = [x.double() for x in self._best]
         if self._stein:
@@ -500,7 +554,8 @@ class StreamingCAF:
                                (self._best.lag_idx - self._bw_start)[None])
             row += [pk.value[0].double(), pk.freq_idx[0].double(),
                     (pk.lag_idx[0] + self._bw_start).double()]
-        row = torch.stack(row).tolist()
+        with span("caf.read"):
+            row = torch.stack(row).tolist()
         if self._stein and math.isfinite(row[0]):
             row = row[3:]
         value, f, lag = row[:3]
@@ -536,10 +591,11 @@ class StreamingCAF:
         if not self._stein:
             return finish(*_host(self._freqs, self._best))
         pk = self._rescore(self._bw, self._best.lag_idx - self._bw_start)
-        coarse, vals, bins, lags = torch.stack(
-            [self._best.value.double(), pk.value.double(),
-             pk.freq_idx.double(), (pk.lag_idx + self._bw_start).double()]
-        ).cpu().numpy()
+        with span("caf.read"):
+            coarse, vals, bins, lags = torch.stack(
+                [self._best.value.double(), pk.value.double(),
+                 pk.freq_idx.double(),
+                 (pk.lag_idx + self._bw_start).double()]).cpu().numpy()
         vals = np.where(np.isfinite(coarse), vals, -np.inf)
         bins, lags = bins.astype(np.int64), lags.astype(np.int64)
         ef, el = self._exclude

@@ -25,19 +25,29 @@ entries, least recently used first out.  The kernels' launch counters
 (``ops/fused_stein``, ``ops/pallas_caf``) count a launch where it runs:
 the first call's eager launches count, a capture's do not, and each
 replay adds the launches its graph holds.  ``CAPTURES`` and ``REPLAYS``
-count graphs captured and replayed; :func:`entries` reports each
-graph's capture time and pool memory.
+count graphs captured and replayed; ``COPY_IN_BYTES`` and
+``COPY_OUT_BYTES`` count the bytes replays copy into the graphs' input
+buffers and clone out of their outputs (a key's two counts are reckoned
+once, at its capture); :func:`entries` reports each graph's capture time
+and pool memory, :func:`copy_bytes` the bytes a replay of each copies.
+
+On a card a call opens the span ``caf.graph`` (``utils/profiling.span``)
+and, inside it, ``caf.graph.copy_in``, ``caf.graph.launch`` and
+``caf.graph.copy_out`` for a replay or ``caf.graph.capture`` for a
+key's first call.
 """
 
 from __future__ import annotations
 
-import importlib
 import threading
 import time
 from collections import OrderedDict
 from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
+
+from caf_cookoff_tpu_torch.ops import fused_stein, pallas_caf
+from caf_cookoff_tpu_torch.utils.profiling import recording, span
 
 # Graphs a device keeps (each holds its pool's memory): the benchmark's
 # cells alone make ~16 keys, the streams' and windowed engines' among
@@ -46,13 +56,12 @@ import torch
 MAX_GRAPHS = 32
 CAPTURES = 0
 REPLAYS = 0
+COPY_IN_BYTES = 0
+COPY_OUT_BYTES = 0
 
-# The kernel launch counters a replay adds to: module -> counter names.
-_COUNTERS = {
-    "caf_cookoff_tpu_torch.ops.fused_stein": ("LAUNCHES", "SPLIT_LAUNCHES"),
-    "caf_cookoff_tpu_torch.ops.pallas_caf": ("PEAK_LAUNCHES",
-                                             "SURFACE_LAUNCHES"),
-}
+# The kernel launch counters a replay adds to: (module, counter name).
+_COUNTERS = ((fused_stein, "LAUNCHES"), (fused_stein, "SPLIT_LAUNCHES"),
+             (pallas_caf, "PEAK_LAUNCHES"), (pallas_caf, "SURFACE_LAUNCHES"))
 _LOCK = threading.Lock()
 _CACHES: Dict[torch.device, "GraphCache"] = {}
 _SIDE: Dict[torch.device, torch.cuda.Stream] = {}
@@ -90,10 +99,12 @@ class _Graph(NamedTuple):
     inputs: Tuple[torch.Tensor, ...]     # the traced arguments' buffers
     outputs: Tuple[torch.Tensor, ...]    # in the graph's pool
     single: bool                         # core returned one tensor
-    launches: Dict[Tuple[str, str], int]  # kernel launches a replay runs
+    launches: Tuple[tuple, ...]          # (module, counter, n) a replay
     done: "torch.cuda.Event"             # the last replay's copy-out
     capture_ms: float
     pool_bytes: int
+    copy_in: int                         # bytes a replay copies in
+    copy_out: int                        # and clones out
 
 
 def static_key(core: Callable, traced, static) -> tuple:
@@ -111,42 +122,62 @@ def compiled(core: Callable, traced, static=()):
     dev = traced[0].device
     if dev.type != "cuda":
         return core(*traced, *static)
+    if not recording():
+        return _run(core, traced, static, False)
+    with span("caf.graph"):
+        return _run(core, traced, static, True)
+
+
+def _run(core, traced, static, spans: bool):
     key = static_key(core, traced, static)
     with _LOCK:
-        cache = _CACHES.setdefault(dev, GraphCache(MAX_GRAPHS))
+        cache = _CACHES.setdefault(traced[0].device, GraphCache(MAX_GRAPHS))
         entry = cache.get(key)
         if entry is None:
-            entry, out = _capture(core, traced, static)
+            with span("caf.graph.capture"):
+                entry, out = _capture(core, traced, static)
             # The capture synchronised the card, so no replay of a graph
             # this drops is still running.
             cache.put(key, entry)
             return out
-        return _replay(entry, traced)
+        return _replay(entry, traced, spans)
+
+
+def _kept(device):
+    """The graphs kept for ``device`` (default: the current card), least
+    recently used first."""
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    with _LOCK:
+        cache = _CACHES.get(dev)
+        return [] if cache is None else cache.items()
 
 
 def entries(device=None):
     """``(key, capture ms, pool bytes)`` of each graph kept for
     ``device`` (default: the current card), least recently used
     first."""
-    dev = torch.device(device if device is not None else "cuda")
-    if dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    with _LOCK:
-        cache = _CACHES.get(dev)
-        if cache is None:
-            return []
-        return [(k, e.capture_ms, e.pool_bytes) for k, e in cache.items()]
+    return [(k, e.capture_ms, e.pool_bytes) for k, e in _kept(device)]
 
 
-def _counts() -> Dict[Tuple[str, str], int]:
-    return {(m, name): getattr(importlib.import_module(m), name)
-            for m, names in _COUNTERS.items() for name in names}
+def copy_bytes(device=None):
+    """``(key, bytes copied in, bytes cloned out)`` a replay of each
+    graph kept for ``device`` moves, as :func:`entries` orders them."""
+    return [(k, e.copy_in, e.copy_out) for k, e in _kept(device)]
 
 
-def _add_counts(counts) -> None:
-    for (m, name), n in counts.items():
-        mod = importlib.import_module(m)
+def _counts() -> Tuple[int, ...]:
+    return tuple(getattr(mod, name) for mod, name in _COUNTERS)
+
+
+def _add_counts(launches) -> None:
+    for mod, name, n in launches:
         setattr(mod, name, getattr(mod, name) + n)
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def _as_tuple(out):
@@ -186,14 +217,17 @@ def _capture(core, traced, static):
         raise RuntimeError(f"CUDA graph capture of {core.__qualname__} "
                            f"failed: {exc}") from exc
     finally:
+        # A capture launches nothing: take back what its launches counted.
         after = _counts()
-        _add_counts({k: before[k] - after[k] for k in before})
+        _add_counts([(mod, name, b - a) for (mod, name), b, a
+                     in zip(_COUNTERS, before, after)])
     capture_ms = (time.perf_counter() - t0) * 1e3
+    launches = tuple((mod, name, a - b) for (mod, name), b, a
+                     in zip(_COUNTERS, before, after) if a != b)
     entry = _Graph(graph, inputs, outputs, isinstance(out, torch.Tensor),
-                   {k: after[k] - before[k] for k in before
-                    if after[k] != before[k]},
-                   torch.cuda.Event(), capture_ms,
-                   torch.cuda.memory_reserved(dev) - reserved)
+                   launches, torch.cuda.Event(), capture_ms,
+                   torch.cuda.memory_reserved(dev) - reserved,
+                   _nbytes(inputs), _nbytes(outputs))
     cur.wait_stream(side)
     for t in _as_tuple(out):
         t.record_stream(cur)
@@ -201,17 +235,36 @@ def _capture(core, traced, static):
     return entry, out
 
 
-def _replay(entry: _Graph, traced):
-    global REPLAYS
+def _replay(entry: _Graph, traced, spans: bool):
+    """Copy the traced tensors in, replay, copy the outputs out: each
+    step in its span when ``spans``."""
     cur = torch.cuda.current_stream(traced[0].device)
+    if not spans:
+        _copy_in(entry, traced, cur)
+        entry.graph.replay()
+        return _copy_out(entry, cur)
+    with span("caf.graph.copy_in"):
+        _copy_in(entry, traced, cur)
+    with span("caf.graph.launch"):
+        entry.graph.replay()
+    with span("caf.graph.copy_out"):
+        return _copy_out(entry, cur)
+
+
+def _copy_in(entry: _Graph, traced, cur) -> None:
     # The buffers are rewritten only after the last replay's outputs
     # were copied out, whatever stream that replay ran on.
     cur.wait_event(entry.done)
     for buf, t in zip(entry.inputs, traced):
         buf.copy_(t)
-    entry.graph.replay()
+
+
+def _copy_out(entry: _Graph, cur):
+    global REPLAYS, COPY_IN_BYTES, COPY_OUT_BYTES
     outputs = tuple(t.clone() for t in entry.outputs)
     entry.done.record(cur)
     _add_counts(entry.launches)
     REPLAYS += 1
+    COPY_IN_BYTES += entry.copy_in
+    COPY_OUT_BYTES += entry.copy_out
     return outputs[0] if entry.single else outputs

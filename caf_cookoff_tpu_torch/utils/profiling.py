@@ -1,14 +1,43 @@
-"""Observability: profiler traces and structured run reports (the JAX
-package's ``utils/profiling.py``, with ``torch.profiler`` for the trace).
+"""Observability: profiler traces, the port's spans and structured run
+reports (the JAX package's ``utils/profiling.py``, with
+``torch.profiler`` for the trace).
 
 * :func:`trace` — context manager around ``torch.profiler`` writing a
   Chrome trace (``trace.json``, loadable in Perfetto or
   ``chrome://tracing``) of the host and, with a card, the device;
+* :func:`span` — a named span of the port's host work, recorded only
+  while a ``torch.profiler`` runs;
 * :class:`RunReport` — the structured result record: peak estimate,
   peak-to-floor ratio (detection confidence), throughput, and the
   reference-format result lines.
-"""
 
+**Spans.**  The port opens a span at each layer boundary of its public
+calls: ``caf.call`` (one root a call of ``caf_peak`` /
+``stein_caf_peak``, ``batched_stein_peak``, ``batched_stein_os_peak``),
+``caf.prep`` (checks, grid upload, band plan, routing),
+``caf.graph`` (``ops/_graph.compiled`` on a card) with
+``caf.graph.copy_in`` / ``.launch`` / ``.copy_out`` for a replay and
+``caf.graph.capture`` for a key's first call, and ``caf.read`` (the
+packed answer to host values, the wait for the card included).  A
+stream opens ``caf.stream.build`` (``caf.prep``,
+``caf.stream.operator``), ``caf.stream.chunk`` (``caf.stream.upload``,
+``caf.graph``, ``caf.read``) and ``caf.stream.best``.
+
+Spans are on exactly while a profiler runs (``with trace(dir): ...``,
+or the benchmark's ``--trace 1`` window): they are profiler events on
+the profiler's clock, beside the device's operations.  Off, a ``with
+span(...)`` still costs the flag's check and a no-op ``with``, ~0.6 µs
+on an H100's host, so the paths that run on every call, replay or
+chunk check :func:`recording` once and, when it is off, take a branch
+that opens no span.  They are recorded as plain host events
+(``RecordScope.FUNCTION``), which the profiler does not mirror onto the
+device's timeline as it does ``record_function``'s annotations, so a
+reader of the device's operations sees no span among them.  No span
+opens inside a compiled call's core (that code is captured into a
+graph), and none synchronises or launches device work.  Parentage is
+nesting on the caller's thread: a search's spans are those inside its
+interval, so one closed-loop caller needs no request id.
+"""
 from __future__ import annotations
 
 import contextlib
@@ -20,6 +49,19 @@ import time
 from typing import Iterator, Optional
 
 import numpy as np
+import torch
+
+# True while a torch.profiler runs, so that spans are recorded.
+recording = torch._C._autograd._profiler_enabled
+_host_span = torch._C._profiler._RecordFunctionFast
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """``with span("caf.prep"): ...`` — a profiler event named ``name``
+    (every name starts with ``caf.``) while a profiler runs, else the
+    one shared no-op context."""
+    return _host_span(name) if recording() else _NO_SPAN
 
 
 @contextlib.contextmanager
@@ -27,8 +69,8 @@ def trace(log_dir: str) -> Iterator[None]:
     """``with trace('/tmp/caf-trace'): run()`` -> ``log_dir/trace.json``.
 
     Degrades to a no-op (with a stderr note) where the profiler cannot
-    start, as the JAX package's does."""
-    import torch
+    start, as the JAX package's does.  The port's spans (:func:`span`)
+    appear in it beside the kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]

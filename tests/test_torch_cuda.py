@@ -1441,6 +1441,108 @@ def test_launches_count_replays_on_card(card):
                         for k, ms, pool in _graph.entries())
 
 
+def _profiled_on_card(fn):
+    """``fn()`` under a CPU and CUDA profiler: its answer and its
+    ``caf.`` spans as ``tests/test_torch_spans.span_tree`` nests them;
+    no span has a copy on the device's timeline."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from test_torch_spans import span_tree
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    assert not [e for e in prof.profiler.kineto_results.events()
+                if e.name().startswith("caf.")
+                and e.device_type() != torch.autograd.DeviceType.CPU]
+    return out, span_tree(prof)
+
+
+REPLAY_SPANS = ("caf.graph", (("caf.graph.copy_in", ()),
+                              ("caf.graph.launch", ()),
+                              ("caf.graph.copy_out", ())))
+
+
+def test_replay_spans_under_the_profiler_on_card(card):
+    """A replay under the profiler opens ``caf.graph`` with its three
+    children and no capture, and answers as the eager core, bit for
+    bit."""
+    from caf_cookoff_tpu_torch.models.stein import _stein_call
+    from caf_cookoff_tpu_torch.ops import _graph
+
+    n, h, freqs = _golden(3, GOLDEN[3][1])
+    core, traced, static, *_ = _stein_call(n, h, freqs, FS, 64, True, None,
+                                           "cuda")
+    _graph.compiled(core, traced, static)
+    captures = _graph.CAPTURES
+    got, tree = _profiled_on_card(
+        lambda: _graph.compiled(core, traced, static))
+    assert _graph.CAPTURES == captures
+    assert tree == (REPLAY_SPANS,)
+    assert _same_bits(got, core(*traced, *static))
+
+
+def test_public_calls_spans_on_card(card):
+    """``stein_caf_peak`` and a Stein stream on the card: each layer's
+    span, the replays' among them; a key's first call shows its
+    capture."""
+    from caf_cookoff_tpu_torch import StreamingCAF, stein_caf_peak
+
+    n, h, freqs = _golden(4, GOLDEN[4][1])
+    stein_caf_peak(n, h, freqs, FS)
+    got, tree = _profiled_on_card(lambda: stein_caf_peak(n, h, freqs, FS))
+    assert got == stein_caf_peak(n, h, freqs, FS)
+    assert tree == (("caf.call", (("caf.prep", ()), REPLAY_SPANS,
+                                  ("caf.read", ()))),)
+    hay = h.cpu().numpy()
+
+    def stream():
+        s = StreamingCAF(n, freqs, FS, chunk_len=2048, backend="stein")
+        return [s.process(hay[i:i + 2048]) for i in (0, 2048)], s.best()
+
+    stream()
+    got, tree = _profiled_on_card(stream)
+    assert got == stream()
+    chunk = ("caf.stream.chunk", (("caf.stream.upload", ()), REPLAY_SPANS,
+                                  ("caf.read", ())))
+    assert tree == (
+        ("caf.stream.build", (("caf.prep", ()),
+                              ("caf.stream.operator", ()))),
+        chunk, chunk,
+        ("caf.stream.best", (REPLAY_SPANS, ("caf.read", ()))))
+    fresh = torch.cat([n, n[:16]])      # a new shape: a new key
+    _, tree = _profiled_on_card(lambda: stein_caf_peak(
+        fresh, torch.cat([h, h[:16]]), freqs, FS))
+    assert tree[0][1][1] == ("caf.graph", (("caf.graph.capture", ()),))
+
+
+def test_copy_counters_count_a_replays_bytes_on_card(card):
+    """Each replay adds its key's input bytes to ``COPY_IN_BYTES`` and
+    its outputs' to ``COPY_OUT_BYTES``; a capture adds nothing."""
+    from caf_cookoff_tpu_torch.models.stein import _stein_call
+    from caf_cookoff_tpu_torch.ops import _graph
+
+    n, h, freqs = _golden(5, GOLDEN[5][1])
+    # 397 bins: a grid no other test's key has, so the first call
+    # captures.
+    core, traced, static, *_ = _stein_call(n, h, freqs[:397], FS, 64, True,
+                                           None, "cuda")
+    counts = lambda: (_graph.COPY_IN_BYTES, _graph.COPY_OUT_BYTES)  # noqa
+    before, captures = counts(), _graph.CAPTURES
+    out = _graph.compiled(core, traced, static)
+    assert _graph.CAPTURES == captures + 1 and counts() == before
+    ins = sum(t.numel() * t.element_size() for t in traced)
+    outs = out.numel() * out.element_size()
+    assert ins == 2 * 4096 * 8 + 4 * 397
+    for i in range(1, 4):
+        _graph.compiled(core, traced, static)
+        assert counts() == (before[0] + i * ins, before[1] + i * outs)
+    key = _graph.static_key(core, traced, static)
+    assert [(i, o) for k, i, o in _graph.copy_bytes() if k == key] == [
+        (ins, outs)]
+
+
 def test_failed_capture_raises_and_keeps_nothing_on_card(card):
     """A core the card cannot capture (it reads a value back) raises,
     keeps no graph and leaves the caller's stream current."""
