@@ -53,6 +53,8 @@ from caf_cookoff_tpu_torch.ops.peak import (CafPeak, _lag_distance,
                                             find_peak_2d, merge_peaks,
                                             resolve_exclusions)
 from caf_cookoff_tpu_torch.ops.shift import numpy_real
+from caf_cookoff_tpu_torch.ops.stein_rescore import (_REFINE_BINS,
+                                                     stein_rescore)
 from caf_cookoff_tpu_torch.ops.xcor import pad_to
 from caf_cookoff_tpu_torch.utils.convert import as_signal
 from caf_cookoff_tpu_torch.utils.profiling import recording, span
@@ -160,34 +162,15 @@ def _coarse_rank(ws1, ws2, lmat, h_ext, b: int, sup: int, num_lags: int,
                             want_top2=want_top2, sep=sep)
 
 
-def _pick(rowmax: torch.Tensor, cand: torch.Tensor,
-          lags: torch.Tensor) -> CafPeak:
-    """Per pair, the candidate with the highest exact value; exact ties
-    go to the lowest bin, then the first slot (the JAX package's
-    ``lexsort((cand, -rowmax))[0]``)."""
-    top = rowmax == torch.amax(rowmax, dim=-1, keepdim=True)
-    winner = torch.amin(torch.where(top, cand, torch.iinfo(torch.int32).max),
-                        dim=-1, keepdim=True)
-    best = torch.argmax((top & (cand == winner)).to(torch.int8), dim=-1,
-                        keepdim=True)
-    take = lambda a: torch.gather(a, -1, best)[..., 0]  # noqa: E731
-    return CafPeak(value=take(rowmax), freq_idx=take(cand).to(torch.int32),
-                   lag_idx=take(lags).to(torch.int32))
-
-
 def _batched_refine(ns, hs, freqs_all, vals_t, sample_rate, xcor_len: int,
                     num_valid: Optional[int] = None) -> CafPeak:
     """Per-pair exact re-score of a (P, K) coarse ranking, shared by the
-    plain and banded batch paths: 12 candidates per pair (the hybrid
-    plain / mainlobe-separated set); ``num_valid`` caps the plain picks
-    so -inf padded bins never enter the re-score."""
-    from caf_cookoff_tpu_torch.models.stein import _refine_candidates
-
-    cand = _refine_candidates(vals_t, freqs_all, ns.shape[-1], sample_rate,
-                              num_valid)                    # (P, r)
-    exact = mag2(_surface_rows(ns, hs, freqs_all[cand.long()], sample_rate,
-                               xcor_len))                   # (P, r, M)
-    return _pick(torch.amax(exact, dim=-1), cand, torch.argmax(exact, dim=-1))
+    plain and banded batch paths (``ops/stein_rescore``, K5 on the card):
+    12 candidates per pair (the hybrid plain / mainlobe-separated set);
+    ``num_valid`` caps the plain picks so -inf padded bins never enter
+    the re-score."""
+    return stein_rescore(ns, hs, freqs_all, vals_t, sample_rate, xcor_len,
+                         ns.shape[-1], num_valid)
 
 
 def _batch_operands(ns, hs, freqs_t, sample_rate, xcor_len: int,
@@ -285,25 +268,18 @@ def _os_topk_refine(ns, hs, freqs_all, rowmax, rowlag, sample_rate,
     every needle sample against real data.  Only local lags with full
     correlation energy, and absolute lags inside the requested range,
     may win."""
-    from caf_cookoff_tpu_torch.models.stein import _refine_candidates
-
-    cand = _refine_candidates(rowmax, freqs_all, needle_len, sample_rate,
-                              num_valid_bins)                # (P, r)
     best_bin = torch.argmax(rowmax, dim=-1, keepdim=True)
     best_lag = torch.gather(rowlag, 1, best_bin)[:, 0]       # (P,)
     n, hay_len = needle_len, hs.shape[-1]
     guard = min(64, n // 4, max((hay_len - n) // 2, 0))
     win = n + 2 * guard
     start = torch.clamp(best_lag.long() - guard, 0, max(hay_len - win, 0))
-    dev = hs.device
     slices = torch.gather(hs, 1, start[:, None]
-                          + torch.arange(win, device=dev)[None, :])
-    exact = mag2(_surface_rows(ns, slices, freqs_all[cand.long()],
-                               sample_rate, xcor_len))      # (P, r, M)
-    local = torch.arange(xcor_len, device=dev)
-    ok = (local <= 2 * guard)[None, :] & (start[:, None] + local < total_lags)
-    exact = torch.where(ok[:, None, :], exact, -1.0)
-    pk = _pick(torch.amax(exact, dim=-1), cand, torch.argmax(exact, dim=-1))
+                          + torch.arange(win, device=hs.device)[None, :])
+    # Local lags with full correlation energy, absolute lags in range.
+    bound = torch.clamp(total_lags - 1 - start, max=2 * guard)
+    pk = stein_rescore(ns, slices, freqs_all, rowmax, sample_rate, xcor_len,
+                       needle_len, num_valid_bins, lag_bound=bound)
     return CafPeak(pk.value, pk.freq_idx,
                    (start + pk.lag_idx).to(torch.int32))
 
@@ -641,8 +617,6 @@ def _entry_candidate_bins(vals_flat, lags_flat, lag_e, bin_e,
     the re-score and collapse this entry onto it.  Top-``_REFINE_BINS``
     of the masked ranking (ties to the lower bin, as ``lax.top_k``);
     slots whose rank is -inf are invalid."""
-    from caf_cookoff_tpu_torch.models.stein import _REFINE_BINS
-
     ok = ((_lag_distance(lags_flat[:, None], lag_e[..., None, None],
                          lag_period) <= exclude_lag)
           & (vals_flat[:, None] >= 0))

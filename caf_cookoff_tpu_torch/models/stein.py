@@ -41,22 +41,15 @@ from caf_cookoff_tpu_torch.models.batched_stein import (_band_tensors,
                                                         _haystack_extension,
                                                         _needle_operator,
                                                         _pack)
-from caf_cookoff_tpu_torch.models.filterbank import _surface_rows, mag2
 from caf_cookoff_tpu_torch.ops.fused_stein import (SUPER, block_centers,
                                                    fused_span,
                                                    fused_stein_rank,
                                                    stein_synthesis_weights)
-from caf_cookoff_tpu_torch.ops.peak import (CafPeak, doppler_cell_bins,
-                                            find_peak_2d, topk_separated)
+from caf_cookoff_tpu_torch.ops.peak import CafPeak, find_peak_2d
 from caf_cookoff_tpu_torch.ops.shift import numpy_real, real_dtype_of
+from caf_cookoff_tpu_torch.ops.stein_rescore import stein_rescore
 from caf_cookoff_tpu_torch.ops.xcor import pad_to
 from caf_cookoff_tpu_torch.utils.convert import as_signal
-
-# Candidates of the exact re-score: _REFINE_BINS plain top-k picks
-# (adjacent near-tie flips) plus _REFINE_SEP_BINS mainlobe-separated
-# picks (distinct lobes on grids finer than the fs/N mainlobe).
-_REFINE_BINS = 8
-_REFINE_SEP_BINS = 4
 
 
 def _block_twist(num_blocks: int, block_len: int, m: int, rdtype,
@@ -164,39 +157,13 @@ def _stein_peak(needle, haystack, freqs_hz, sample_rate, xcor_len: int,
                         xcor_len)
 
 
-def _refine_candidates(rowmax_coarse: torch.Tensor, freqs_all: torch.Tensor,
-                       needle_len: int, sample_rate,
-                       num_valid: Optional[int] = None) -> torch.Tensor:
-    """Candidate bins of the exact re-score for a (K,) ranking, or each
-    row of a (P, K) one: the plain top-k (equal values lowest bin first,
-    as ``jax.lax.top_k``) followed by a mainlobe-separated top-k.
-    ``num_valid`` caps the plain picks when the ranking carries -inf
-    padded bins (banded grids).  Duplicates are harmless."""
-    k = min(_REFINE_BINS, int(rowmax_coarse.shape[-1]),
-            num_valid or _REFINE_BINS)
-    cand = torch.sort(rowmax_coarse, dim=-1, descending=True,
-                      stable=True).indices[..., :k].to(torch.int32)
-    ksep = min(_REFINE_SEP_BINS, k)
-    sep = doppler_cell_bins(freqs_all, needle_len, sample_rate)
-    cand_sep = topk_separated(rowmax_coarse, ksep, sep)
-    return torch.cat([cand, cand_sep], dim=-1)
-
-
 def _refine_topk(needle, haystack, freqs_all, rowmax_coarse, sample_rate,
                  xcor_len: int, num_valid: Optional[int] = None) -> CafPeak:
-    """Exact re-score of the coarse ranking: highest exact value wins,
-    exact ties break toward the lowest bin."""
-    cand = _refine_candidates(rowmax_coarse, freqs_all, needle.shape[-1],
-                              sample_rate, num_valid)
-    exact = mag2(_surface_rows(needle, haystack, freqs_all[cand.long()],
-                               sample_rate, xcor_len))       # (k, M)
-    rowmax = torch.amax(exact, dim=-1)
-    top = rowmax == torch.amax(rowmax)
-    winner = torch.amin(torch.where(top, cand, torch.iinfo(torch.int32).max))
-    # A (1,) index: indexing with a 0-d tensor would read it back.
-    best = torch.argmax((top & (cand == winner)).to(torch.int8)).reshape(1)
-    return CafPeak(value=rowmax[best][0], freq_idx=cand[best][0],
-                   lag_idx=torch.argmax(exact[best][0]).to(torch.int32))
+    """Exact re-score of the coarse ranking (``ops/stein_rescore``, K5
+    on the card): highest exact value wins, exact ties break toward the
+    lowest bin."""
+    return stein_rescore(needle, haystack, freqs_all, rowmax_coarse,
+                         sample_rate, xcor_len, needle.shape[-1], num_valid)
 
 
 def _plan_bands(sample_rate: float, freqs_hz: np.ndarray,

@@ -24,7 +24,10 @@ from typing import Optional
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 SOURCES = (PACKAGE_DIR / "csrc" / "fused_stein.cu",
            PACKAGE_DIR / "csrc" / "caf_filterbank.cu",
+           PACKAGE_DIR / "csrc" / "stein_rescore.cu",
            PACKAGE_DIR / "csrc" / "roofline_epilogue.cu")
+# Included by the sources: part of the library's hash.
+HEADERS = (PACKAGE_DIR / "csrc" / "fft_rows.cuh",)
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -48,7 +51,7 @@ def nvcc_path() -> str:
 
 def library_path() -> Path:
     digest = hashlib.sha256()
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libcaf_torch_kernels_{digest.hexdigest()[:16]}.so"
@@ -128,6 +131,14 @@ def load_library() -> ctypes.CDLL:
     # surface, m, c, blocks per SM (out), clusters (out)
     lib.caf_filterbank_occupancy.argtypes = [ci, ci, ci, vp, vp]
     lib.caf_filterbank_occupancy.restype = ci
+    # ranking, k, n_plain, n_sep, freqs, k_grid, cell, two_pi, fs,
+    # needles, n, h_k, tw, bounds (may be null), p, m, c, cand, vals, lags,
+    # value, freq_idx, lag_idx, stream
+    cf = ctypes.c_float
+    lib.caf_stein_rescore.argtypes = ([vp, ci, ci, ci, vp, ci, cf, cf, cf,
+                                       vp, ci, vp, vp, vp, ci, ci, ci]
+                                      + [vp] * 7)
+    lib.caf_stein_rescore.restype = ci
     # out, rows, cols, sweeps, seed, stream
     lib.caf_epilogue_roofline.argtypes = [vp, ci, ci, ci, ctypes.c_float, vp]
     lib.caf_epilogue_roofline.restype = ci

@@ -22,14 +22,15 @@ device, each traced tensor's shape and dtype, and the static arguments
 
 Each device keeps its graphs in a :class:`GraphCache` of ``MAX_GRAPHS``
 entries, least recently used first out.  The kernels' launch counters
-(``ops/fused_stein``, ``ops/pallas_caf``) count a launch where it runs:
-the first call's eager launches count, a capture's do not, and each
-replay adds the launches its graph holds.  ``CAPTURES`` and ``REPLAYS``
-count graphs captured and replayed; ``COPY_IN_BYTES`` and
-``COPY_OUT_BYTES`` count the bytes replays copy into the graphs' input
-buffers and clone out of their outputs (a key's two counts are reckoned
-once, at its capture); :func:`entries` reports each graph's capture time
-and pool memory, :func:`copy_bytes` the bytes a replay of each copies.
+(``ops/fused_stein``, ``ops/pallas_caf``, ``ops/stein_rescore``) count a
+launch where it runs: the first call's eager launches count, a
+capture's do not, and each replay adds the launches its graph holds.
+``CAPTURES`` and ``REPLAYS`` count graphs captured and replayed;
+``COPY_IN_BYTES`` and ``COPY_OUT_BYTES`` count the bytes replays copy
+into the graphs' input buffers and clone out of their outputs (a key's
+two counts are reckoned once, at its capture); :func:`entries` reports
+each graph's capture time and pool memory, :func:`copy_bytes` the bytes
+a replay of each copies.
 
 On a card a call opens the span ``caf.graph`` (``utils/profiling.span``)
 and, inside it, ``caf.graph.copy_in``, ``caf.graph.launch`` and
@@ -46,7 +47,7 @@ from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 
-from caf_cookoff_tpu_torch.ops import fused_stein, pallas_caf
+from caf_cookoff_tpu_torch.ops import fused_stein, pallas_caf, stein_rescore
 from caf_cookoff_tpu_torch.utils.profiling import recording, span
 
 # Graphs a device keeps (each holds its pool's memory): the benchmark's
@@ -61,7 +62,8 @@ COPY_OUT_BYTES = 0
 
 # The kernel launch counters a replay adds to: (module, counter name).
 _COUNTERS = ((fused_stein, "LAUNCHES"), (fused_stein, "SPLIT_LAUNCHES"),
-             (pallas_caf, "PEAK_LAUNCHES"), (pallas_caf, "SURFACE_LAUNCHES"))
+             (pallas_caf, "PEAK_LAUNCHES"), (pallas_caf, "SURFACE_LAUNCHES"),
+             (stein_rescore, "RESCORE_LAUNCHES"))
 _LOCK = threading.Lock()
 _CACHES: Dict[torch.device, "GraphCache"] = {}
 _SIDE: Dict[torch.device, torch.cuda.Stream] = {}

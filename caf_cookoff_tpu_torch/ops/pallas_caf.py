@@ -244,8 +244,8 @@ def _twiddles(l: int, device: torch.device) -> torch.Tensor:
 
 
 def _h_kernel(h_spec, m: int, c: int) -> torch.Tensor:
-    """H in the kernel's order for cluster size ``c``."""
-    return h_spec[_h_index(m, c, h_spec.device)]
+    """H (..., M) in the kernel's order for cluster size ``c``."""
+    return h_spec[..., _h_index(m, c, h_spec.device)]
 
 
 class _Operands(NamedTuple):

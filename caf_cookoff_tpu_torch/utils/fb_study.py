@@ -29,9 +29,10 @@ other, this, this, other.  A copy of this file under this checkout's
 and output directory; nothing is written into OTHER_CHECKOUT but what its
 own package builds at first use (its ``build/torch_kernels/``).
 
-``mutants``: each mutant is a copy of the package with one edit to
-``caf_filterbank.cu``; ``chip_smoke.py`` and the filterbank card tests
-run on it and must fail (logs go to ``chiprun_out/``).
+``mutants``: each mutant is a copy of the package with one edit to the
+row transform K2/K3 share with K5 (``csrc/fft_rows.cuh``);
+``chip_smoke.py`` and the filterbank card tests run on it and must fail
+(logs go to ``chiprun_out/``).
 """
 
 from __future__ import annotations
@@ -49,6 +50,7 @@ import time
 from pathlib import Path
 
 CU = "caf_cookoff_tpu_torch/csrc/caf_filterbank.cu"
+ROWS = "caf_cookoff_tpu_torch/csrc/fft_rows.cuh"   # the mutants' edit sites
 FS = 48_000.0
 
 # A probe for a kernel source without caf_filterbank_occupancy: its two
@@ -285,17 +287,17 @@ MUTANTS = {
         "    twiddle<16, true>(v, tw, 1 << LOG_S0, j);"),
     # H read as the radix-2 kernel stored it: bit-reversed positions
     "M2_h_bit_reversed": (
-        "v[i] = cmul_conj(__ldg(&h[(u * S::RL + i) * S::T + t]), v[i]);",
-        "v[i] = cmul_conj(__ldg(&h[__brev(base + i) >> (32 - LOG_L)]), "
+        "v[i] = cmul_conj(__ldg(&hb[(u * S::RL + i) * S::T + t]), v[i]);",
+        "v[i] = cmul_conj(__ldg(&hb[__brev(base + i) >> (32 - LOG_L)]), "
         "v[i]);"),
     # the cross-block merge keeps the later block on equal values
     "M3_merge_ties_high": (
-        """        take(*cluster.map_shared_rank(&s_best, b),
-             *cluster.map_shared_rank(&s_arg, b), best, arg);""",
-        """        if (*cluster.map_shared_rank(&s_best, b) >= best) {
-          best = *cluster.map_shared_rank(&s_best, b);
-          arg = *cluster.map_shared_rank(&s_arg, b);
-        }"""),
+        """      take(*cluster.map_shared_rank(&s_best, b),
+           *cluster.map_shared_rank(&s_arg, b), best, arg);""",
+        """      if (*cluster.map_shared_rank(&s_best, b) >= best) {
+        best = *cluster.map_shared_rank(&s_best, b);
+        arg = *cluster.map_shared_rank(&s_arg, b);
+      }"""),
     # the phasor on the fast-math intrinsic
     "M4_fast_sincos": (
         "  sincosf(rate * static_cast<float>(n), &sn, &cs);",
@@ -311,10 +313,10 @@ def _copy(root: Path, dst: Path, edit) -> None:
     shutil.copy(root / "tests" / "test_torch_cuda.py", dst / "tests")
     if (root / "data").exists():
         shutil.copytree(root / "data", dst / "data")
-    src = (dst / CU).read_text()
+    src = (dst / ROWS).read_text()
     if src.count(edit[0]) != 1:
-        raise SystemExit(f"fb_study: edit site not found once in {CU}")
-    (dst / CU).write_text(src.replace(*edit))
+        raise SystemExit(f"fb_study: edit site not found once in {ROWS}")
+    (dst / ROWS).write_text(src.replace(*edit))
 
 
 def _run(cmd, cwd, limit):

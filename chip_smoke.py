@@ -28,6 +28,18 @@ Phases, each reported on its own line:
    (all-zero: lag 0; two needle copies that different blocks hold: one
    of them); K3, the fused filterbank surface, at 400 x 8192 and the
    same grid.
+3a. rescore — K5, the Stein engines' exact re-score, at the benchmark
+   cells' three shapes as the engines call it (chirp_0 on the bench grid
+   at P = 1; config 2's 64 pairs; config 3's capture, 2000 bins banded,
+   a lag bound): (bin, lag) equal to its plain chain's (today's torch and
+   cuFFT chain), values within FB_RTOL; its wrapper, device and
+   graph-replayed ms and device operations a call beside the plain
+   chain's, eager and replayed in a CUDA graph (``library``), and its
+   bound.  From here on each path sets K5's call count to 0 with K1's
+   and reads it after: one call a search of the Stein engines (the
+   goldens, configs 2-4, wide1000, the one-rank ``parallel`` config 2
+   and 3), none on the streams, the lattices and the rate engines;
+   K5's entry reports the counts by path.
 4. main   — the ten golden fixtures through ``caf_peak(device="cuda")``
    with ``backend="stein"`` (K1) and ``pallas``, ``pallas-bf16``,
    ``pallas-refine`` (K2): every answer exact, and each kernel's launch
@@ -221,11 +233,31 @@ GOLDEN = [          # (chirp index, (start, stop, step) Hz, freq, lag)
 TIE_SHAPES = ((2048, 17), (16384, 8), (65536, 2), (131072, 1))
 # Launches of the pallas* filterbank kernel per caf_peak call.
 PALLAS_LAUNCHES = {"pallas": 1, "pallas-bf16": 1, "pallas-refine": 2}
+# K5's calls by path (ops/stein_rescore.RESCORE_LAUNCHES, set to 0 before
+# each path with K1's counter), for K5's entry: one a search of the Stein
+# engines, none on the streams, the lattices and the rate engines.
+RESCORE_BY_PATH = {}
 
 
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+def reset_rescore():
+    from caf_cookoff_tpu_torch.ops import stein_rescore as rs
+
+    rs.RESCORE_LAUNCHES = 0
+
+
+def rescore_calls(path, want):
+    """K5's calls on ``path`` since :func:`reset_rescore`, gated to
+    ``want`` and kept in ``RESCORE_BY_PATH``."""
+    from caf_cookoff_tpu_torch.ops import stein_rescore as rs
+
+    got = RESCORE_BY_PATH[path] = rs.RESCORE_LAUNCHES
+    print(f"[rescore] {path}: K5 calls {got} (want {want})")
+    check(got == want, f"{path}: {got} K5 calls, want {want}")
 
 
 def phase_device():
@@ -543,6 +575,118 @@ def phase_filterbank_ties(pc):
         check(lag in (lo, hi) and near, "K2 near-tie lag")
 
 
+def rescore_inputs(pairs):
+    """The three Stein engines' exact re-score calls as the engines make
+    them, eagerly, at the benchmark cells' shapes: (name, args, kwargs)
+    of ``ops/stein_rescore.stein_rescore`` for chirp_0 on the bench grid
+    through ``stein_caf_peak``'s core (cookoff.single), config 2's 64
+    pairs through ``batched_stein_peak``'s (cookoff.batch64) and config
+    3's capture through ``batched_stein_os_peak``'s (widearea.capture:
+    2000 bins banded, a lag bound)."""
+    import torch
+
+    from caf_cookoff_tpu_torch import BENCH_GRID
+    from caf_cookoff_tpu_torch.models import batched_stein as tbs
+    from caf_cookoff_tpu_torch.models import stein as tstein
+    from caf_cookoff_tpu_torch.utils import bench_configs as bc
+
+    needle, hay = load_pair(pairs, 0)
+    n0, h0 = (torch.from_numpy(x).to(DEVICE) for x in (needle, hay))
+    ns, hs, freqs2 = bc.build_config2(pairs=64)[:3]
+    cn, ch, freqs3, lags3 = bc.build_config3()[:4]
+    on = lambda x: torch.from_numpy(x).to(DEVICE)  # noqa: E731
+    plans = [
+        ("cookoff.single", tstein, tstein._stein_call(
+            n0, h0, BENCH_GRID.frequencies(np.float32), FS, 64, True, None,
+            DEVICE)),
+        ("cookoff.batch64", tbs, tbs._batched_call(
+            on(ns), on(hs), freqs2, FS, 64, True, DEVICE)),
+        ("widearea.capture", tbs, tbs._os_call(
+            on(cn), on(ch), freqs3, FS, lags3, 64, DEVICE))]
+    calls = []
+    for name, module, (core, traced, static, *_) in plans:
+        real, seen = module.stein_rescore, []
+
+        def spy(*a, real=real, seen=seen, **kw):
+            seen.append((a, kw))
+            return real(*a, **kw)
+
+        module.stein_rescore = spy
+        try:
+            core(*traced, *static)
+        finally:
+            module.stein_rescore = real
+        check(len(seen) == 1, f"[rescore] {name}: one re-score a search")
+        calls.append((name, *seen[0]))
+    return calls
+
+
+def rescore_bound_ms(args, kw):
+    """K5: each (pair, candidate) row's two M-point transforms, 2 x 5 M
+    log2 M FLOP, at the f32 peak, against the needles, the pairs'
+    spectra, the ranking and the grid read once and the answers written
+    once at the HBM rate.  Returns (ms, what bounds it, rows)."""
+    from caf_cookoff_tpu_torch.ops import stein_rescore as rs
+
+    ns, _, freqs, ranking, _, m, _, num_valid = args
+    p = ranking.shape[0] if ranking.ndim == 2 else 1
+    k = ranking.shape[-1]
+    rows = p * sum(rs._num_picks(k, num_valid))
+    flops = rows * 2 * 5.0 * m * math.log2(m)
+    nbytes = 8.0 * ns.numel() + 8.0 * p * m + 4.0 * (p * k + freqs.numel()) \
+        + 12.0 * p
+    t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, (
+        "operations" if t_ops >= t_bytes else "bytes"), rows
+
+
+def phase_rescore(pairs, card):
+    """K5 against its plain chain (today's torch and cuFFT chain) at the
+    cells' three shapes: the answers' (bin, lag) equal, the values
+    within FB_RTOL; then, per shape, the wrapper's CUDA-event ms, its
+    device ms and device operations a call (``torch.profiler``), its ms
+    replayed in a CUDA graph (as the engines run it), the bound, and the
+    plain chain's the same (its graph replay is the ``library`` time:
+    the chain as the engines ran it before K5)."""
+    import torch
+
+    from caf_cookoff_tpu_torch.ops import stein_rescore as rs
+
+    out = {}
+    for name, args, kw in rescore_inputs(pairs):
+        reset_rescore()
+        got = rs.stein_rescore(*args, **kw)
+        want = rs.rescore_plain(*args, **kw)
+        torch.cuda.synchronize()
+        check(rs.RESCORE_LAUNCHES == 1,
+              f"[rescore] {name}: the call did not launch K5 once")
+        same = (torch.equal(got.freq_idx, want.freq_idx)
+                and torch.equal(got.lag_idx, want.lag_idx))
+        rel = float(((got.value - want.value).abs()
+                     / want.value.abs()).max())
+        print(f"[rescore] {name}: (bin, lag) equal to the plain chain's: "
+              f"{same}; max rel value err {rel:.3e} (tol {FB_RTOL})")
+        check(same and rel <= FB_RTOL, f"[rescore] {name}: K5 off the "
+              f"plain chain")
+        k5 = lambda: rs.stein_rescore(*args, **kw)  # noqa: E731
+        plain = lambda: rs.rescore_plain(*args, **kw)  # noqa: E731
+        t = {"ms": cuda_median_ms(k5, 100), "plain_ms": cuda_median_ms(
+            plain, 50), "graph_ms": graph_ms(k5),
+             "library_ms": graph_ms(plain)}
+        t["device_ms"], t["device_ops"] = device_work(k5)
+        t["plain_device_ms"], t["plain_device_ops"] = device_work(plain)
+        t["bound_ms"], t["bound_by"], t["rows"] = rescore_bound_ms(args, kw)
+        out[name] = t
+        print(f"[rescore] {name}: K5 wrapper {t['ms']:.4f} ms, in a graph "
+              f"{t['graph_ms']:.4f}, device {t['device_ms']:.4f} ms in "
+              f"{t['device_ops']:.1f} ops; plain chain {t['plain_ms']:.4f}"
+              f" ms, in a graph (library) {t['library_ms']:.4f}, device "
+              f"{t['plain_device_ms']:.4f} ms in {t['plain_device_ops']:.1f}"
+              f" ops; bound {t['bound_ms']:.6f} ms ({t['bound_by']}, "
+              f"{t['rows']} rows)  [{card}]")
+    return out
+
+
 def golden_inputs(pairs):
     from caf_cookoff_tpu_torch import FreqGrid
 
@@ -574,10 +718,12 @@ def phase_main_stein(inputs):
     from caf_cookoff_tpu_torch.ops import fused_stein as fs
 
     fs.LAUNCHES = 0
+    reset_rescore()
     answers = run_goldens(inputs, "stein")
     launches = fs.LAUNCHES
     print(f"[main] fused_stein_rank launches over the 10 goldens: "
           f"{launches}")
+    rescore_calls("stein goldens", len(GOLDEN))
     check(launches >= len(GOLDEN), "main path did not launch the kernel")
     n0, h0, f0, _, _ = inputs[0]
     stein0 = answers[0]
@@ -747,6 +893,7 @@ def run_config(name, cfg):
 
     needles, hays, freqs, lags, truths = cfg
     fs.LAUNCHES = 0
+    reset_rescore()
     t0 = time.perf_counter()
     if lags is None:
         fr, lg, vv = batched_stein_peak(needles, hays, freqs, FS,
@@ -756,6 +903,7 @@ def run_config(name, cfg):
                                            num_lags=lags, device=DEVICE)
     seconds = time.perf_counter() - t0
     launches = fs.LAUNCHES
+    rescore_calls(name, 1)
     got = [(float(f), int(l)) for f, l in zip(fr, lg)]
     print(f"[configs] {name}: {len(got)} pairs in {seconds:.2f} s (first "
           f"call), K1 launches {launches}; values finite and > 0: "
@@ -1604,6 +1752,7 @@ def run_lattice(name, cfg):
     needles, hays, freqs, lags, truths = cfg
     num = NUM_PEAKS[name]
     fs.LAUNCHES = 0
+    reset_rescore()
     t0 = time.perf_counter()
     if lags is None:
         fr, lg, vv = batched_stein_peaks(needles, hays, freqs, FS, num,
@@ -1613,6 +1762,7 @@ def run_lattice(name, cfg):
                                             num_lags=lags, device=DEVICE)
     seconds = time.perf_counter() - t0
     launches = fs.LAUNCHES
+    rescore_calls(name, 0)
     rows = [[(float(f), int(l)) for f, l, v in zip(fr[i], lg[i], vv[i])
              if np.isfinite(v)] for i in range(len(needles))]
     ef, el = lattice_exclusions(cfg)
@@ -1850,6 +2000,7 @@ def run_rate(name, cfg):
         return 0, None
     num = 3 if name == "ratelat3" else 1
     fs.LAUNCHES = 0
+    reset_rescore()
     t0 = time.perf_counter()
     if num == 1:
         got = stein_rate_os_peak(needle, hay, freqs, rates, FS, device=DEVICE)
@@ -1858,6 +2009,7 @@ def run_rate(name, cfg):
                                   device=DEVICE)
     seconds = time.perf_counter() - t0
     launches = fs.LAUNCHES
+    rescore_calls(name, 0)
     check(launches > 0, f"{name} did not launch K1")
     if num == 1:
         serial = rate_overlap_save_peak(needle, hay, freqs, rates, FS,
@@ -1985,11 +2137,13 @@ def phase_stream(sin):
     needle, hay, two, freqs, truth, truths2 = sin
     chunks = -(-len(hay) // STREAM_CHUNK)
     fs.LAUNCHES = 0
+    reset_rescore()
     t0 = time.perf_counter()
     s, _ = stream_through(hay, needle, freqs, backend="stein")
     best = s.best()
     seconds = time.perf_counter() - t0
     launches = fs.LAUNCHES
+    rescore_calls("stream3", 0)
     want = stein_overlap_save_peak(needle, hay, freqs, FS, device=DEVICE)
     print(f"[stream] stream3 Stein stream, {chunks} chunks of "
           f"{STREAM_CHUNK} ({len(hay)} samples): best {best} in "
@@ -2005,9 +2159,11 @@ def phase_stream(sin):
     check(cbest[:2] == truth and abs(cbest[2] / best[2] - 1.0) <= 1e-4,
           "stream3 cuFFT stream answer")
     fs.LAUNCHES = 0
+    reset_rescore()
     lat, _ = stream_through(two, needle, freqs, backend="stein", num_peaks=3)
     fr, lg, vv = lat.peaks()
     lat_launches = fs.LAUNCHES
+    rescore_calls("stream3 lattice", 0)
     rows = [(float(f), int(l)) for f, l, v in zip(fr, lg, vv)
             if np.isfinite(v)]
     ofr, olg, ovv = overlap_save_peaks(needle, two, freqs, FS, 3,
@@ -2238,8 +2394,10 @@ def phase_rows(pairs, cfg3):
     needle, hay = load_pair(pairs, 0)
     freqs = FreqGrid(*WIDE_GRID).frequencies(np.float32)
     fs.LAUNCHES = fs.SPLIT_LAUNCHES = 0
+    reset_rescore()
     got = caf_peak(needle, hay, freqs, FS, backend="stein", device=DEVICE)
     launches, split = fs.LAUNCHES, fs.SPLIT_LAUNCHES
+    rescore_calls("wide1000", 1)
     want = caf_peak(needle, hay, freqs, FS, backend="xla", device=DEVICE)
     print(f"[rows] wide1000 chirp_0 over {WIDE_GRID} Hz: stein {got[0]:+.3f}"
           f" Hz, lag {got[1]}, value {got[2]:.6g}, K1 launches {launches} "
@@ -2252,9 +2410,11 @@ def phase_rows(pairs, cfg3):
     wide = np.linspace(-1000, 1000, 2000, endpoint=False).astype(np.float32)
     chunks = -(-hays.shape[-1] // STREAM_CHUNK)
     fs.LAUNCHES = fs.SPLIT_LAUNCHES = 0
+    reset_rescore()
     s, _ = stream_through(hays[0], needles[0], wide, backend="stein")
     best = s.best()
     s_launches, s_split = fs.LAUNCHES, fs.SPLIT_LAUNCHES
+    rescore_calls("the +-1000 Hz stream", 0)
     c, _ = stream_through(hays[0], needles[0], wide)
     cbest = c.best()
     print(f"[rows] stream3 at +-1000 Hz (2000 bins, 2B = "
@@ -2446,8 +2606,11 @@ def phase_parallel(cfgs, lcfgs, rcfgs, card):
     launches, singles, times = {}, {}, {}
     for name, (sharded, single) in calls.items():
         fs.LAUNCHES = 0
+        reset_rescore()
         got = sharded()
         launches[f"parallel 1 rank {name}"] = fs.LAUNCHES
+        rescore_calls(f"parallel 1 rank {name}",
+                      int(name in ("config2", "config3")))
         singles[name] = single()
         print(f"[parallel] 1 rank {name}: K1 launches "
               f"{launches[f'parallel 1 rank {name}']}; "
@@ -2762,6 +2925,7 @@ def main() -> int:
     phase_build()
     head, err1 = phase_kernel_stein(pairs)
     fb_head, err2, err3 = phase_kernel_filterbank(pairs)
+    rescore = phase_rescore(pairs, card)
     inputs = golden_inputs(pairs)
     launches1, fb = phase_main_stein(inputs)
     launches2, launches3 = phase_main_pallas(inputs, fb)
@@ -2888,6 +3052,15 @@ def main() -> int:
         "launch_device_ms": t["k3_device"],
         "blocks_per_sm": occ3["blocks_per_sm"], "cluster": occ3["cluster"],
         "waves": occ3["waves"],
+    }, {
+        "name": "stein_rescore", "route": "cuda",
+        "source": src + "stein_rescore.cu",
+        "replaces": "the XLA re-score of caf_cookoff_tpu/models/stein.py:225 "
+                    "(no Pallas kernel)",
+        "library": "the plain torch + cuFFT chain replayed in a CUDA graph",
+        "launches": sum(RESCORE_BY_PATH.values()),
+        "launches_by_path": RESCORE_BY_PATH,
+        "cells": rescore,
     }, {
         "name": "epilogue_roofline", "route": "cuda",
         "source": src + "roofline_epilogue.cu",

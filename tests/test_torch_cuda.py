@@ -1743,3 +1743,263 @@ def test_windowed_eager_cores_make_no_sync_on_card(card):
             _graph.compiled(core, traced, static)
     finally:
         torch.cuda.set_sync_debug_mode(0)
+
+
+# K5, the Stein exact re-score (ops/stein_rescore), against its plain
+# chain on the card: the candidates bit for bit, each row's value within
+# FB_RTOL and its lag equal (or, in a near-tied row, within FB_RTOL of
+# the row's maximum), the answers equal.
+
+def _k5_rows_plain(ns, hs, freqs, cand, m, bound=None):
+    """Each (pair, slot) row's (max, first lag) by torch.fft, over the
+    lags up to ``bound``, and the rows themselves."""
+    from caf_cookoff_tpu_torch.models.filterbank import _surface_rows, mag2
+
+    rows = mag2(_surface_rows(ns, hs, freqs[cand.long()], FS, m))
+    if bound is not None:
+        ok = torch.arange(m, device=rows.device)[None, :] <= bound[:, None]
+        rows = torch.where(ok[:, None, :], rows, -1.0)
+    vals, lags = rows.max(-1)
+    return vals, lags, rows
+
+
+def _assert_k5_matches_plain(ns, hs, freqs, ranking, m, needle_len,
+                             num_valid=None, bound=None):
+    from caf_cookoff_tpu_torch.ops import stein_rescore as rs
+
+    before = rs.RESCORE_LAUNCHES
+    got = rs.rescore_kernel(ns, hs, freqs, ranking, FS, m, needle_len,
+                            num_valid, bound)
+    torch.cuda.synchronize()
+    assert rs.RESCORE_LAUNCHES == before + 1
+    cand = rs._refine_candidates(ranking, freqs, needle_len, FS, num_valid)
+    assert torch.equal(got.cand, cand)
+    pv, pl, rows = _k5_rows_plain(ns, hs, freqs, cand, m, bound)
+    torch.testing.assert_close(got.vals, pv, rtol=FB_RTOL, atol=0)
+    at = torch.gather(rows, 2, got.lags.long()[..., None])[..., 0]
+    assert bool((at >= (1 - FB_RTOL) * pv).all())
+    assert (got.lags == pl.to(torch.int32)).float().mean().item() >= LAG_SHARE
+    if bound is not None:
+        assert bool((got.lags <= bound[:, None]).all())
+    want = rs.rescore_plain(ns, hs, freqs, ranking, FS, m, needle_len,
+                            num_valid, bound)
+    assert torch.equal(got.peak.freq_idx, want.freq_idx)
+    assert torch.equal(got.peak.lag_idx, want.lag_idx)
+    torch.testing.assert_close(got.peak.value, want.value, rtol=FB_RTOL,
+                               atol=0)
+    return got
+
+
+K5_CANDIDATE_CASES = [
+    # name, K, rounding of the values (duplicates), num_valid, grid step Hz
+    ("duplicates", 400, 16.0, None, 0.5),
+    ("inf_padding", 420, 8.0, 400, 0.5),
+    ("k_below_12", 5, 4.0, None, 0.5),
+    ("k_of_1", 1, 4.0, None, 0.5),
+    ("sep_past_k", 9, 4.0, None, 0.001),
+]
+
+
+@pytest.mark.parametrize("name,k,quant,num_valid,step", K5_CANDIDATE_CASES,
+                         ids=[c[0] for c in K5_CANDIDATE_CASES])
+def test_rescore_candidates_bit_for_bit_on_card(card, name, k, quant,
+                                                num_valid, step):
+    """K5's candidates are ``_refine_candidates``' integers bit for bit,
+    on rankings of 4 pairs with many equal values, -inf past
+    ``num_valid``, K < 12 and a mainlobe wider than the grid (sep >= K),
+    and the rows behind them hold to the plain chain."""
+    from caf_cookoff_tpu_torch.ops import stein_rescore as rs
+
+    rng = np.random.default_rng(k)
+    p, n, m = 4, 1024, 2048
+    needles, hays = _pairs(rng, p, n)
+    ranking = torch.from_numpy(np.floor(quant * rng.random((p, k))).astype(
+        np.float32)).cuda()
+    if num_valid is not None:
+        ranking[:, num_valid:] = -np.inf
+    freqs = (step * (torch.arange(k, device="cuda") - k // 2)).float()
+    got = _assert_k5_matches_plain(
+        torch.from_numpy(needles).cuda(), torch.from_numpy(hays).cuda(),
+        freqs, ranking, m, n, num_valid)
+    n_plain, n_sep = rs._num_picks(k, num_valid)
+    assert got.cand.shape == (p, n_plain + n_sep)
+    if name == "sep_past_k":
+        assert bool((got.cand[:, n_plain + 1:] == 0).all())
+
+
+def test_rescore_rejects_bad_operands_on_card(card):
+    """K5's call raises on a ranking or grid off f32, a ranking on another
+    device and a lag bound of another shape, before any launch."""
+    from caf_cookoff_tpu_torch.ops import stein_rescore as rs
+
+    n = torch.ones((2, 64), dtype=torch.complex64, device="cuda")
+    ranking = torch.rand((2, 9), device="cuda")
+    freqs = torch.arange(9.0, device="cuda")
+    before = rs.RESCORE_LAUNCHES
+    with pytest.raises(TypeError, match="f32"):
+        rs.rescore_kernel(n, n, freqs.double(), ranking, FS, 128, 64)
+    with pytest.raises(ValueError, match="must all be on"):
+        rs.rescore_kernel(n, n, freqs, ranking.cpu(), FS, 128, 64)
+    with pytest.raises(ValueError, match="lag bounds"):
+        rs.rescore_kernel(n, n, freqs, ranking, FS, 128, 64,
+                          lag_bound=torch.zeros(3, device="cuda"))
+    assert rs.RESCORE_LAUNCHES == before
+
+
+def test_rescore_refuses_what_k5_cannot_hold_on_card(card):
+    """On the card only K5 re-scores: complex128 signals and an M past
+    K2's range raise before any launch, through the wrapper and through
+    a public engine (its f64 segmented rank, fused=False, so the refusal
+    is the re-score's), and no plain chain runs in their place."""
+    from caf_cookoff_tpu_torch import stein_caf_peak
+    from caf_cookoff_tpu_torch.errors import EligibilityError, VmemBudgetError
+    from caf_cookoff_tpu_torch.ops import stein_rescore as rs
+
+    n = torch.ones((2, 64), dtype=torch.complex64, device="cuda")
+    ranking = torch.rand((2, 9), device="cuda")
+    freqs = torch.arange(9.0, device="cuda")
+    before = rs.RESCORE_LAUNCHES
+    with pytest.raises(EligibilityError, match="complex64"):
+        rs.stein_rescore(n.to(torch.complex128), n.to(torch.complex128),
+                         freqs, ranking, FS, 128, 64)
+    with pytest.raises(VmemBudgetError, match="Stein re-score kernel"):
+        rs.stein_rescore(n, n, freqs, ranking, FS, 2 * rs.MAX_FFT_LEN, 64)
+    needle, hay, grid = _golden(0, GOLDEN[0][1])
+    with pytest.raises(EligibilityError, match="complex64"):
+        stein_caf_peak(needle.to(torch.complex128), hay.to(torch.complex128),
+                       grid, FS, fused=False, device="cuda")
+    assert rs.RESCORE_LAUNCHES == before
+
+
+def _k5_batch(pairs):
+    """config2's pairs (bench grid) and K1's coarse ranking of them."""
+    from caf_cookoff_tpu_torch.models.batched_stein import (_batch_operands,
+                                                            _coarse_rank)
+    from caf_cookoff_tpu_torch.utils import bench_configs as bc
+
+    needles, hays, freqs, _, _ = bc.build_config2(pairs=pairs)
+    ns, hs = torch.from_numpy(needles).cuda(), torch.from_numpy(hays).cuda()
+    freqs = torch.from_numpy(freqs).cuda()
+    ops, b, sup, _ = _batch_operands(ns, hs, freqs, FS, 8192, 64)
+    vals, _ = _coarse_rank(*ops, b, sup, 8192, want_idxs=False)
+    return ns, hs, freqs, vals.T.contiguous()
+
+
+@pytest.mark.parametrize("pairs", [1, 64])
+def test_rescore_matches_plain_at_the_cookoff_shapes_on_card(card, pairs):
+    """P = 1 and P = 64 pairs, K = 400, M = 8192 (cookoff.single and
+    cookoff.batch64), on K1's ranking."""
+    _assert_k5_matches_plain(*_k5_batch(pairs), 8192, 4096)
+
+
+def test_rescore_matches_plain_banded_with_a_lag_bound_on_card(card):
+    """widearea.capture's re-score: one pair, config3's needle against a
+    guard-extended slice of its capture, the banded grid (2000 bins
+    padded to whole bands, -inf past them), lags bounded at 100."""
+    from caf_cookoff_tpu_torch.models.stein import _plan_bands
+    from caf_cookoff_tpu_torch.utils import bench_configs as bc
+
+    needle, hay, freqs, _, truth = bc.build_config3()
+    plan = _plan_bands(FS, freqs)
+    pad = torch.from_numpy(plan["freqs_pad"]).cuda()
+    start = truth[0][1] - 64
+    sl = torch.from_numpy(hay[:, start:start + 4096 + 128]).cuda()
+    rng = np.random.default_rng(5)
+    ranking = torch.from_numpy(rng.random((1, pad.shape[0])).astype(
+        np.float32)).cuda()
+    ranking[0, len(freqs):] = -np.inf
+    ranking[0, int(np.argmin(np.abs(freqs - truth[0][0])))] = 2.0
+    got = _assert_k5_matches_plain(
+        torch.from_numpy(needle).cuda(), sl, pad, ranking, 8192, 4096,
+        len(freqs), torch.tensor([100], device="cuda"))
+    assert int(got.peak.lag_idx[0]) == 64
+    assert float(pad[int(got.peak.freq_idx[0])]) == truth[0][0]
+
+
+def test_rescore_exact_tie_goes_to_the_lowest_bin_on_card(card):
+    """Two bins of one frequency give bit-identical rows: the tie goes to
+    the lower bin, though the ranking puts the higher one first."""
+    from caf_cookoff_tpu_torch.ops import stein_rescore as rs
+
+    n, h, _ = _golden(0, GOLDEN[0][1])
+    freqs = torch.arange(60.0, 76.0, 1.0, device="cuda")
+    freqs[12] = GOLDEN[0][2]                        # 69.25 Hz at bins 9, 12
+    freqs[9] = GOLDEN[0][2]
+    ranking = torch.arange(16, dtype=torch.float32, device="cuda")
+    got = rs.rescore_kernel(n[None], h[None], freqs, ranking[None], FS, 8192,
+                            4096)
+    slots = got.cand[0].tolist()
+    assert slots.index(12) < slots.index(9)
+    assert float(got.vals[0, slots.index(12)]) == float(
+        got.vals[0, slots.index(9)])
+    assert int(got.peak.freq_idx[0]) == 9
+    assert int(got.peak.lag_idx[0]) == GOLDEN[0][3]
+
+
+def test_rescore_runs_on_each_card_of_a_process(card):
+    """K5 on the first card and then on the second, in one process: the
+    rows kernel's 64 KB of shared memory is granted on each card (its
+    attributes are set at every launch), and both equal the plain chain
+    on their own card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    ns, hs, freqs, ranking = _k5_batch(4)
+    for dev in ("cuda:0", "cuda:1"):
+        on = [t.to(dev) for t in (ns, hs, freqs, ranking)]
+        with torch.cuda.device(dev):
+            got = _assert_k5_matches_plain(*on, 8192, 4096)
+        assert got.peak.value.device == torch.device(dev)
+
+
+def _k5_core(ns, hs, freqs, ranking, bound):
+    from caf_cookoff_tpu_torch.models.batched_stein import _pack
+    from caf_cookoff_tpu_torch.ops import stein_rescore as rs
+
+    return _pack(rs.stein_rescore(ns, hs, freqs, ranking, FS, 8192, 4096,
+                                  lag_bound=bound))
+
+
+def test_rescore_replay_is_its_eager_call_on_card(card):
+    """K5 alone in a compiled call: the replay equals the eager call bit
+    for bit, and each replay counts one call."""
+    from caf_cookoff_tpu_torch.ops import _graph
+    from caf_cookoff_tpu_torch.ops import stein_rescore as rs
+
+    ns, hs, freqs, ranking = _k5_batch(8)
+    bound = torch.full((8,), 5000, dtype=torch.int64, device="cuda")
+    traced = (ns, hs, freqs, ranking, bound)
+    got, want = _replay_and_eager(_k5_core, traced, ())
+    assert _same_bits(got, want)
+    before = rs.RESCORE_LAUNCHES
+    _graph.compiled(_k5_core, traced, ())
+    assert rs.RESCORE_LAUNCHES == before + 1
+
+
+def test_rescore_counts_one_call_a_search_on_card(card):
+    """One K5 call a search of stein_caf_peak, batched_stein_peak and
+    batched_stein_os_peak (replays), none in a StreamingCAF search."""
+    from caf_cookoff_tpu_torch import (batched_stein_os_peak,
+                                       batched_stein_peak, stein_caf_peak)
+    from caf_cookoff_tpu_torch.ops import stein_rescore as rs
+    from caf_cookoff_tpu_torch.utils import bench_configs as bc
+
+    n, h, freqs = _golden(0, GOLDEN[0][1])
+    ns, hs, grid, _ = _k5_batch(8)
+    cn, ch, cf, lags = bc.build_config3(lags=16384)[:4]
+    searches = [
+        lambda: stein_caf_peak(n, h, freqs, FS, device="cuda"),
+        lambda: batched_stein_peak(ns, hs, grid, FS, device="cuda"),
+        lambda: batched_stein_os_peak(cn, ch, cf, FS, num_lags=lags,
+                                      device="cuda")]
+    for search in searches:
+        search()
+        before = rs.RESCORE_LAUNCHES
+        for _ in range(3):
+            search()
+        assert rs.RESCORE_LAUNCHES == before + 3
+    needle, hay, _, sfreqs = _stream3()
+    _run_stream(needle, hay, sfreqs, backend="stein")[0].best()
+    before = rs.RESCORE_LAUNCHES
+    s, _ = _run_stream(needle, hay, sfreqs, backend="stein")
+    s.best()
+    assert rs.RESCORE_LAUNCHES == before

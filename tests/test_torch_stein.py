@@ -18,6 +18,7 @@ from caf_cookoff_tpu_torch.models import batched_stein as tbs
 from caf_cookoff_tpu_torch.models import filterbank as tfb
 from caf_cookoff_tpu_torch.models import stein as tstein
 from caf_cookoff_tpu_torch.ops import fused_stein as tfs
+from caf_cookoff_tpu_torch.ops import stein_rescore as trs
 
 # Private fixture copies: the shared data/ may be rewritten by another
 # worker while this module reads it (see test_torch_fixtures.py).
@@ -102,8 +103,8 @@ def test_refine_candidates_match_jax(seed):
     scores[[3, 50, 51, 120, 199]] = 7.0
     scores[[10, 11]] = 6.5
     freqs = np.arange(-50.0, 50.0, 0.5, dtype=np.float32)
-    got = tstein._refine_candidates(torch.from_numpy(scores),
-                                    torch.from_numpy(freqs), 4096, FS)
+    got = trs._refine_candidates(torch.from_numpy(scores),
+                                 torch.from_numpy(freqs), 4096, FS)
     want = jstein._refine_candidates(jnp.asarray(scores),
                                      jnp.asarray(freqs), 4096, FS)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
