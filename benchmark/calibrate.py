@@ -11,14 +11,16 @@ gives the port's reading; then the control on the same pool: the plain
 reference computed in bfloat16 (``reference/caf.py``), put in the
 port's place, its answers judged by the same comparison
 (``compare.judge``) against the complex128 reference and the cell's
-limits.  One JSON line a seed.  The benchmark's own runs
-never run the control.
+limits, answering as the cell's entry does (a lattice's slots, a rate
+cell's rates).  One JSON line a seed.  The benchmark's own runs never
+run the control.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import sys
 import time
 from types import SimpleNamespace
@@ -29,27 +31,38 @@ def control(name: str, seed: int, device: str = "cuda", config=None,
             workload=None) -> Dict:
     """The control on cell ``name``'s pool of ``seed``, judged as a run
     is: ``{"numbers": {name: value}, "failed": pool items that
-    failed}`` against the cell's limits."""
+    failed}`` against the cell's limits.  It answers as the cell's entry
+    does: each pair's peak, its chunk peaks where the entry has
+    ``chunks``, and its lattice where the entry has ``slots``."""
     from benchmark import cell as cells
     from benchmark import compare, spec
 
     cell = cells.load(name, device, config, workload)
     entry = spec.load_module("entries", cell.workload["entry"])
     reference = spec.load_module("reference", cell.workload["entry"])
+    lo = reference.lag_range(cell)[0]
     pool = cells.make_pool(cell, seed)
 
     def said(peak):
-        k, lag, value = peak
-        return float(cell.freqs[k]), lag, value
+        """A reference's (*key, value) as an answer: (rate, freq, lag,
+        value) or (freq, lag, value); an empty slot as value -inf."""
+        if peak is None:
+            return (*(float(g[0]) for g in cell.grids), lo, -math.inf)
+        *axes, lag, value = peak
+        return (*(float(g[i]) for g, i in zip(cell.grids, axes)), lag,
+                value)
 
     answers = []
     for k, item in enumerate(pool):
         ctrl = reference.run(cell, item, [()] * cell.pairs, "bfloat16")
         answers.append((k, ([said(r["best"]) for r in ctrl],
-                            [[said(s) for s in r["spans"]] for r in ctrl])))
+                            [[said(s) for s in r["spans"]] for r in ctrl],
+                            [[said(s) for s in r["slots"]] for r in ctrl])))
     stand_in = SimpleNamespace(pairs=lambda a: a[0])
     if hasattr(entry, "chunks"):
         stand_in.chunks = lambda a: a[1]
+    if hasattr(entry, "slots"):
+        stand_in.slots = lambda a: a[2]
     return compare.judge(cell, stand_in, reference, pool, answers,
                          cell.workload["limits"])
 

@@ -16,6 +16,22 @@ its tie's size; a wrong bin or lag reads the mainlobe's fall; an answer
 off the grid or outside the entry's lags reads infinity, and so does a
 search that answers another number of pairs than it was given.
 
+On a cell with a rate grid (``Cell.rates``) an answer is ``(rate, freq,
+lag, value)``, keyed (rate index, bin, lag); a rate off the grid reads
+infinity like a frequency off it.
+
+An entry that answers several emitters a pair (``slots``: each pair's
+answers, strongest first, an empty slot's value -inf) is judged slot by
+slot against its reference's greedy exclusion lattice (``slots`` and
+``box`` in the reference's result): slot j by the same ``peak_gap``
+against that slot's own peak R*_j.  A slot reads infinity where its
+answer lies inside the box of an earlier answered slot, off the grid or
+the lags, where it is empty and the reference's is not (or the other
+way round), and so does a pair that answers another number of slots
+than the reference has.  ``peak_gap`` is the worst over pairs and
+slots.  An entry without ``slots`` answers one slot a pair, its
+``pairs``, judged against the reference's 2-D argmax.
+
 An entry that answers each chunk it is fed (``chunks``) has its chunk
 peaks held to what the entry guarantees of them: one a chunk, on the
 grid, at a lag that chunk ranks (``reference.chunk_spans``).
@@ -36,38 +52,74 @@ from typing import Dict, List
 import numpy as np
 
 
-def _cell(freqs: np.ndarray, answer, lo: int, hi: int):
-    """The (bin, lag) an answer names, or None off the grid or lags, or
-    for what is no (freq, lag, value)."""
-    if not isinstance(answer, (tuple, list)) or len(answer) != 3:
+def _cell(cell, answer, lo: int, hi: int):
+    """The key an answer names, (bin, lag) or on a rate cell (rate
+    index, bin, lag), or None off the grids or the lags, or for what is
+    no answer of the cell's shape."""
+    grids = cell.grids
+    if not isinstance(answer, (tuple, list)) or len(answer) != len(
+            grids) + 2:
         return None
-    freq, lag, _ = answer
-    ks = np.flatnonzero(freqs == np.float32(freq))
-    if len(ks) != 1 or not lo <= int(lag) < hi:
+    key = []
+    for grid, x in zip(grids, answer):
+        ks = np.flatnonzero(grid == np.float32(x))
+        if len(ks) != 1:
+            return None
+        key.append(int(ks[0]))
+    lag = answer[-2]
+    if not lo <= int(lag) < hi:
         return None
-    return int(ks[0]), int(lag)
+    return (*key, int(lag))
 
 
-def peak_gap(freqs: np.ndarray, answer, ref: Dict, lo: int, hi: int
-             ) -> float:
-    cell = _cell(freqs, answer, lo, hi)
-    if cell is None or cell not in ref["probes"]:
+def _empty(answer) -> bool:
+    """An empty slot: an answer whose value is -inf."""
+    return (isinstance(answer, (tuple, list)) and len(answer) > 0
+            and answer[-1] == -math.inf)
+
+
+def peak_gap(cell, answer, best, probes: Dict, lo: int, hi: int) -> float:
+    """``answer``'s gap against ``best`` (*key, value), the reference's
+    peak, with ``probes`` the reference's values at the answered keys."""
+    key = _cell(cell, answer, lo, hi)
+    if key is None or key not in probes:
         return math.inf
-    value = float(answer[2])
-    r_star = ref["best"][2]
+    value = float(answer[-1])
+    r_star = best[-1]
     if not math.isfinite(value):
         return math.inf
-    return max(abs(value - r_star), r_star - ref["probes"][cell]) / r_star
+    return max(abs(value - r_star), r_star - probes[key]) / r_star
 
 
-def location_gap(freqs: np.ndarray, answer, best, probes: Dict, lo: int,
-                 hi: int) -> float:
-    """How far below ``best`` (bin, lag, value), the reference's peak
-    over lags ``[lo, hi)``, the reference lies at the answer's cell."""
-    cell = _cell(freqs, answer, lo, hi)
-    if cell is None or cell not in probes:
+def slots_gap(cell, said: List, ref: Dict, lo: int, hi: int) -> float:
+    """The worst slot's ``peak_gap`` of one pair's answers ``said``,
+    strongest first, against the reference's lattice."""
+    want = ref["slots"]
+    if len(said) != len(want):
         return math.inf
-    return (best[2] - probes[cell]) / best[2]
+    worst, earlier = 0.0, []
+    for answer, best in zip(said, want):
+        if _empty(answer) or best is None:
+            if _empty(answer) and best is None:
+                continue
+            return math.inf
+        key = _cell(cell, answer, lo, hi)
+        if key is None or any(ref["box"].covers(at, key) for at in earlier):
+            return math.inf
+        earlier.append(key)
+        worst = max(worst, peak_gap(cell, answer, best, ref["probes"], lo,
+                                    hi))
+    return worst
+
+
+def location_gap(cell, answer, best, probes: Dict, lo: int,
+                 hi: int) -> float:
+    """How far below ``best`` (*key, value), the reference's peak over
+    lags ``[lo, hi)``, the reference lies at the answer's cell."""
+    key = _cell(cell, answer, lo, hi)
+    if key is None or key not in probes:
+        return math.inf
+    return (best[-1] - probes[key]) / best[-1]
 
 
 def _key(answer):
@@ -79,16 +131,16 @@ def _key(answer):
     return answer
 
 
-def _judged(cell, reference, lo, hi, pairs, chunks, refs):
+def _judged(cell, reference, lo, hi, slots, chunks, refs):
     """One distinct answer's numbers, compared with the cell's limits:
-    the worst pair's ``peak_gap`` and, with chunks, ``chunk_misses``;
-    and its readings, compared with nothing: the worst chunk's
-    ``chunk_gap``."""
-    if len(pairs) != cell.pairs:
+    the worst pair's and slot's ``peak_gap`` and, with chunks,
+    ``chunk_misses``; and its readings, compared with nothing: the
+    worst chunk's ``chunk_gap``."""
+    if len(slots) != cell.pairs:
         numbers = {"peak_gap": math.inf}
     else:
-        numbers = {"peak_gap": max(peak_gap(cell.freqs, a, r, lo, hi)
-                                   for a, r in zip(pairs, refs))}
+        numbers = {"peak_gap": max(slots_gap(cell, s, r, lo, hi)
+                                   for s, r in zip(slots, refs))}
     if chunks is None:
         return numbers, {}
     spans = reference.chunk_spans(cell)
@@ -97,7 +149,7 @@ def _judged(cell, reference, lo, hi, pairs, chunks, refs):
     for local, r in zip(chunks, refs):
         misses += abs(len(spans) - len(local))
         for a, (a_lo, a_hi), best in zip(local, spans, r["spans"]):
-            gap = location_gap(cell.freqs, a, best, r["probes"], a_lo, a_hi)
+            gap = location_gap(cell, a, best, r["probes"], a_lo, a_hi)
             if math.isinf(gap):
                 misses += 1
             else:
@@ -119,24 +171,26 @@ def judge(cell, entry, reference, pool: List[Dict], answers, limits: Dict
     distinct: Dict = {}
     for key, (k, ans) in zip(keys, answers):
         if key not in distinct:
-            distinct[key] = (k, entry.pairs(ans),
+            slots = entry.slots(ans) if hasattr(entry, "slots") else [
+                [a] for a in entry.pairs(ans)]
+            distinct[key] = (k, [list(s) for s in slots],
                              entry.chunks(ans) if chunked else None)
     probes: Dict[int, List[set]] = {}
-    for k, pairs, chunks in distinct.values():
+    for k, slots, chunks in distinct.values():
         rows = probes.setdefault(k, [set() for _ in range(cell.pairs)])
-        named = [[a] for a in pairs]
+        named = list(slots)
         for p, local in enumerate(chunks or []):
             if p < len(named):
                 named[p] = named[p] + list(local)
         for row, said in zip(rows, named):
             for a in said:
-                c = _cell(cell.freqs, a, lo, hi)
+                c = _cell(cell, a, lo, hi)
                 if c is not None:
                     row.add(c)
     refs = {k: reference.run(cell, pool[k], rows)
             for k, rows in sorted(probes.items())}
-    judged = {key: _judged(cell, reference, lo, hi, pairs, chunks, refs[k])
-              for key, (k, pairs, chunks) in distinct.items()}
+    judged = {key: _judged(cell, reference, lo, hi, slots, chunks, refs[k])
+              for key, (k, slots, chunks) in distinct.items()}
     failed = sum(any(v > limits[name] for name, v in judged[key][0].items())
                  for key in keys)
     return {"numbers": _worst(n for n, _ in judged.values()),

@@ -98,6 +98,21 @@ def test_bounds_and_cells(bench):
             assert cell in row.get("workloads", [cell])
 
 
+def test_every_per_layer_metric_lists_its_cells(bench):
+    """A per-layer metric without a list is owed by every cell that
+    reports what it moves, later cells too; each names its cells, and
+    each of them reports the metric it moves."""
+    cells = {w["name"] for w in bench["workloads"]}
+    for m in bench["per_layer"]:
+        assert m.get("workloads"), m["name"]
+        assert set(m["workloads"]) <= cells
+        assert len(m["workloads"]) == len(set(m["workloads"]))
+        for cell in m["workloads"]:
+            reported = spec.metrics_for(bench, cell, False)
+            assert m["moves"] in {r["name"] for r in reported}, (
+                m["name"], cell)
+
+
 def test_every_piece_found_by_name(bench):
     by_config = {c["name"]: c for c in bench["configs"]}
     for w in bench["workloads"]:
