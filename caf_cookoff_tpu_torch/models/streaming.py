@@ -28,7 +28,9 @@ key on a card, as JAX jits each step) serves every chunk of a stream.
 Each step returns ``(*best, *carry, tail, base_lag + valid, local)``:
 the running best's three fields, two carried tensors (the floor sums,
 or the re-score window and its start), the next tail, the next base lag
-and this chunk's peak packed as one (3,) f64 tensor.
+and this chunk's peak packed as one (3,) f64 tensor.  All but ``local``
+are carried: on a card the step's graph writes them back into its own
+input buffers, where the stream keeps its state.
 
 On a CUDA device the Stein steps launch K1 (a failed build or launch
 raises); on the CPU K1 runs its plain version.
@@ -248,12 +250,18 @@ def _energy(chunk, device: torch.device):
     return float(np.sum(chunk.real ** 2) + np.sum(chunk.imag ** 2))
 
 
-def _upload(chunk, device: torch.device) -> torch.Tensor:
-    """A chunk as a complex tensor on ``device``; one from the host goes
-    up without waiting for the card."""
-    x = as_signal(chunk, chunk.device if isinstance(chunk, torch.Tensor)
-                  else "cpu")
-    return x.to(device, non_blocking=x.device.type == "cpu")
+# A step's traced inputs are its constants (Stein: ws1, ws2, lmat; cuFFT:
+# the needle's spectra), then these, counted past the constants.  Its
+# outputs are (*best, *carry, tail, base_lag + valid, local), each but
+# ``local`` carried back into its input (``_graph.Occupant``).
+_TAIL, _CHUNK, _BEST, _CARRY, _BASE, _VALID = 0, 1, 2, 5, 7, 8
+_CARRIED = ((0, _BEST), (1, _BEST + 1), (2, _BEST + 2), (3, _CARRY),
+            (4, _CARRY + 1), (5, _TAIL), (6, _BASE))
+
+
+def _field(j: int):
+    """The step's input ``j`` past its constants: the stream's state."""
+    return property(lambda self: self._inputs()[self._consts + j])
 
 
 class StreamingCAF:
@@ -286,7 +294,11 @@ class StreamingCAF:
     On a card each step, the needle's spectra and the exact re-score are
     compiled calls (``ops/_graph``): one CUDA graph per static key, so a
     stream's chunks, a short last one padded to the pinned length among
-    them, replay one graph.  A chunk reads back only its packed peak.
+    them, replay one graph.  The stream is its step's occupant: its
+    constants and carried state stay in the graph's buffers, placed when
+    the chunk length is pinned, so a chunk copies in only its samples (a
+    host chunk from a pinned buffer) and reads back only its packed
+    peak.
     Lags are int32, as in the JAX package: past 2**31 - 1 a step raises
     ``OverflowError``.
     """
@@ -357,7 +369,8 @@ class StreamingCAF:
 
     def _build(self, n: torch.Tensor, d: Optional[int]) -> None:
         """The build's device part: the needle's operator and weights
-        (Stein) or spectra (cuFFT), and the state tensors."""
+        (Stein) or spectra (cuFFT), and the state tensors; where the
+        chunk length is known, the step's inputs placed."""
         p = self._num_peaks
         slots = (p,) if p > 1 else ()
         if self._stein:
@@ -372,30 +385,108 @@ class StreamingCAF:
                                                self.sample_rate,
                                                self._num_blocks, d)
             self._carry = self._needle_pad + _RESCORE_PAD
-            self._bw = n.new_zeros(slots + (self._carry,))
-            self._bw_start = torch.zeros(slots, dtype=torch.int32,
-                                         device=self.device)
+            consts = (*self._ws, self._lmat)
+            carry = (n.new_zeros(slots + (self._carry,)),
+                     torch.zeros(slots, dtype=torch.int32,
+                                 device=self.device))
         else:
             self._s_conj = _graph.compiled(
                 needle_spectra_conj, (n, self._freqs_t),
                 (self.sample_rate, xcor_length(self.needle_len)))
+            consts = (self._s_conj,)
+            # Measured floor: (sum, count) accumulators.
+            carry = (torch.zeros((), dtype=n.real.dtype, device=self.device),
+                     torch.zeros((), dtype=n.real.dtype, device=self.device))
         self._num_valid = {}      # valid length -> its (1,) int32 tensor
-        self._tail = n.new_zeros(self.needle_len - 1)
-        # Floor state: measured (sum, count) accumulators for the cuFFT
-        # steps; sample-energy sums for the Stein steps' model floor (K1
-        # reduces each bin to its (max, argmax): no cells to average),
-        # an f64 sum of each chunk's plane sums, as a Python float adds.
-        self._fsum = torch.zeros((), dtype=n.real.dtype, device=self.device)
-        self._fcnt = torch.zeros_like(self._fsum)
+        # The Stein steps' model floor (K1 reduces each bin to its (max,
+        # argmax): no cells to average) sums sample energies: an f64 sum
+        # of each chunk's plane sums, as a Python float adds.
         self._h2_sum = torch.zeros((), dtype=torch.float64,
                                    device=self.device)
-        self._best = CafPeak(
-            torch.full(slots, -math.inf, dtype=n.real.dtype,
-                       device=self.device),
-            torch.zeros(slots, dtype=torch.int32, device=self.device),
-            torch.zeros(slots, dtype=torch.int32, device=self.device))
-        self._base = torch.full((), self._base_lag, dtype=torch.int32,
-                                device=self.device)
+        best = (torch.full(slots, -math.inf, dtype=n.real.dtype,
+                           device=self.device),
+                torch.zeros(slots, dtype=torch.int32, device=self.device),
+                torch.zeros(slots, dtype=torch.int32, device=self.device))
+        base = torch.full((), self._base_lag, dtype=torch.int32,
+                          device=self.device)
+        # The step's inputs until the chunk length is pinned; the chunk
+        # and its valid length come with it.
+        self._consts = len(consts)
+        self._start = [*consts, n.new_zeros(self.needle_len - 1), None,
+                       *best, *carry, base, None]
+        self._occupant = None
+        self._pinned = None
+        if self._chunk_len is not None:
+            self._pin_length()
+
+    def _pin_length(self) -> None:
+        """The chunk length is pinned: the step's compiled call takes the
+        stream as its occupant (``ops/_graph``), whose inputs go into the
+        graph's buffers now if an earlier stream of the same shapes
+        captured it; a card stream stages host chunks in a pinned
+        buffer."""
+        n = self._chunk_len
+        start, self._start = self._start, None
+        start[self._consts + _CHUNK] = torch.empty(n, dtype=self._cdtype,
+                                                   device=self.device)
+        start[self._consts + _VALID] = self._valid_tensor(n)
+        self._valid = n
+        lattice = ((self._num_peaks, *self._exclude)
+                   if self._num_peaks > 1 else ())
+        if self._stein:
+            core = (_stein_stream_lattice_step if lattice
+                    else _stein_stream_step)
+            static = (self._num_blocks, self._group, self.needle_len,
+                      self._carry, *lattice)
+        else:
+            core = _stream_lattice_step if lattice else _stream_step
+            static = (self.needle_len, *lattice)
+        c = self._consts
+        self._occupant = _graph.Occupant(
+            core, start, static, [(o, c + i) for o, i in _CARRIED],
+            fresh=(c + _CHUNK,))
+        if self.device.type == "cuda":
+            self._pinned = torch.empty(n, dtype=self._cdtype,
+                                       pin_memory=True)
+            self._pinned_np = self._pinned.numpy()
+            self._staged = torch.cuda.Event()
+        self._occupant.place()
+
+    def _inputs(self):
+        return (self._start if self._occupant is None
+                else self._occupant.inputs)
+
+    def _write(self, j: int, t: torch.Tensor) -> None:
+        if self._occupant is None:
+            self._start[self._consts + j] = t
+        else:
+            self._occupant.write(self._consts + j, t)
+
+    def _valid_tensor(self, valid: int) -> torch.Tensor:
+        nv = self._num_valid.get(valid)
+        if nv is None:
+            nv = self._num_valid[valid] = torch.full(
+                (1,), valid, dtype=torch.int32, device=self.device)
+        return nv
+
+    _tail = _field(_TAIL)
+    # The carried pair: the floor sums (cuFFT steps) or the re-score
+    # window and its start (Stein steps).
+    _fsum = _bw = _field(_CARRY)
+    _fcnt = _bw_start = _field(_CARRY + 1)
+
+    @property
+    def _best(self) -> CafPeak:
+        return CafPeak(*self._inputs()[self._consts + _BEST:
+                                       self._consts + _BEST + 3])
+
+    @property
+    def _base(self) -> torch.Tensor:
+        return self._inputs()[self._consts + _BASE]
+
+    @_base.setter
+    def _base(self, t: torch.Tensor) -> None:
+        self._write(_BASE, t)
 
     @property
     def samples_seen(self) -> int:
@@ -447,6 +538,7 @@ class StreamingCAF:
         valid = int(chunk.shape[-1])
         if self._chunk_len is None:
             self._chunk_len = valid
+            self._pin_length()
         fixed = self._chunk_len
         if valid <= fixed:
             return self._step(chunk, spans)
@@ -458,8 +550,8 @@ class StreamingCAF:
         return best
 
     def _step(self, chunk, spans: bool) -> Tuple[float, int, float]:
-        """One step: the chunk staged on the device, the compiled step,
-        its peak read back; the first and last in their spans when
+        """One step: the chunk staged as the step's input, the compiled
+        step, its peak read back; the first and last in their spans when
         ``spans``."""
         valid = int(chunk.shape[-1])
         if self._base_lag > _INT32_MAX:
@@ -467,54 +559,52 @@ class StreamingCAF:
                 f"window base lag {self._base_lag} past int32: a stream's "
                 f"lags are int32, as in the JAX package")
         if not spans:
-            value, f, lag = self._advance(*self._stage(chunk, valid),
-                                          valid).tolist()
+            self._stage(chunk, valid)
+            value, f, lag = self._advance(valid).tolist()
         else:
             with span("caf.stream.upload"):
-                staged = self._stage(chunk, valid)
-            local = self._advance(*staged, valid)
+                self._stage(chunk, valid)
+            local = self._advance(valid)
             with span("caf.read"):
                 value, f, lag = local.tolist()
         return float(self._freqs[int(f)]), int(lag), value
 
-    def _stage(self, chunk, valid: int):
-        """The chunk padded to the pinned length on the device, and its
-        valid length as a (1,) int32 tensor there."""
+    def _stage(self, chunk, valid: int) -> None:
+        """The chunk, zero-padded to the pinned length, and its valid
+        length (written only when it changes) become the step's inputs.
+        On a card a host chunk goes through the pinned buffer, once its
+        last copy up is done, and then up without waiting for the card;
+        a chunk on the card is one copy."""
         if self._stein:
             # Model-floor input from the valid samples, before padding.
             self._h2_sum = self._h2_sum + _energy(chunk, self.device)
-        ch = pad_to(_upload(chunk, self.device).to(self._cdtype),
-                    self._chunk_len)
-        nv = self._num_valid.get(valid)
-        if nv is None:
-            nv = self._num_valid[valid] = torch.full(
-                (1,), valid, dtype=torch.int32, device=self.device)
-        return ch, nv
+        on_host = not (isinstance(chunk, torch.Tensor)
+                       and chunk.device.type != "cpu")
+        if self._pinned is not None and on_host:
+            # The last step's read waited for its copy, so this seldom
+            # waits; query first, since a wait would count as a sync.
+            if not self._staged.query():
+                self._staged.synchronize()
+            if isinstance(chunk, torch.Tensor):
+                self._pinned[:valid].copy_(as_signal(chunk, "cpu"))
+            else:
+                self._pinned_np[:valid] = chunk
+            self._write(_CHUNK, self._pinned[:valid])
+            self._staged.record()
+        else:
+            self._write(_CHUNK, as_signal(chunk, chunk.device if not on_host
+                                          else "cpu"))
+        if valid != self._valid:
+            self._write(_VALID, self._valid_tensor(valid))
+            self._valid = valid
 
-    def _advance(self, ch, nv, valid: int) -> torch.Tensor:
-        """The compiled step on a staged chunk: the state moves on and
-        the chunk's peak comes back packed, on the device."""
-        lattice = ((self._num_peaks, *self._exclude)
-                   if self._num_peaks > 1 else ())
-        if self._stein:
-            core = (_stein_stream_lattice_step if lattice
-                    else _stein_stream_step)
-            traced = (*self._ws, self._lmat, self._tail, ch, *self._best,
-                      self._bw, self._bw_start, self._base, nv)
-            static = (self._num_blocks, self._group, self.needle_len,
-                      self._carry, *lattice)
-        else:
-            core = _stream_lattice_step if lattice else _stream_step
-            traced = (self._s_conj, self._tail, ch, *self._best, self._fsum,
-                      self._fcnt, self._base, nv)
-            static = (self.needle_len, *lattice)
-        *best, c0, c1, self._tail, self._base, local = _graph.compiled(
-            core, traced, static)
-        self._best = CafPeak(*best)
-        if self._stein:
-            self._bw, self._bw_start = c0, c1
-        else:
-            self._fsum, self._fcnt = c0, c1
+    def _advance(self, valid: int) -> torch.Tensor:
+        """The compiled step on the staged chunk: the state moves on in
+        the step's inputs and the chunk's peak comes back packed, on the
+        device."""
+        occ = self._occupant
+        (local,) = _graph.compiled(occ.core, occ.inputs, occ.static,
+                                   occupant=occ)
         self._samples_seen += valid
         self._base_lag += valid
         return local

@@ -1119,15 +1119,25 @@ def phase_graph_streams(cfgs, card):
 
     compiled, log = _graph.compiled, []
 
-    def eager_checked(core, traced, static=()):
-        out = compiled(core, traced, static)
+    def eager_checked(core, traced, static=(), occupant=None):
+        # A stream's call moves its inputs on (the resident path): keep
+        # them as it reads them, and read its carried outputs from them.
+        inputs = (traced if occupant is None
+                  else tuple(t.clone() for t in traced))
+        out = compiled(core, traced, static, occupant=occupant)
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            eager = core(*traced, *static)
+            eager = core(*inputs, *static)
         finally:
             torch.cuda.set_sync_debug_mode(0)
-        log.append((core.__name__, same_outputs(out, eager)))
+        full = out
+        if occupant is not None:
+            carried, rest = dict(occupant.carried), iter(out)
+            full = tuple(occupant.inputs[carried[j]] if j in carried
+                         else next(rest)
+                         for j in range(len(out) + len(carried)))
+        log.append((core.__name__, same_outputs(full, eager)))
         return out
 
     narrow = np.arange(-100.0, 100.0, 0.5, dtype=np.float32)

@@ -1578,6 +1578,16 @@ def _same_outputs(a, b):
         for x, y in zip(map(_tensor_bits, a), map(_tensor_bits, b)))
 
 
+def _all_outputs(out, occupant):
+    """A compiled call's outputs; an occupant's carried ones read from
+    its inputs, where the call left them."""
+    if occupant is None:
+        return out
+    carried, rest = dict(occupant.carried), iter(out)
+    return tuple(occupant.inputs[carried[j]] if j in carried else next(rest)
+                 for j in range(len(out) + len(carried)))
+
+
 @pytest.fixture
 def checked(monkeypatch):
     """Every compiled call, then its eager core on the same inputs under
@@ -1586,15 +1596,20 @@ def checked(monkeypatch):
 
     compiled, log = _graph.compiled, []
 
-    def check(core, traced, static=()):
-        out = compiled(core, traced, static)
+    def check(core, traced, static=(), occupant=None):
+        # An occupant's call moves its inputs on: keep them as it reads
+        # them.
+        inputs = (traced if occupant is None
+                  else tuple(t.clone() for t in traced))
+        out = compiled(core, traced, static, occupant=occupant)
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            eager = core(*traced, *static)
+            eager = core(*inputs, *static)
         finally:
             torch.cuda.set_sync_debug_mode(0)
-        log.append((core.__name__, _same_outputs(out, eager)))
+        log.append((core.__name__,
+                    _same_outputs(_all_outputs(out, occupant), eager)))
         return out
 
     monkeypatch.setattr(_graph, "compiled", check)
@@ -1689,6 +1704,193 @@ def test_second_stream_of_the_same_shapes_captures_nothing_on_card(
     second.peaks() if "lattice" in name else second.best()
     assert _graph.CAPTURES == captures
     assert len(chunks) == 9
+
+
+# The streams' resident path (ops/_graph.Occupant): against today's
+# copy-all path, two streams of one key, an evicted graph, the copies.
+
+RESIDENT_MODES = {"stein": {"backend": "stein"},
+                  "stein_lattice": {"backend": "stein", "num_peaks": 3},
+                  "cufft": {}, "cufft_lattice": {"num_peaks": 3}}
+RESIDENT_FREQS = np.arange(-1000.0, 1000.0, 125.0, dtype=np.float32)
+# On a pinned length of 512: full, short, oversized (512 + 512 + 276),
+# uneven, and the last.
+RESIDENT_SPLITS = [0, 512, 900, 2200, 2601, 3000]
+
+
+def _resident_scene(cdtype=np.complex64, seed=3, n=256, total=3000):
+    """A needle and a capture over noise, two emitters (the second across
+    a chunk edge)."""
+    rng = np.random.default_rng(seed)
+    needle = (rng.standard_normal(n)
+              + 1j * rng.standard_normal(n)).astype(cdtype)
+    cap = (0.05 * (rng.standard_normal(total)
+                   + 1j * rng.standard_normal(total))).astype(cdtype)
+    t = np.arange(n)
+    for f, lag, amp in ((250.0, 700, 1.0), (-500.0, 2100, 0.7)):
+        cap[lag:lag + n] += (amp * needle * np.exp(
+            2j * np.pi * f * t / FS)).astype(cdtype)
+    return needle, cap
+
+
+def _resident_stream(needle, mode, **kw):
+    from caf_cookoff_tpu_torch import StreamingCAF
+
+    return StreamingCAF(needle, RESIDENT_FREQS, FS, chunk_len=512,
+                        device="cuda", **RESIDENT_MODES[mode], **kw)
+
+
+class _CopyAll:
+    """Today's path: a stream's steps through the copy-all compiled call
+    (a key of its own), the state carried in Python, from the stream's
+    inputs before its first chunk."""
+
+    def __init__(self, s):
+        self.s, occ = s, s._occupant
+        self.core, self.static = occ.core, occ.static
+        self.inputs = [None if t is None else t.clone() for t in occ.inputs]
+
+    def process(self, chunk):
+        fixed = self.s._chunk_len
+        steps = [self._step(chunk[o:o + fixed])
+                 for o in range(0, chunk.shape[-1], fixed)]
+        return max(steps, key=lambda r: r[2])
+
+    def _step(self, chunk):
+        from caf_cookoff_tpu_torch.models.streaming import (_CARRIED, _CHUNK,
+                                                            _VALID)
+        from caf_cookoff_tpu_torch.ops import _graph
+        from caf_cookoff_tpu_torch.ops.xcor import pad_to
+        from caf_cookoff_tpu_torch.utils.convert import as_signal
+
+        s, c, valid = self.s, self.s._consts, int(chunk.shape[-1])
+        x = as_signal(chunk, chunk.device if isinstance(chunk, torch.Tensor)
+                      else "cpu")
+        self.inputs[c + _CHUNK] = pad_to(x.to(s.device).to(s._cdtype),
+                                         s._chunk_len)
+        self.inputs[c + _VALID] = torch.full((1,), valid, dtype=torch.int32,
+                                             device=s.device)
+        out = _graph.compiled(self.core, self.inputs, self.static)
+        for o, i in _CARRIED:
+            self.inputs[c + i] = out[o]
+        value, f, lag = out[-1].tolist()
+        return float(s._freqs[int(f)]), int(lag), value
+
+
+def _carried_state(s, inputs):
+    from caf_cookoff_tpu_torch.models.streaming import _CARRIED
+
+    return [inputs[s._consts + i] for _, i in _CARRIED]
+
+
+def _answer(s):
+    if s._num_peaks > 1:
+        return [x.tolist() for x in s.peaks()]
+    return s.best()
+
+
+@pytest.mark.parametrize("cdtype", [np.complex64, np.complex128],
+                         ids=["c64", "c128"])
+@pytest.mark.parametrize("mode", list(RESIDENT_MODES))
+def test_resident_stream_is_the_copy_all_path_on_card(card, mode, cdtype):
+    """Each step kind on the resident path against today's copy-all
+    path, over numpy, host-tensor and card-tensor chunks (short,
+    oversized, uneven): every chunk's peak and the carried state after
+    every chunk, bit for bit; then best() / peaks() of the stream and of
+    a stream given today's state (each reading its state where it lies:
+    its own tensors after a switch, the graph's buffers), equal."""
+    from caf_cookoff_tpu_torch.models.streaming import _CARRIED
+
+    needle, cap = _resident_scene(cdtype)
+    s = _resident_stream(needle, mode)
+    today = _CopyAll(s)
+    for i, (a, b) in enumerate(zip(RESIDENT_SPLITS[:-1],
+                                   RESIDENT_SPLITS[1:])):
+        chunk = cap[a:b]
+        chunk = (chunk, torch.from_numpy(chunk.copy()),
+                 torch.from_numpy(chunk.copy()).cuda())[i % 3]
+        assert s.process(chunk) == today.process(chunk)
+        assert _same_outputs(_carried_state(s, s._occupant.inputs),
+                             _carried_state(s, today.inputs))
+    given = _resident_stream(needle, mode)
+    for _, i in _CARRIED:
+        given._write(i, today.inputs[s._consts + i])
+    assert _answer(s) == _answer(given)
+
+
+def test_two_streams_of_one_key_in_turns_on_card(card):
+    """Two live Stein streams of one key, fed a chunk each in turn: each
+    answers as it does alone, bit for bit, and every change of occupant
+    (the second one's build, then every chunk) is a switch."""
+    from caf_cookoff_tpu_torch.ops import _graph
+
+    needle, cap = _resident_scene()
+    caps = (cap, np.ascontiguousarray(cap[::-1]))
+    edges = list(range(0, len(cap), 512))
+
+    def alone(c):
+        s = _resident_stream(needle, "stein")
+        return [s.process(c[e:e + 512]) for e in edges], s.best()
+
+    want = [alone(c) for c in caps]
+    switches = _graph.SWITCHES
+    streams = [_resident_stream(needle, "stein") for _ in caps]
+    got = [[], []]
+    for e in edges:
+        for j, (s, c) in enumerate(zip(streams, caps)):
+            got[j].append(s.process(c[e:e + 512]))
+    assert _graph.SWITCHES - switches == 1 + 2 * len(edges)
+    assert [(g, s.best()) for g, s in zip(got, streams)] == want
+
+
+def test_stream_whose_graph_was_evicted_stays_exact_on_card(card):
+    """A stream keeps its graph when the LRU drops its key: it replays
+    that graph, exact, with its state in its buffers."""
+    from caf_cookoff_tpu_torch.ops import _graph
+
+    needle, cap = _resident_scene()
+    edges = list(range(0, len(cap), 512))
+    ref = _resident_stream(needle, "stein")
+    want = [ref.process(cap[e:e + 512]) for e in edges], ref.best()
+    del ref
+    s = _resident_stream(needle, "stein")
+    got = [s.process(cap[:512])]
+    cache = _graph._CACHES[torch.device("cuda", torch.cuda.current_device())]
+    entry = cache.get(s._occupant.key)
+    bound, cache.bound = cache.bound, 0
+    cache.put(("filler",), entry)       # the LRU drops every graph
+    cache.bound = bound
+    assert len(cache) == 0
+    got += [s.process(cap[e:e + 512]) for e in edges[1:]]
+    assert (got, s.best()) == want
+    assert s._occupant.inputs is entry.inputs
+
+
+def test_placed_stream_copies_only_its_samples_on_card(card):
+    """stream3's Stein stream built with its chunk length on a captured
+    key: its 9 host chunks replay resident, with no switch, each copying
+    in its samples alone (the short last one its valid length too)."""
+    import gc
+
+    from caf_cookoff_tpu_torch import StreamingCAF
+    from caf_cookoff_tpu_torch.ops import _graph
+
+    needle, hay, _, freqs = _stream3()
+    hay = hay.cpu().numpy()
+    _run_stream(needle, hay, freqs, backend="stein")
+    gc.collect()
+    s = StreamingCAF(needle, freqs, FS, chunk_len=8192, device="cuda",
+                     backend="stein")
+    resident, switches = _graph.RESIDENT_REPLAYS, _graph.SWITCHES
+    chunks = [hay[i:i + 8192] for i in range(0, len(hay), 8192)]
+    assert len(chunks) == 9 and len(chunks[-1]) < 8192
+    for chunk in chunks:
+        before = _graph.COPY_IN_BYTES
+        s.process(chunk)
+        assert _graph.COPY_IN_BYTES - before == (
+            chunk.size * 8 + 4 * (len(chunk) < 8192))
+    assert (_graph.RESIDENT_REPLAYS - resident,
+            _graph.SWITCHES - switches) == (9, 0)
 
 
 def _windowed_calls():

@@ -448,9 +448,9 @@ def recorded(monkeypatch):
     calls = []
     compiled = _graph.compiled
 
-    def record(core, traced, static=()):
+    def record(core, traced, static=(), **kw):
         calls.append((core, tuple(traced), tuple(static)))
-        return compiled(core, traced, static)
+        return compiled(core, traced, static, **kw)
 
     monkeypatch.setattr(_graph, "compiled", record)
     return calls
