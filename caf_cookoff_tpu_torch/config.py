@@ -146,6 +146,13 @@ def as_grid(freqs_hz, dtype=np.float32) -> np.ndarray:
     return g
 
 
+def signal_grid(freqs_hz, signal: torch.Tensor) -> np.ndarray:
+    """:func:`as_grid` in the real dtype of ``signal``'s samples: float64
+    for complex128 signals, float32 otherwise."""
+    return as_grid(freqs_hz, dtype=np.float64
+                   if signal.dtype == torch.complex128 else np.float32)
+
+
 def next_pow2(n: int) -> int:
     """Smallest power of two >= n."""
     if n <= 1:

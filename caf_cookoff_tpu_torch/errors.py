@@ -15,7 +15,7 @@ class EngineError(ValueError):
 
 class SpanError(EngineError):
     """The doppler span is outside the segmented (Stein) engine's
-    block-constant phase envelope (``models/stein._auto_block_len``).
+    block-constant phase envelope (``models/_stein_plan._auto_block_len``).
     Legal reroutes: the filterbank paths."""
 
 

@@ -13,9 +13,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from caf_cookoff_tpu_torch.config import resolve_backend, xcor_length
-from caf_cookoff_tpu_torch.models.filterbank import _surface_rows, mag2
+from caf_cookoff_tpu_torch.config import (resolve_backend, signal_grid,
+                                          xcor_length)
 from caf_cookoff_tpu_torch.ops.peak import find_peak_2d
+from caf_cookoff_tpu_torch.ops.xcor import _surface_rows, mag2
 from caf_cookoff_tpu_torch.utils.convert import as_signal
 
 _CHUNK = 4      # pairs per surface batch of the peak path
@@ -28,10 +29,7 @@ def _split_batch(needles, haystacks, freqs_hz, device):
         raise ValueError(
             f"need matching (B, N) batches, got {tuple(ns.shape)} vs "
             f"{tuple(hs.shape)}")
-    rdtype = np.float64 if ns.dtype == torch.complex128 else np.float32
-    if isinstance(freqs_hz, torch.Tensor):
-        freqs_hz = freqs_hz.detach().cpu().numpy()
-    freqs = np.asarray(freqs_hz, dtype=rdtype)
+    freqs = signal_grid(freqs_hz, ns)
     return ns, hs, freqs, torch.from_numpy(freqs).to(ns.device)
 
 

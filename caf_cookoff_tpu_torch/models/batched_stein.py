@@ -38,12 +38,13 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from caf_cookoff_tpu_torch.config import (as_grid, floor_pow2,
-                                          resolve_backend, xcor_length)
+from caf_cookoff_tpu_torch.config import (resolve_backend, signal_grid,
+                                          xcor_length)
 from caf_cookoff_tpu_torch.errors import EligibilityError, SpanError
-from caf_cookoff_tpu_torch.models.filterbank import _surface_rows, mag2
+from caf_cookoff_tpu_torch.models._stein_plan import (
+    _as_tensor, _band_tensors, _compiled_call, _equal_batch, _grid_on, _host,
+    _long_batch, _pack, _plan_bands, _pow2_block_len, _windowed_route)
 from caf_cookoff_tpu_torch.models.overlap_save import detection_rows
-from caf_cookoff_tpu_torch.ops import _graph
 from caf_cookoff_tpu_torch.ops.fused_stein import (FUSED_TILE, SUPER,
                                                    coarse_rank_plain,
                                                    fused_span,
@@ -55,23 +56,7 @@ from caf_cookoff_tpu_torch.ops.peak import (CafPeak, _lag_distance,
 from caf_cookoff_tpu_torch.ops.shift import numpy_real
 from caf_cookoff_tpu_torch.ops.stein_rescore import (_REFINE_BINS,
                                                      stein_rescore)
-from caf_cookoff_tpu_torch.ops.xcor import pad_to
-from caf_cookoff_tpu_torch.utils.convert import as_signal
-from caf_cookoff_tpu_torch.utils.profiling import recording, span
-
-
-def _pow2_block_len(sample_rate: float, freqs_hz: np.ndarray,
-                    requested: int) -> int:
-    """Largest power-of-two block length within the sinc-envelope limit
-    (:func:`caf_cookoff_tpu_torch.models.stein._auto_block_len`), capped
-    at ``SUPER`` so SUPER-padded needles split into whole blocks."""
-    from caf_cookoff_tpu_torch.models.stein import _auto_block_len
-
-    d = floor_pow2(min(_auto_block_len(sample_rate, freqs_hz, requested),
-                       SUPER))
-    if d < 8:
-        raise SpanError("block length below 8 after pow2 rounding")
-    return d
+from caf_cookoff_tpu_torch.ops.xcor import _surface_rows, mag2, pad_to
 
 
 def _needle_operator(ns_re: torch.Tensor, ns_im: torch.Tensor, d: int):
@@ -256,6 +241,15 @@ def _banded_core(ns, hs, freqs_pad, centers, rel, sample_rate,
                                  num_bins))
 
 
+def _banded_call(ns, hs, plan, sample_rate: float, xcor_len: int,
+                 num_bins: int):
+    """The banded batch's compiled call over a band ``plan``: ``(core,
+    traced, static, host grid, value dtype)``."""
+    return (_banded_core, (ns, hs, *_band_tensors(plan, ns.device)),
+            (sample_rate, xcor_len, plan["block_len"], num_bins),
+            plan["freqs_pad"], ns.real.dtype)
+
+
 def _os_topk_refine(ns, hs, freqs_all, rowmax, rowlag, sample_rate,
                     xcor_len: int, total_lags: int, needle_len: int,
                     num_valid_bins: Optional[int] = None) -> CafPeak:
@@ -380,73 +374,6 @@ def _banded_os_core(ns, hs, freqs_pad, centers, rel, sample_rate,
                            needle_len, num_bins))
 
 
-def _batch(needles, haystacks, device):
-    ns = as_signal(needles, device)
-    hs = as_signal(haystacks, ns.device).to(ns.dtype)
-    rdtype = np.float64 if ns.dtype == torch.complex128 else np.float32
-    return ns, hs, rdtype
-
-
-def _pack(peak: CafPeak) -> torch.Tensor:
-    """A peak's (value, freq_idx, lag_idx) stacked as one (3, ...) f64
-    tensor (exact for f32/f64 values and int32 indices), so the host
-    reads it in one copy."""
-    return torch.stack([peak.value.double(), peak.freq_idx.double(),
-                        peak.lag_idx.double()])
-
-
-def _host(freqs: np.ndarray, peak, value_dtype=None):
-    """(freqs, lags, values) numpy arrays of a batch's peaks (``(P,)``,
-    or ``(P, k)`` lattices) from a :class:`CafPeak`, or from its
-    :func:`_pack`ed form with the values' ``value_dtype``: one copy to
-    the host."""
-    with span("caf.read"):
-        if isinstance(peak, CafPeak):
-            peak, value_dtype = _pack(peak), peak.value.dtype
-        value, freq_idx, lag = peak.cpu().numpy()
-        return (freqs[freq_idx.astype(np.int64)], lag.astype(np.int32),
-                value.astype(numpy_real(value_dtype)))
-
-
-def _compiled_call(backend, plan, *args):
-    """A public call: ``plan(*args)``'s checks and routing (``(core,
-    traced, static, host grid, value dtype)``), its compiled call and the
-    packed read, with the spans ``caf.call`` and ``caf.prep`` while a
-    profiler runs."""
-    if not recording():
-        resolve_backend(backend)
-        core, traced, static, freqs, vdt = plan(*args)
-        return _host(freqs, _graph.compiled(core, traced, static), vdt)
-    with span("caf.call"):
-        with span("caf.prep"):
-            resolve_backend(backend)
-            core, traced, static, freqs, vdt = plan(*args)
-        return _host(freqs, _graph.compiled(core, traced, static), vdt)
-
-
-def _as_tensor(x: np.ndarray, device) -> torch.Tensor:
-    """A host array on ``device``, copied without waiting for the
-    card."""
-    return torch.from_numpy(np.ascontiguousarray(x)).to(
-        device, non_blocking=True)
-
-
-def _band_tensors(plan, device):
-    """A band plan's ``freqs_pad``, ``centers`` and ``rel`` on
-    ``device``."""
-    return tuple(_as_tensor(plan[k], device)
-                 for k in ("freqs_pad", "centers", "rel"))
-
-
-def _grid_on(freqs_hz, freqs: np.ndarray, device) -> torch.Tensor:
-    """The grid on ``device``: the caller's tensor when it is there
-    already (in the host grid ``freqs``'s dtype), else ``freqs``
-    copied."""
-    if isinstance(freqs_hz, torch.Tensor) and freqs_hz.device == device:
-        return freqs_hz.detach().to(torch.from_numpy(freqs[:0]).dtype)
-    return _as_tensor(freqs, device)
-
-
 def batched_stein_os_peak(needles, haystacks, freqs_hz, sample_rate, *,
                           num_lags: Optional[int] = None,
                           block_len: int = 64,
@@ -460,7 +387,7 @@ def batched_stein_os_peak(needles, haystacks, freqs_hz, sample_rate, *,
     the exact top-k re-score runs on a guard-extended slice at the
     coarse winning lag.  Uniform grids route through the banded windowed
     engine whenever the band plan's modelled cost wins
-    (:func:`caf_cookoff_tpu_torch.models.stein._band_routing`), which
+    (:func:`caf_cookoff_tpu_torch.models._stein_plan._band_routing`), which
     covers spans the single-band envelope cannot take at all.  On a card
     the call is a compiled call (``ops/_graph``): one CUDA graph per
     shape and static argument, nothing read back but the packed answer.
@@ -475,25 +402,14 @@ def _os_call(needles, haystacks, freqs_hz, sample_rate,
     """:func:`batched_stein_os_peak`'s checks and routing: ``(core,
     traced, static, host grid, value dtype)`` of its compiled call, the
     banded core where the band plan wins."""
-    from caf_cookoff_tpu_torch.models.stein import _band_routing
-
-    ns, hs, rdtype = _batch(needles, haystacks, device)
-    if ns.ndim != 2 or hs.ndim != 2 or ns.shape[0] != hs.shape[0]:
-        raise ValueError(
-            f"need (P, N) needles and (P, L) haystacks, got "
-            f"{tuple(ns.shape)} vs {tuple(hs.shape)}")
+    ns, hs = _long_batch(needles, haystacks, device)
     n = ns.shape[-1]
     if hs.shape[-1] <= n:
         raise ValueError("use batched_stein_peak for equal-length pairs")
-    freqs = as_grid(freqs_hz, dtype=rdtype)
+    freqs = signal_grid(freqs_hz, ns)
     fs = float(sample_rate)
-    try:
-        d = _pow2_block_len(fs, freqs, block_len)
-    except SpanError:
-        d = None                     # span needs banding (or raises below)
-    use_banded, d, freqs_pad, centers, rel = _band_routing(fs, freqs, d)
-    if d is None:
-        _pow2_block_len(fs, freqs, block_len)   # re-raise
+    use_banded, d, freqs_pad, centers, rel = _windowed_route(
+        fs, freqs, lambda: _pow2_block_len(fs, freqs, block_len))
     m = xcor_length(n)
     total_lags = num_lags or hs.shape[-1] - n + 1
     windows = -(-total_lags // m)
@@ -532,21 +448,14 @@ def _batched_call(needles, haystacks, freqs_hz, sample_rate,
     """:func:`batched_stein_peak`'s checks and plan: ``(core, traced,
     static, host grid, value dtype)`` of its compiled call, the banded
     core for grids past the single-segment envelope."""
-    from caf_cookoff_tpu_torch.models.stein import _plan_bands
-
-    ns, hs, rdtype = _batch(needles, haystacks, device)
-    if ns.ndim != 2 or hs.shape != ns.shape:
-        raise ValueError(
-            f"need matching (P, N) batches, got {tuple(ns.shape)} vs "
-            f"{tuple(hs.shape)}")
-    freqs = as_grid(freqs_hz, dtype=rdtype)
+    ns, hs = _equal_batch(needles, haystacks, device)
+    freqs = signal_grid(freqs_hz, ns)
     fs = float(sample_rate)
     n = ns.shape[-1]
     m = xcor_length(n)
     if m % FUSED_TILE:
         raise EligibilityError(
             f"xcor length {m} not a multiple of {FUSED_TILE}")
-    dev = ns.device
     try:
         d = _pow2_block_len(fs, freqs, block_len)
     except SpanError:
@@ -554,11 +463,9 @@ def _batched_call(needles, haystacks, freqs_hz, sample_rate,
         plan = _plan_bands(fs, freqs) if refine else None
         if plan is None:
             raise
-        traced = (ns, hs, *_band_tensors(plan, dev))
-        return (_banded_core, traced, (fs, m, plan["block_len"], len(freqs)),
-                plan["freqs_pad"], ns.real.dtype)
+        return _banded_call(ns, hs, plan, fs, m, len(freqs))
     # The coarse values (refine=False) are K1's f32 ranks.
-    return (_batched_core, (ns, hs, _grid_on(freqs_hz, freqs, dev)),
+    return (_batched_core, (ns, hs, _grid_on(freqs_hz, freqs, ns.device)),
             (fs, m, d, refine), freqs,
             ns.real.dtype if refine else torch.float32)
 
@@ -838,12 +745,8 @@ def batched_stein_peaks(needles, haystacks, freqs_hz, sample_rate,
     envelope raise ``EligibilityError`` (no banding here: use
     ``find_peaks`` on ``caf_surface``, or the overlap-save lattices)."""
     resolve_backend(backend)
-    ns, hs, rdtype = _batch(needles, haystacks, device)
-    if ns.ndim != 2 or hs.shape != ns.shape:
-        raise ValueError(
-            f"need matching (P, N) batches, got {tuple(ns.shape)} vs "
-            f"{tuple(hs.shape)}")
-    freqs = as_grid(freqs_hz, dtype=rdtype)
+    ns, hs = _equal_batch(needles, haystacks, device)
+    freqs = signal_grid(freqs_hz, ns)
     fs = float(sample_rate)
     n = ns.shape[-1]
     m = xcor_length(n)
@@ -889,26 +792,17 @@ def batched_stein_os_peaks(needles, haystacks, freqs_hz, sample_rate,
     a grid that neither fits the single-band envelope nor bands raises
     ``EligibilityError`` (use :func:`caf_cookoff_tpu_torch.models.
     overlap_save.batched_overlap_save_peaks_local`)."""
-    from caf_cookoff_tpu_torch.models.stein import _band_routing
-
     resolve_backend(backend)
-    ns, hs, rdtype = _batch(needles, haystacks, device)
-    if ns.ndim != 2 or hs.ndim != 2 or ns.shape[0] != hs.shape[0]:
-        raise ValueError(
-            f"need (P, N) needles and (P, L) haystacks, got "
-            f"{tuple(ns.shape)} vs {tuple(hs.shape)}")
+    ns, hs = _long_batch(needles, haystacks, device)
     n = ns.shape[-1]
     if hs.shape[-1] <= n:
         raise ValueError("use batched_stein_peaks for equal-length pairs")
-    freqs = as_grid(freqs_hz, dtype=rdtype)
+    freqs = signal_grid(freqs_hz, ns)
     fs = float(sample_rate)
     try:
-        d = _pow2_block_len(fs, freqs, block_len)
-        span_err = None
-    except SpanError as e:
-        d, span_err = None, e
-    use_banded, d, freqs_pad, centers, rel = _band_routing(fs, freqs, d)
-    if d is None:
+        use_banded, d, freqs_pad, centers, rel = _windowed_route(
+            fs, freqs, lambda: _pow2_block_len(fs, freqs, block_len))
+    except SpanError as span_err:
         raise EligibilityError(
             f"{span_err} — this grid neither fits the single-band envelope "
             "nor bands cleanly; use batched_overlap_save_peaks_local "

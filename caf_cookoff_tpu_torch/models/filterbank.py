@@ -23,37 +23,15 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from caf_cookoff_tpu_torch.config import (CafConfig, as_grid,
-                                          resolve_backend, xcor_length)
+from caf_cookoff_tpu_torch.config import (CafConfig, resolve_backend,
+                                          signal_grid, xcor_length)
 from caf_cookoff_tpu_torch.ops.pallas_caf import (pallas_caf_peak,
                                                   pallas_caf_surface)
 from caf_cookoff_tpu_torch.ops.peak import find_peak_2d
 from caf_cookoff_tpu_torch.ops.shift import phasor_bank, real_dtype_of
-from caf_cookoff_tpu_torch.ops.xcor import pad_to
+from caf_cookoff_tpu_torch.ops.xcor import _surface_rows, mag2, pad_to
 from caf_cookoff_tpu_torch.utils.convert import as_signal
 from caf_cookoff_tpu_torch.utils.profiling import span
-
-
-def mag2(rows: torch.Tensor) -> torch.Tensor:
-    """|.|^2 of complex rows as re*re + im*im."""
-    return rows.real * rows.real + rows.imag * rows.imag
-
-
-def _surface_rows(needle: torch.Tensor, haystack: torch.Tensor, freqs_hz,
-                  sample_rate, xcor_len: int) -> torch.Tensor:
-    """Complex correlation rows (..., K, M) of needles (..., N) against
-    haystacks (..., L <= M) at frequencies (..., K) — one pair, or a
-    batch of pairs each with its own bins; also the exact re-score rows
-    of the Stein engines.  The phasor is evaluated over the N needle
-    samples only (the padding is zeros)."""
-    m = xcor_len
-    rdtype = real_dtype_of(needle.dtype)
-    h_spec = torch.fft.fft(pad_to(haystack, m))
-    shifted = needle[..., None, :] * phasor_bank(
-        torch.as_tensor(freqs_hz, dtype=rdtype, device=needle.device),
-        needle.shape[-1], sample_rate, rdtype, needle.device)
-    s_spec = torch.fft.fft(pad_to(shifted, m), dim=-1)
-    return torch.fft.ifft(h_spec[..., None, :] * torch.conj(s_spec), dim=-1)
 
 
 def _pair(needle, haystack, freqs_hz, device):
@@ -63,8 +41,7 @@ def _pair(needle, haystack, freqs_hz, device):
         raise ValueError(
             f"needle/haystack length mismatch: {n.shape[-1]} vs "
             f"{h.shape[-1]} (truncate the haystack to the needle length)")
-    rdtype = np.float64 if n.dtype == torch.complex128 else np.float32
-    return n, h, as_grid(freqs_hz, dtype=rdtype)
+    return n, h, signal_grid(freqs_hz, n)
 
 
 def caf_surface(needle, haystack, freqs_hz, sample_rate, *,

@@ -27,14 +27,14 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from caf_cookoff_tpu_torch.config import as_grid, resolve_backend, xcor_length
-from caf_cookoff_tpu_torch.models.filterbank import mag2
+from caf_cookoff_tpu_torch.config import (resolve_backend, signal_grid,
+                                          xcor_length)
 from caf_cookoff_tpu_torch.ops.peak import (CafPeak, apply_detection_threshold,
                                             as_lattice, concat_peaks,
                                             find_peak_2d, find_peaks,
                                             merge_peaks, resolve_exclusions)
 from caf_cookoff_tpu_torch.ops.shift import phasor_bank, real_dtype_of
-from caf_cookoff_tpu_torch.ops.xcor import pad_to
+from caf_cookoff_tpu_torch.ops.xcor import mag2, pad_to
 from caf_cookoff_tpu_torch.utils.convert import as_signal
 
 
@@ -147,8 +147,7 @@ def _prep(needle, haystack, freqs_hz, device):
     if h.shape[-1] < n.shape[-1]:
         raise ValueError(f"haystack ({h.shape[-1]}) shorter than needle "
                          f"({n.shape[-1]})")
-    rdtype = np.float64 if n.dtype == torch.complex128 else np.float32
-    freqs = as_grid(freqs_hz, dtype=rdtype)
+    freqs = signal_grid(freqs_hz, n)
     return n, h, freqs, torch.from_numpy(freqs).to(n.device)
 
 
@@ -308,8 +307,7 @@ def batched_overlap_save_peaks_local(needles, haystacks, freqs_hz,
             f"{tuple(n.shape)} vs {tuple(h.shape)}")
     if h.shape[-1] < n.shape[-1]:
         raise ValueError("haystacks shorter than needles")
-    rdtype = np.float64 if n.dtype == torch.complex128 else np.float32
-    freqs = as_grid(freqs_hz, dtype=rdtype)
+    freqs = signal_grid(freqs_hz, n)
     return _lattice_rows(n, h, freqs, torch.from_numpy(freqs).to(n.device),
                          sample_rate, n[0], num_peaks, num_lags,
                          exclude_freq, exclude_lag, min_snr_db, with_snr)

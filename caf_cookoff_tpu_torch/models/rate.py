@@ -30,19 +30,20 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from caf_cookoff_tpu_torch.config import (as_grid, floor_pow2,
-                                          resolve_backend, xcor_length)
+from caf_cookoff_tpu_torch.config import (floor_pow2, resolve_backend,
+                                          signal_grid, xcor_length)
 from caf_cookoff_tpu_torch.errors import SpanError
+from caf_cookoff_tpu_torch.models._stein_plan import (_as_tensor,
+                                                      _auto_block_len,
+                                                      _windowed_route)
 from caf_cookoff_tpu_torch.models.batched_stein import (
-    _as_tensor, _coarse_rank, _lattice_from_bin_candidates, _os_operands,
+    _coarse_rank, _exclusions, _lattice_from_bin_candidates, _os_operands,
     _rescore_entries_windowed, _rescore_guards, _stein_model_floor)
-from caf_cookoff_tpu_torch.models.filterbank import _surface_rows, mag2
 from caf_cookoff_tpu_torch.models.overlap_save import (mean_floor,
                                                        needle_spectra_conj,
                                                        plan_blocks,
                                                        streaming_peak)
-from caf_cookoff_tpu_torch.models.stein import (_auto_block_len, _band_routing,
-                                                _prep_long)
+from caf_cookoff_tpu_torch.models.stein import _prep_long
 from caf_cookoff_tpu_torch.ops.fused_stein import (LAG_TILE, SUPER,
                                                    stein_rate_synthesis_weights)
 from caf_cookoff_tpu_torch.ops.peak import (CafPeak, apply_detection_threshold,
@@ -50,7 +51,7 @@ from caf_cookoff_tpu_torch.ops.peak import (CafPeak, apply_detection_threshold,
                                             find_peak_2d, merge_peaks,
                                             resolve_exclusions, topk_separated)
 from caf_cookoff_tpu_torch.ops.shift import real_dtype_of
-from caf_cookoff_tpu_torch.ops.xcor import pad_to
+from caf_cookoff_tpu_torch.ops.xcor import _surface_rows, mag2, pad_to
 from caf_cookoff_tpu_torch.utils.convert import as_signal
 
 # Serial engines: (rate, bin, lag) cells a batched pass over several trial
@@ -110,8 +111,7 @@ def rate_caf_peak(needle, haystack, freqs_hz, rates_hz_per_s, sample_rate,
     resolve_backend(backend)
     n = as_signal(needle, device)
     h = as_signal(haystack, n.device).to(n.dtype)
-    freqs = as_grid(freqs_hz, dtype=np.float64 if n.dtype == torch.complex128
-                    else np.float32)
+    freqs = signal_grid(freqs_hz, n)
     rates = np.asarray(rates_hz_per_s, dtype=freqs.dtype).reshape(-1)
     fs = float(sample_rate)
     m = xcor_length(n.shape[-1])
@@ -332,23 +332,19 @@ def _rate_block_len(sample_rate, freqs_np, rates_np, needle_len: int,
 def _rate_routing(sample_rate, freqs, rates, needle_len: int,
                   block_len: int, hay_len: int):
     """The segmented rate engines' preamble: the rate-drift margin and
-    quadratic cap, plain-vs-banded routing, the re-raise when neither
-    route is eligible, and the re-score guard.  Returns ``(d, freqs_pad,
-    centers, rel, guard)``; rows per launch come from
+    quadratic cap, the windowed route under them (its ``SpanError`` when
+    neither route is eligible), and the re-score guard.  Returns ``(d,
+    freqs_pad, centers, rel, guard)``; rows per launch come from
     :func:`_rate_chunk`."""
     fs = float(sample_rate)
     n = needle_len
     r_max = float(np.max(np.abs(rates))) if len(rates) else 0.0
     margin = r_max * (n / fs)
     d_quad = int(fs / np.sqrt(2.0 * r_max)) if r_max > 0 else None
-    try:
-        d = _rate_block_len(sample_rate, freqs, rates, n, block_len)
-    except SpanError:
-        d = None
-    _, d, freqs_pad, centers, rel = _band_routing(
-        fs, freqs, d, margin_hz=margin, d_cap=d_quad)
-    if d is None:
-        _rate_block_len(sample_rate, freqs, rates, n, block_len)  # raise
+    _, d, freqs_pad, centers, rel = _windowed_route(
+        fs, freqs, lambda: _rate_block_len(sample_rate, freqs, rates, n,
+                                           block_len),
+        margin_hz=margin, d_cap=d_quad)
     guard = min(64, n // 4, max((hay_len - n) // 2, 1))
     return d, freqs_pad, centers, rel, guard
 
@@ -510,10 +506,9 @@ def stein_rate_os_peaks(needle, haystack, freqs_hz, rates_hz_per_s,
      windows) = _segmented_inputs(needle, haystack, freqs_hz, rates_hz_per_s,
                                   fs, num_lags, block_len, device)
     nl, dev, p = n.shape[-1], n.device, int(num_peaks)
-    auto = resolve_exclusions(n, freqs, fs, None, None)
-    ef = auto[0] if exclude_freq is None else int(exclude_freq)
-    el = auto[1] if exclude_lag is None else int(exclude_lag)
-    guard, rescore_win = _rescore_guards(nl, auto[1], h.shape[-1])
+    ef, el, auto_lag = _exclusions(n[None], freqs, fs, exclude_freq,
+                                   exclude_lag)
+    guard, rescore_win = _rescore_guards(nl, auto_lag, h.shape[-1])
     htb = _rate_grid_half_t_bins(freqs, nl, fs)
     v1, i1, v2, i2 = _rate_ranks(n, h, centers, rel, rates, fs, d, m,
                                  windows, total_lags, sep=el)

@@ -13,13 +13,14 @@ eligible) runs both stages and the per-bin rank in the fused kernel
 (``ops/fused_stein``), then re-scores the top candidate bins with exact
 filterbank rows, which restores bin-exact answers.  ``fused=False``
 runs the FFT stage A and a matmul synthesis instead.  Spans past the
-single-segment envelope are banded (:func:`_plan_bands`): one kernel
+single-segment envelope are banded (``models/_stein_plan``): one kernel
 program per band.  Long captures (:func:`stein_overlap_save_peak`) run
 the windowed engine of ``models/batched_stein`` on the card, or a
 block-loop overlap-save scan with Stein synthesis.
 
 The block-constant phase approximation attenuates doppler responses by
-``sinc(w_k D / 2)``; :func:`_auto_block_len` keeps ``D <= fs/(4 f_max)``.
+``sinc(w_k D / 2)``; ``_stein_plan._auto_block_len`` keeps
+``D <= fs/(4 f_max)``.
 """
 
 from __future__ import annotations
@@ -30,17 +31,19 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from caf_cookoff_tpu_torch.config import (as_grid, floor_pow2,
-                                          resolve_backend, xcor_length)
+from caf_cookoff_tpu_torch.config import (floor_pow2, resolve_backend,
+                                          signal_grid, xcor_length)
 from caf_cookoff_tpu_torch.errors import (EligibilityError, EngineError,
                                           SpanError)
-from caf_cookoff_tpu_torch.models.batched_stein import (_band_tensors,
-                                                        _banded_core,
-                                                        _compiled_call,
-                                                        _grid_on,
+from caf_cookoff_tpu_torch.models._stein_plan import (_auto_block_len,
+                                                      _compiled_call,
+                                                      _grid_on, _pack,
+                                                      _plan_bands)
+from caf_cookoff_tpu_torch.models.batched_stein import (_banded_call,
                                                         _haystack_extension,
                                                         _needle_operator,
-                                                        _pack)
+                                                        batched_stein_os_peak)
+from caf_cookoff_tpu_torch.models.overlap_save import plan_blocks
 from caf_cookoff_tpu_torch.ops.fused_stein import (SUPER, block_centers,
                                                    fused_span,
                                                    fused_stein_rank,
@@ -166,104 +169,6 @@ def _refine_topk(needle, haystack, freqs_all, rowmax_coarse, sample_rate,
                          sample_rate, xcor_len, needle.shape[-1], num_valid)
 
 
-def _plan_bands(sample_rate: float, freqs_hz: np.ndarray,
-                margin_hz: float = 0.0, d_cap: Optional[int] = None):
-    """Band partition for wide-span grids, or ``None`` if infeasible.
-
-    Only uniform grids band cleanly: every band then shares one relative
-    grid, so the sweep is one kernel call with the bands on the program
-    axis.  Bands are sized so the relative |f| stays within the
-    block-constant phase envelope.  Per lag column stage A costs ~4N MACs per
-    band and the synthesis ~4*kb*N/D, so ``s*(1 + kb/D)`` (units of 4N)
-    is evaluated at every pow2 block length and the cheapest wins.
-
-    ``margin_hz`` shrinks every band by an allowance consumed elsewhere
-    (the rate engines' ``|r|_max * T`` dechirp drift); ``d_cap`` excludes
-    block lengths above it (their quadratic-residual cap).
-    """
-    k = len(freqs_hz)
-    if k < 2:
-        return None
-    diffs = np.diff(np.asarray(freqs_hz, np.float64))
-    g = float(diffs[0])
-    if g <= 0 or not np.allclose(diffs, g, rtol=1e-5, atol=1e-9):
-        return None
-    best = None
-    for cand in (8, 16, 32, 64, 128):
-        if d_cap is not None and cand > d_cap:
-            continue
-        # Widest band the phase-error envelope allows at this D:
-        # rel_max + margin <= fs/(4D)  =>  kb <= 2*(fs/(4D) - margin)/g.
-        width = sample_rate / (4.0 * cand) - float(margin_hz)
-        if width <= 0:
-            continue
-        kb_c = max(1, int(2.0 * width / g))
-        s_c = -(-k // kb_c)
-        cost = s_c * (1.0 + kb_c / cand)
-        if best is None or cost < best[0]:
-            best = (cost, cand, kb_c)
-    if best is None:
-        return None
-    _, d, kb = best
-    s = -(-k // kb)
-    f0 = float(freqs_hz[0])
-    freqs_pad = (f0 + g * np.arange(s * kb)).astype(np.float32)
-    centers = (f0 + g * (np.arange(s) * kb + (kb - 1) / 2.0)).astype(
-        np.float32)
-    rel = (g * (np.arange(kb) - (kb - 1) / 2.0)).astype(np.float32)
-    return {"block_len": d, "kb": kb, "bands": s, "freqs_pad": freqs_pad,
-            "centers": centers, "rel": rel}
-
-
-def _band_routing(sample_rate, freqs_np, d: Optional[int], *,
-                  margin_hz: float = 0.0, d_cap: Optional[int] = None):
-    """Banded-vs-plain routing of the windowed engines.
-
-    ``d`` is the plain-envelope block length (``None`` when the plain
-    path is ineligible).  Returns ``(use_banded, d_eff, freqs_pad,
-    centers, rel)``: the one-band values (``centers=[0]``,
-    ``rel=freqs_pad=freqs``) for the plain route, the band plan's arrays
-    otherwise; ``d_eff`` is ``None`` when neither route is eligible.
-    The banded route wins when the cost model (``s*(1 + kb/D)`` vs
-    ``1 + K/D``) says it is at least ~10% cheaper.  ``margin_hz`` and
-    ``d_cap`` go to :func:`_plan_bands`.
-    """
-    plan = _plan_bands(float(sample_rate), freqs_np, margin_hz=margin_hz,
-                       d_cap=d_cap)
-    use_banded = False
-    if plan is not None:
-        if d is None:
-            use_banded = True
-        else:
-            cost_plain = 1.0 + len(freqs_np) / d
-            cost_band = (plan["bands"]
-                         + plan["bands"] * plan["kb"] / plan["block_len"])
-            use_banded = cost_band < 0.9 * cost_plain
-    if use_banded:
-        return (True, plan["block_len"], np.asarray(plan["freqs_pad"]),
-                np.asarray(plan["centers"]), np.asarray(plan["rel"]))
-    return (False, d, np.asarray(freqs_np), np.zeros(1, np.float32),
-            np.asarray(freqs_np))
-
-
-def _auto_block_len(sample_rate: float, freqs_hz: np.ndarray,
-                    requested: int) -> int:
-    """Clamp the segment length to the approximation's validity range:
-    the block-constant phase error ``w_max * D / 2`` stays under ~pi/8
-    when ``D <= fs / (4 * f_max)``."""
-    f_max = float(np.max(np.abs(freqs_hz))) if len(freqs_hz) else 0.0
-    if f_max <= 0:
-        return requested
-    limit = int(sample_rate / (4.0 * f_max))
-    d = min(requested, max(limit, 1))
-    if d < 8:
-        raise SpanError(
-            f"doppler span +-{f_max:.0f} Hz needs segment length <= {limit} "
-            f"(< 8) at fs={sample_rate:.0f}; the segmented (stein) engine "
-            "does not pay off — use the 'xla' (filterbank) backend")
-    return d
-
-
 def _prep(needle, haystack, freqs_hz, device):
     n = as_signal(needle, device)
     h = as_signal(haystack, n.device).to(n.dtype)
@@ -274,8 +179,7 @@ def _prep(needle, haystack, freqs_hz, device):
         raise ValueError(
             f"haystack length {h_len} outside [{n_len}, "
             f"{xcor_length(n_len)}] for needle length {n_len}")
-    rdtype = np.float64 if n.dtype == torch.complex128 else np.float32
-    freqs = as_grid(freqs_hz, dtype=rdtype)
+    freqs = signal_grid(freqs_hz, n)
     return n, h, freqs, _grid_on(freqs_hz, freqs, n.device)
 
 
@@ -341,9 +245,7 @@ def _stein_call(needle, haystack, freqs_hz, sample_rate, block_len: int,
             raise
         # The P = 1 case of the banded batch engine (the band centres
         # become the kernel's programs through ``share_h``).
-        traced = (n[None], h[None], *_band_tensors(plan, n.device))
-        return (_banded_core, traced, (fs, xl, plan["block_len"], len(freqs)),
-                plan["freqs_pad"], n.real.dtype)
+        return _banded_call(n[None], h[None], plan, fs, xl, len(freqs))
     d_fused = floor_pow2(min(block_len, SUPER))
     eligible = refine and d_fused >= 8 and xl % 512 == 0
     if fused is None:
@@ -380,8 +282,6 @@ def _stein_os_scan(needle, haystack, freqs_t, sample_rate, num_lags: int,
     correlations) and one (2K, 2B_seg) x (2B_seg, V) synthesis product.
     The peak carry stays on the device; the strict ``>`` keeps the
     earliest block on ties."""
-    from caf_cookoff_tpu_torch.models.overlap_save import plan_blocks
-
     needle_len = needle.shape[-1]
     m, v, nblocks = plan_blocks(needle_len, num_lags)
     d_read = v + needle_len - 1
@@ -425,8 +325,7 @@ def _prep_long(needle, haystack, freqs_hz, device):
     if h.shape[-1] < n.shape[-1]:
         raise ValueError(f"haystack ({h.shape[-1]}) shorter than needle "
                          f"({n.shape[-1]})")
-    rdtype = np.float64 if n.dtype == torch.complex128 else np.float32
-    freqs = as_grid(freqs_hz, dtype=rdtype)
+    freqs = signal_grid(freqs_hz, n)
     return n, h, freqs, _grid_on(freqs_hz, freqs, n.device)
 
 
@@ -449,9 +348,6 @@ def stein_overlap_save_peak(needle, haystack, freqs_hz, sample_rate, *,
     by :func:`stein_caf_peak`'s exact path, restoring the bin-exact
     frequency.  Every FFT ``backend`` name runs ``torch.fft``.
     """
-    from caf_cookoff_tpu_torch.models.batched_stein import (
-        batched_stein_os_peak)
-
     resolve_backend(backend)
     n, h, freqs, freqs_t = _prep_long(needle, haystack, freqs_hz, device)
     fs = float(sample_rate)

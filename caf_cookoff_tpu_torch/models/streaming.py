@@ -44,12 +44,11 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from caf_cookoff_tpu_torch.config import as_grid, resolve_backend, xcor_length
-from caf_cookoff_tpu_torch.models.batched_stein import (_as_tensor, _host,
-                                                        _needle_operator,
-                                                        _pack,
-                                                        _pow2_block_len)
-from caf_cookoff_tpu_torch.models.filterbank import _surface_rows, mag2
+from caf_cookoff_tpu_torch.config import (resolve_backend, signal_grid,
+                                          xcor_length)
+from caf_cookoff_tpu_torch.models._stein_plan import (_as_tensor, _host,
+                                                      _pack, _pow2_block_len)
+from caf_cookoff_tpu_torch.models.batched_stein import _needle_operator
 from caf_cookoff_tpu_torch.models.overlap_save import (needle_spectra_conj,
                                                        streaming_peak)
 from caf_cookoff_tpu_torch.ops import _graph
@@ -60,7 +59,7 @@ from caf_cookoff_tpu_torch.ops.fused_stein import (SUPER, check_kernel_shape,
 from caf_cookoff_tpu_torch.ops.peak import (CafPeak, apply_detection_threshold,
                                             concat_peaks, find_peak_2d,
                                             merge_peaks, resolve_exclusions)
-from caf_cookoff_tpu_torch.ops.xcor import pad_to
+from caf_cookoff_tpu_torch.ops.xcor import _surface_rows, mag2, pad_to
 from caf_cookoff_tpu_torch.utils.convert import as_signal
 from caf_cookoff_tpu_torch.utils.profiling import recording, span
 
@@ -334,8 +333,7 @@ class StreamingCAF:
         self.device = n.device
         self.needle_len = int(n.shape[-1])
         self.sample_rate = float(sample_rate)
-        rdtype = np.float64 if n.dtype == torch.complex128 else np.float32
-        self._freqs = as_grid(freqs_hz, dtype=rdtype)
+        self._freqs = signal_grid(freqs_hz, n)
         self._freqs_t = _as_tensor(self._freqs, self.device)
         n_host = n.cpu().numpy()
         # Resolution once, after input validation, and only where used.

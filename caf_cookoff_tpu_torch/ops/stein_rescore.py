@@ -39,6 +39,7 @@ from caf_cookoff_tpu_torch.ops.pallas_caf import (MAX_FFT_LEN, _h_kernel,
                                                   _twiddles, cluster_size)
 from caf_cookoff_tpu_torch.ops.peak import (CafPeak, doppler_cell_bins,
                                             topk_separated)
+from caf_cookoff_tpu_torch.ops.xcor import _surface_rows, mag2
 
 # Candidates of the exact re-score: _REFINE_BINS plain top-k picks
 # (adjacent near-tie flips) plus _REFINE_SEP_BINS mainlobe-separated
@@ -104,8 +105,6 @@ def rescore_plain(needles, haystacks, freqs, ranking, sample_rate,
     card, the reference the card tests hold K5 to): needles (..., N),
     haystacks (..., L <= M), ranking (..., K) on the grid ``freqs``;
     ``lag_bound`` (P,) masks each pair's lags past it to -1."""
-    from caf_cookoff_tpu_torch.models.filterbank import _surface_rows, mag2
-
     cand = _refine_candidates(ranking, freqs, needle_len, sample_rate,
                               num_valid)
     exact = mag2(_surface_rows(needles, haystacks, freqs[cand.long()],

@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 
 from caf_cookoff_tpu_torch.config import xcor_length
+from caf_cookoff_tpu_torch.ops.shift import phasor_bank, real_dtype_of
 
 
 def pad_to(x: torch.Tensor, length: int) -> torch.Tensor:
@@ -61,3 +62,25 @@ def xcor_bank(haystack_spectrum: torch.Tensor,
     fs = torch.fft.fft(shifted_padded, dim=-1)
     return torch.fft.ifft(haystack_spectrum[None, :] * torch.conj(fs),
                           dim=-1)
+
+
+def mag2(rows: torch.Tensor) -> torch.Tensor:
+    """|.|^2 of complex rows as re*re + im*im."""
+    return rows.real * rows.real + rows.imag * rows.imag
+
+
+def _surface_rows(needle: torch.Tensor, haystack: torch.Tensor, freqs_hz,
+                  sample_rate, xcor_len: int) -> torch.Tensor:
+    """Complex correlation rows (..., K, M) of needles (..., N) against
+    haystacks (..., L <= M) at frequencies (..., K) — the filterbank's
+    rows for one pair, or a batch of pairs each with its own bins; also
+    the exact re-score rows of the Stein engines.  The phasor is
+    evaluated over the N needle samples only (the padding is zeros)."""
+    m = xcor_len
+    rdtype = real_dtype_of(needle.dtype)
+    h_spec = torch.fft.fft(pad_to(haystack, m))
+    shifted = needle[..., None, :] * phasor_bank(
+        torch.as_tensor(freqs_hz, dtype=rdtype, device=needle.device),
+        needle.shape[-1], sample_rate, rdtype, needle.device)
+    s_spec = torch.fft.fft(pad_to(shifted, m), dim=-1)
+    return torch.fft.ifft(h_spec[..., None, :] * torch.conj(s_spec), dim=-1)

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from caf_cookoff_tpu_torch.models.rate import _merge_rate_lattice
 from caf_cookoff_tpu_torch.ops.peak import CafPeak, merge_peaks
 from caf_cookoff_tpu_torch.parallel.mesh import Mesh
 
@@ -145,8 +146,6 @@ def global_rate_peaks(value, key, lag, rate_idx, fws, rates,
     numpy) on every rank.  Physical rates come from the replicated
     ``rates`` grid (numpy), so they never go over the wire.  Returns
     ``_merge_rate_lattice``'s six arrays."""
-    from caf_cookoff_tpu_torch.models.rate import _merge_rate_lattice
-
     value = all_gather(torch.as_tensor(value), axis_names,
                        mesh=mesh).reshape(-1)
     idx = torch.stack([torch.as_tensor(x).to(torch.int32)

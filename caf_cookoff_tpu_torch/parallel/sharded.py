@@ -35,18 +35,38 @@ import numpy as np
 import torch
 from torch.distributed import ReduceOp
 
-from caf_cookoff_tpu_torch.config import as_grid, resolve_backend, xcor_length
+from caf_cookoff_tpu_torch.config import (resolve_backend, signal_grid,
+                                          xcor_length)
 from caf_cookoff_tpu_torch.errors import EligibilityError, SpanError
-from caf_cookoff_tpu_torch.models.filterbank import _surface_rows, mag2
+from caf_cookoff_tpu_torch.models._stein_plan import (_auto_block_len, _host,
+                                                      _pow2_block_len,
+                                                      _windowed_route)
+from caf_cookoff_tpu_torch.models.batched_stein import (
+    _batched_stein_core, _batched_stein_peaks_core, _best_window,
+    _coarse_rank, _exclusions, _lattice_from_bin_candidates, _os_operands,
+    _os_topk_refine, _rescore_entries_windowed, _rescore_guards,
+    _stein_model_floor, _stein_os_peaks)
+from caf_cookoff_tpu_torch.models.filterbank import caf_surface
 from caf_cookoff_tpu_torch.models.overlap_save import (detection_rows,
                                                        mean_floor,
                                                        needle_spectra_conj,
                                                        plan_blocks,
                                                        streaming_peak)
-from caf_cookoff_tpu_torch.ops.peak import (CafPeak, as_lattice, concat_peaks,
+from caf_cookoff_tpu_torch.models.rate import (_merge_rate_lattice,
+                                               _prechirp, _rate_batches,
+                                               _rate_coarse_closer,
+                                               _rate_grid_half_t_bins,
+                                               _rate_ranks, _segmented_inputs)
+from caf_cookoff_tpu_torch.models.stein import (_doppler_synthesis,
+                                                _refine_topk,
+                                                _segment_correlations)
+from caf_cookoff_tpu_torch.ops.fused_stein import FUSED_TILE, SUPER
+from caf_cookoff_tpu_torch.ops.pallas_caf import pallas_caf_peak
+from caf_cookoff_tpu_torch.ops.peak import (CafPeak, apply_detection_threshold,
+                                            as_lattice, concat_peaks,
                                             find_peak_2d, merge_peaks,
                                             resolve_exclusions)
-from caf_cookoff_tpu_torch.ops.xcor import pad_to
+from caf_cookoff_tpu_torch.ops.xcor import _surface_rows, mag2, pad_to
 from caf_cookoff_tpu_torch.parallel.collectives import (all_gather,
                                                         all_gather_fields,
                                                         all_reduce,
@@ -61,6 +81,9 @@ from caf_cookoff_tpu_torch.utils.convert import as_signal
 
 _DT = (AXIS_DOPPLER, AXIS_TIME)
 _ALL = (AXIS_PAIR, AXIS_DOPPLER, AXIS_TIME)
+# The windowed engines' error for a grid neither route takes.
+_NO_ROUTE = ("grid neither fits the single-band envelope nor bands "
+             "cleanly; use %s for it")
 
 
 def pad_axis_to(x: np.ndarray, multiple: int, axis: int = 0) -> np.ndarray:
@@ -87,13 +110,10 @@ def _shard(x, mesh: Mesh, axis: str):
     return x[i * size:(i + 1) * size]
 
 
-def _rdtype(sig: torch.Tensor):
-    return np.float64 if sig.dtype == torch.complex128 else np.float32
-
-
-def _doppler_grid(freqs_hz, mesh: Mesh, rdtype):
-    """(grid, padded grid, this rank's bins as a tensor, its first bin)."""
-    freqs = as_grid(freqs_hz, dtype=rdtype)
+def _doppler_grid(freqs_hz, mesh: Mesh, sig: torch.Tensor):
+    """(grid in ``sig``'s real dtype, padded grid, this rank's bins as a
+    tensor, its first bin)."""
+    freqs = signal_grid(freqs_hz, sig)
     freqs_p = pad_axis_to(freqs, mesh.shape[AXIS_DOPPLER])
     loc = _shard(freqs_p, mesh, AXIS_DOPPLER)
     k0 = mesh.axis_index(AXIS_DOPPLER) * len(loc)
@@ -223,11 +243,9 @@ def sharded_caf_surface(needle, haystack, freqs_hz, sample_rate,
     rank builds its bins' rows (``pallas*`` backends through K3) and the
     rows gather over ``doppler``, so every rank returns the whole
     surface on its device."""
-    from caf_cookoff_tpu_torch.models.filterbank import caf_surface
-
     backend = _filterbank_backend(backend, pallas=True)
     n, h = _pair_signals(needle, haystack, mesh)
-    freqs, _, loc, _ = _doppler_grid(freqs_hz, mesh, _rdtype(n))
+    freqs, _, loc, _ = _doppler_grid(freqs_hz, mesh, n)
     rows = caf_surface(n, h, loc.cpu().numpy(), float(sample_rate),
                        backend=backend, device=mesh.device)
     full = all_gather(rows, AXIS_DOPPLER, mesh=mesh)
@@ -253,11 +271,9 @@ def _caf_peak_shard(needle, haystack, freqs_hz, sample_rate, mesh: Mesh,
                     backend):
     """This rank's share of :func:`sharded_caf_peak`, no collective: (the
     peak of its bins, global indices; the padded grid)."""
-    from caf_cookoff_tpu_torch.ops.pallas_caf import pallas_caf_peak
-
     backend = _filterbank_backend(backend, pallas=True)
     n, h = _pair_signals(needle, haystack, mesh)
-    _, freqs_p, loc, k0 = _doppler_grid(freqs_hz, mesh, _rdtype(n))
+    _, freqs_p, loc, k0 = _doppler_grid(freqs_hz, mesh, n)
     fs = float(sample_rate)
     m = xcor_length(n.shape[-1])
     if backend.startswith("pallas"):
@@ -280,14 +296,9 @@ def sharded_stein_peak(needle, haystack, freqs_hz, sample_rate, mesh: Mesh,
     per-bin row maxima gather over ``doppler`` (K floats) and every rank
     re-scores the global top candidates with exact filterbank rows — the
     rank-then-score design of the single-device engine."""
-    from caf_cookoff_tpu_torch.models.stein import (_auto_block_len,
-                                                    _doppler_synthesis,
-                                                    _refine_topk,
-                                                    _segment_correlations)
-
     _filterbank_backend(backend)
     n, h = _pair_signals(needle, haystack, mesh)
-    freqs, freqs_p, loc, k0 = _doppler_grid(freqs_hz, mesh, _rdtype(n))
+    freqs, freqs_p, loc, k0 = _doppler_grid(freqs_hz, mesh, n)
     fs = float(sample_rate)
     block_len = _auto_block_len(fs, freqs, block_len)
     m = xcor_length(n.shape[-1])
@@ -314,11 +325,6 @@ def sharded_stein_peak(needle, haystack, freqs_hz, sample_rate, mesh: Mesh,
 # ---------------------------------------------------------------------------
 
 
-def _host(freqs: np.ndarray, pk: CafPeak):
-    return (freqs[pk.freq_idx.cpu().numpy()], pk.lag_idx.cpu().numpy(),
-            pk.value.cpu().numpy())
-
-
 def batched_caf_peak(needles, haystacks, freqs_hz, sample_rate, mesh: Mesh,
                      *, backend: Optional[str] = None):
     """Peaks for a batch of pairs: (freqs (B,), lags (B,), values (B,)).
@@ -339,7 +345,7 @@ def _batched_caf_peak_shard(needles, haystacks, freqs_hz, sample_rate,
     padded grid)."""
     _filterbank_backend(backend)
     ns, hs = _pair_batch(needles, haystacks, mesh, equal=True)
-    _, freqs_p, loc, k0 = _doppler_grid(freqs_hz, mesh, _rdtype(ns))
+    _, freqs_p, loc, k0 = _doppler_grid(freqs_hz, mesh, ns)
     rows = _surface_rows(_shard(ns, mesh, AXIS_PAIR),
                          _shard(hs, mesh, AXIS_PAIR), loc,
                          float(sample_rate), xcor_length(ns.shape[-1]))
@@ -347,9 +353,8 @@ def _batched_caf_peak_shard(needles, haystacks, freqs_hz, sample_rate,
 
 
 def _fused_batch_grid(ns, freqs_hz, sample_rate, block_len: int):
-    from caf_cookoff_tpu_torch.models.batched_stein import _pow2_block_len
 
-    freqs = as_grid(freqs_hz, dtype=_rdtype(ns))
+    freqs = signal_grid(freqs_hz, ns)
     return freqs, _pow2_block_len(float(sample_rate), freqs, block_len)
 
 
@@ -360,10 +365,6 @@ def sharded_batched_stein_peak(needles, haystacks, freqs_hz, sample_rate,
     each rank runs K1 on its pair block and re-scores its pairs exactly
     (pure data parallelism); the results gather over ``pair``.  The bins
     replicate (the synthesis weights are O(K*B))."""
-    from caf_cookoff_tpu_torch.models.batched_stein import (
-        _batched_stein_core)
-    from caf_cookoff_tpu_torch.ops.fused_stein import FUSED_TILE, SUPER
-
     resolve_backend(backend)
     ns, hs = _pair_batch(needles, haystacks, mesh, equal=True)
     freqs, d = _fused_batch_grid(ns, freqs_hz, sample_rate, block_len)
@@ -380,14 +381,6 @@ def sharded_batched_stein_peak(needles, haystacks, freqs_hz, sample_rate,
     return _host(freqs, CafPeak(*_gather_pairs(mesh, *pk)))
 
 
-def _global_exclusions(ns, freqs, sample_rate, exclude_freq, exclude_lag):
-    """(exclude_freq, exclude_lag, auto lag cell) from the batch's FIRST
-    needle (not a rank's first), as the single-device engines do."""
-    auto = resolve_exclusions(ns[0], freqs, sample_rate, None, None)
-    return (auto[0] if exclude_freq is None else int(exclude_freq),
-            auto[1] if exclude_lag is None else int(exclude_lag), auto[1])
-
-
 def sharded_batched_stein_peaks(needles, haystacks, freqs_hz, sample_rate,
                                 mesh: Mesh, num_peaks: int, *,
                                 block_len: int = 64,
@@ -401,17 +394,13 @@ def sharded_batched_stein_peaks(needles, haystacks, freqs_hz, sample_rate,
     the results).  Returns ``(freqs (B, P), lags (B, P), values (B, P)[,
     snr_db])``, lags CIRCULAR; ``min_snr_db`` thresholds against the
     per-pair model floor."""
-    from caf_cookoff_tpu_torch.models.batched_stein import (
-        _batched_stein_peaks_core, _rescore_guards, _stein_model_floor)
-
     resolve_backend(backend)
     ns, hs = _pair_batch(needles, haystacks, mesh, equal=True)
     freqs, d = _fused_batch_grid(ns, freqs_hz, sample_rate, block_len)
     fs = float(sample_rate)
     n = ns.shape[-1]
     m = xcor_length(n)
-    ef, el, auto_lag = _global_exclusions(ns, freqs, fs, exclude_freq,
-                                          exclude_lag)
+    ef, el, auto_lag = _exclusions(ns, freqs, fs, exclude_freq, exclude_lag)
     # Circular path: the period m, not n (see batched_stein_peaks).
     guard, rescore_win = _rescore_guards(n, auto_lag, m)
     pk = _batched_stein_peaks_core(
@@ -456,7 +445,7 @@ def _os_inputs(needle, haystack, freqs_hz, mesh: Mesh, num_lags):
     n = as_signal(needle, mesh.device)
     h = as_signal(haystack, mesh.device).to(n.dtype)
     chunks = _time_chunks(h, n.shape[-1], num_lags, mesh)
-    return (n, h) + chunks + _doppler_grid(freqs_hz, mesh, _rdtype(n))
+    return (n, h) + chunks + _doppler_grid(freqs_hz, mesh, n)
 
 
 def sharded_overlap_save_peak(needle, haystack, freqs_hz, sample_rate,
@@ -546,7 +535,7 @@ def _batched_os_inputs(needles, haystacks, freqs_hz, mesh: Mesh, num_lags):
     ns_l = _shard(ns, mesh, AXIS_PAIR)
     chunks = _time_chunks(_shard(hs, mesh, AXIS_PAIR), ns.shape[-1],
                           num_lags, mesh)
-    return (ns, ns_l) + chunks + _doppler_grid(freqs_hz, mesh, _rdtype(ns))
+    return (ns, ns_l) + chunks + _doppler_grid(freqs_hz, mesh, ns)
 
 
 def batched_overlap_save_peak(needles, haystacks, freqs_hz, sample_rate,
@@ -666,28 +655,6 @@ def estimate_hbm_per_chip(num_pairs: int, num_bins: int, needle_len: int,
 # ---------------------------------------------------------------------------
 
 
-def _os_route(freqs_hz, sample_rate, block_len: int, rdtype, where: str):
-    """The windowed engines' plain-vs-banded routing (as
-    ``batched_stein_os_peak``): ``(use_banded, d, freqs_pad, centers,
-    rel, freqs)``; a grid neither route takes raises
-    ``EligibilityError``."""
-    from caf_cookoff_tpu_torch.models.batched_stein import _pow2_block_len
-    from caf_cookoff_tpu_torch.models.stein import _band_routing
-
-    freqs = as_grid(freqs_hz, dtype=rdtype)
-    fs = float(sample_rate)
-    try:
-        d = _pow2_block_len(fs, freqs, block_len)
-    except SpanError:
-        d = None
-    use_banded, d, freqs_pad, centers, rel = _band_routing(fs, freqs, d)
-    if d is None:
-        raise EligibilityError(
-            "grid neither fits the single-band envelope nor bands "
-            f"cleanly; use {where} for it")
-    return use_banded, d, freqs_pad, centers, rel, freqs
-
-
 def _window_block(mesh: Mesh, windows: int):
     """(first window, windows a shard): the last shard's windows past
     ``windows`` read zeros and rank nothing (lag bound 0)."""
@@ -701,8 +668,6 @@ def _shard_operands(ns_k, hs, centers_t, rel_t, fs, v, d, w0, wl,
     the single-device engine's operands of the capture from sample
     ``w0*v`` (so each window reads the same samples), lag bounds
     ``clip(total - (w0+w)*v, 0, v)``."""
-    from caf_cookoff_tpu_torch.models.batched_stein import _os_operands
-
     return _os_operands(ns_k, hs[..., w0 * v:], centers_t, rel_t, fs, v, d,
                         wl, total_lags - w0 * v)
 
@@ -741,17 +706,16 @@ def sharded_stein_os_peak(needle, haystack, freqs_hz, sample_rate,
     earliest-window tie-break — and every answer — equals the
     single-device engine's bit for bit.  The exact re-score then runs on
     every rank.  Wide uniform grids band as on one device."""
-    from caf_cookoff_tpu_torch.models.batched_stein import (_best_window,
-                                                            _coarse_rank,
-                                                            _os_topk_refine)
-    from caf_cookoff_tpu_torch.ops.fused_stein import SUPER
-
     resolve_backend(backend)
     n, h = _long_pair(needle, haystack, mesh)
-    use_banded, d, freqs_pad, centers, rel, freqs = _os_route(
-        freqs_hz, sample_rate, block_len, _rdtype(n),
-        "sharded_overlap_save_peak")
+    freqs = signal_grid(freqs_hz, n)
     fs = float(sample_rate)
+    try:
+        use_banded, d, freqs_pad, centers, rel = _windowed_route(
+            fs, freqs, lambda: _pow2_block_len(fs, freqs, block_len))
+    except SpanError:
+        raise EligibilityError(
+            _NO_ROUTE % "sharded_overlap_save_peak") from None
     nl = n.shape[-1]
     m = xcor_length(nl)
     total_lags = num_lags or h.shape[-1] - nl + 1
@@ -796,23 +760,22 @@ def sharded_stein_os_peaks(needle, haystack, freqs_hz, sample_rate,
     lags) so every rank re-scores the global lattice identically against
     the replicated capture.  Returns ``(freqs (P,), lags (P,), values
     (P,)[, snr_db])``; detection against the model floor."""
-    from caf_cookoff_tpu_torch.models.batched_stein import (
-        _coarse_rank, _lattice_from_bin_candidates, _rescore_entries_windowed,
-        _rescore_guards, _stein_model_floor)
-    from caf_cookoff_tpu_torch.ops.fused_stein import SUPER
-
     resolve_backend(backend)
     n, h = _long_pair(needle, haystack, mesh)
-    use_banded, d, freqs_pad, centers, rel, freqs = _os_route(
-        freqs_hz, sample_rate, block_len, _rdtype(n),
-        "sharded_overlap_save_peaks")
+    freqs = signal_grid(freqs_hz, n)
     fs = float(sample_rate)
+    try:
+        use_banded, d, freqs_pad, centers, rel = _windowed_route(
+            fs, freqs, lambda: _pow2_block_len(fs, freqs, block_len))
+    except SpanError:
+        raise EligibilityError(
+            _NO_ROUTE % "sharded_overlap_save_peaks") from None
     nl = n.shape[-1]
     m = xcor_length(nl)
     total_lags = num_lags or h.shape[-1] - nl + 1
     w0, wl = _window_block(mesh, -(-total_lags // m))
-    ef, el, auto_lag = _global_exclusions(n[None], freqs, fs, exclude_freq,
-                                          exclude_lag)
+    ef, el, auto_lag = _exclusions(n[None], freqs, fs, exclude_freq,
+                                   exclude_lag)
     guard, rescore_win = _rescore_guards(nl, auto_lag, h.shape[-1])
     p = int(num_peaks)
     num_bins = len(freqs) if use_banded else None
@@ -873,24 +836,23 @@ def sharded_batched_stein_os_peaks(needles, haystacks, freqs_hz,
     :func:`~caf_cookoff_tpu_torch.models.batched_stein.
     batched_stein_os_peaks` on each rank's pairs, gathered.  Returns
     ``(freqs (B, P), lags (B, P), values (B, P)[, snr_db])``."""
-    from caf_cookoff_tpu_torch.models.batched_stein import (_rescore_guards,
-                                                            _stein_model_floor,
-                                                            _stein_os_peaks)
-
     resolve_backend(backend)
     ns, hs = _pair_batch(needles, haystacks, mesh, equal=False)
     n = ns.shape[-1]
     if hs.shape[-1] <= n:
         raise ValueError(
             "use sharded_batched_stein_peaks for equal-length pairs")
-    use_banded, d, freqs_pad, centers, rel, freqs = _os_route(
-        freqs_hz, sample_rate, block_len, _rdtype(ns),
-        "batched_overlap_save_peaks (the lattice scan)")
+    freqs = signal_grid(freqs_hz, ns)
     fs = float(sample_rate)
+    try:
+        use_banded, d, freqs_pad, centers, rel = _windowed_route(
+            fs, freqs, lambda: _pow2_block_len(fs, freqs, block_len))
+    except SpanError:
+        raise EligibilityError(_NO_ROUTE % "batched_overlap_save_peaks "
+                               "(the lattice scan)") from None
     m = xcor_length(n)
     total_lags = num_lags or hs.shape[-1] - n + 1
-    ef, el, auto_lag = _global_exclusions(ns, freqs, fs, exclude_freq,
-                                          exclude_lag)
+    ef, el, auto_lag = _exclusions(ns, freqs, fs, exclude_freq, exclude_lag)
     guard, rescore_win = _rescore_guards(n, auto_lag, hs.shape[-1])
     out_freqs = freqs_pad if use_banded else freqs
     pk = _stein_os_peaks(
@@ -922,10 +884,6 @@ def sharded_stein_rate_os_peak(needle, haystack, freqs_hz, rates_hz_per_s,
     serial dechirp-bank mesh engine
     (:func:`sharded_rate_overlap_save_peak`) takes the grids and rates
     outside the segmented envelope."""
-    from caf_cookoff_tpu_torch.models.rate import (_rate_coarse_closer,
-                                                   _rate_ranks,
-                                                   _segmented_inputs)
-
     resolve_backend(backend)
     fs = float(sample_rate)
     (n, h, freqs, rates, total_lags, d, freqs_pad, centers, rel, guard, m,
@@ -970,8 +928,6 @@ def _rate_shard_scan(n, loc, local_rates, fs, chunk, local, halo, offset,
                      total_lags, **kw):
     """Every local trial rate's deferred-halo scan, the rates riding the
     scan's leading axis in slices of the serial engines' batch."""
-    from caf_cookoff_tpu_torch.models.rate import _prechirp, _rate_batches
-
     nl = n.shape[-1]
     m, _, _ = plan_blocks(nl, chunk)
     outs = []
@@ -1039,10 +995,6 @@ def sharded_rate_overlap_save_peaks(needle, haystack, freqs_hz,
     slots at a strong emitter's own lag cell may differ (hierarchical
     NMS, the JAX package's contract).  Returns ``(rates (P,), freqs
     (P,), lags (P,), values (P,)[, snr_db (P,)])``."""
-    from caf_cookoff_tpu_torch.models.rate import (_merge_rate_lattice,
-                                                   _rate_grid_half_t_bins)
-    from caf_cookoff_tpu_torch.ops.peak import apply_detection_threshold
-
     resolve_backend(backend)
     (n, total_lags, chunk, local, halo, offset, freqs, freqs_p, loc, k0,
      rates, rates_p, r_base, local_rates) = _rate_os_inputs(

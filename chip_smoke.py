@@ -831,7 +831,8 @@ def config_operands(cfg):
 
     from caf_cookoff_tpu_torch.config import xcor_length
     from caf_cookoff_tpu_torch.models import batched_stein as bs
-    from caf_cookoff_tpu_torch.models.stein import _plan_bands
+    from caf_cookoff_tpu_torch.models._stein_plan import (_plan_bands,
+                                                          _pow2_block_len)
     from caf_cookoff_tpu_torch.ops.xcor import pad_to
 
     needles, hays, freqs, lags, _ = cfg
@@ -841,7 +842,7 @@ def config_operands(cfg):
     m = xcor_length(n)
     if lags is None:
         ft = torch.from_numpy(freqs).to(DEVICE)
-        d = bs._pow2_block_len(FS, freqs, 64)
+        d = _pow2_block_len(FS, freqs, 64)
         ops, b, sup, modes = bs._batch_operands(pad_to(ns, n + (-n) % 128),
                                                 hs, ft, FS, m, d)
         return ops, b, sup, m, modes, (f"K={len(freqs)} P={ns.shape[0]} "
@@ -1448,7 +1449,7 @@ def phase_times(head, fb_head, inputs, card):
     import torch
 
     from caf_cookoff_tpu_torch import BENCH_GRID, caf_peak
-    from caf_cookoff_tpu_torch.models.filterbank import _surface_rows, mag2
+    from caf_cookoff_tpu_torch.ops.xcor import _surface_rows, mag2
     from caf_cookoff_tpu_torch.ops import fused_stein as fs
     from caf_cookoff_tpu_torch.ops import pallas_caf as pc
 

@@ -20,6 +20,7 @@ from caf_cookoff_tpu.models import filterbank as jfb
 from caf_cookoff_tpu.models import overlap_save as jos
 from caf_cookoff_tpu.models import stein as jstein
 from caf_cookoff_tpu_torch.errors import EligibilityError
+from caf_cookoff_tpu_torch.models import _stein_plan as tplan
 from caf_cookoff_tpu_torch.models import batched as tb
 from caf_cookoff_tpu_torch.models import batched_stein as tbs
 from caf_cookoff_tpu_torch.models import stein as tstein
@@ -249,7 +250,7 @@ def test_banded_os_fine_grid_matches_plain():
     for b in range(p):
         _inject(hays[b], needles[b], lags[b], f_true[b])
     freqs = np.arange(-500.0, 500.0, 0.5, dtype=np.float32)
-    assert tstein._band_routing(FS, freqs, 16)[0]
+    assert tplan._band_routing(FS, freqs, 16)[0]
     assert _batched_os(needles, hays, freqs, FS) == list(zip(f_true, lags))
 
 
@@ -275,7 +276,7 @@ def test_band_routing_and_window_extensions_match_jax():
                   np.arange(-2000.0, 2000.0, 50.0, dtype=np.float32),
                   np.arange(-100.0, 100.0, 0.5, dtype=np.float32)):
         for d in (None, 16, 64):
-            got = tstein._band_routing(FS, freqs, d)
+            got = tplan._band_routing(FS, freqs, d)
             want = jstein._band_routing(FS, freqs, d)
             assert got[:2] == want[:2]
             for a, b in zip(got[2:], want[2:]):

@@ -1955,7 +1955,7 @@ def test_windowed_eager_cores_make_no_sync_on_card(card):
 def _k5_rows_plain(ns, hs, freqs, cand, m, bound=None):
     """Each (pair, slot) row's (max, first lag) by torch.fft, over the
     lags up to ``bound``, and the rows themselves."""
-    from caf_cookoff_tpu_torch.models.filterbank import _surface_rows, mag2
+    from caf_cookoff_tpu_torch.ops.xcor import _surface_rows, mag2
 
     rows = mag2(_surface_rows(ns, hs, freqs[cand.long()], FS, m))
     if bound is not None:
@@ -2098,7 +2098,7 @@ def test_rescore_matches_plain_banded_with_a_lag_bound_on_card(card):
     """widearea.capture's re-score: one pair, config3's needle against a
     guard-extended slice of its capture, the banded grid (2000 bins
     padded to whole bands, -inf past them), lags bounded at 100."""
-    from caf_cookoff_tpu_torch.models.stein import _plan_bands
+    from caf_cookoff_tpu_torch.models._stein_plan import _plan_bands
     from caf_cookoff_tpu_torch.utils import bench_configs as bc
 
     needle, hay, freqs, _, truth = bc.build_config3()
@@ -2154,7 +2154,7 @@ def test_rescore_runs_on_each_card_of_a_process(card):
 
 
 def _k5_core(ns, hs, freqs, ranking, bound):
-    from caf_cookoff_tpu_torch.models.batched_stein import _pack
+    from caf_cookoff_tpu_torch.models._stein_plan import _pack
     from caf_cookoff_tpu_torch.ops import stein_rescore as rs
 
     return _pack(rs.stein_rescore(ns, hs, freqs, ranking, FS, 8192, 4096,

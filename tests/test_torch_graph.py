@@ -21,6 +21,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from caf_cookoff_tpu_torch.models import batched_stein as tbs
+from caf_cookoff_tpu_torch.models import _stein_plan as tplan
 from caf_cookoff_tpu_torch.models import stein as tstein
 from caf_cookoff_tpu_torch.ops import _graph
 from caf_cookoff_tpu_torch.ops import fused_stein as tfs
@@ -296,17 +297,17 @@ def test_packed_answer_reads_back_exactly(vdt):
     idx = torch.tensor([[0, 1, 2**31 - 1, 7, 2**24 + 1]] * 3,
                        dtype=torch.int32)
     lag = idx.flip(-1)
-    packed = tbs._pack(CafPeak(value, idx, lag))
+    packed = tplan._pack(CafPeak(value, idx, lag))
     assert packed.shape == (3, 3, 5) and packed.dtype == torch.float64
     assert torch.equal(packed[1].to(torch.int32), idx)
     grid = np.arange(8, dtype=np.float32)
     small = CafPeak(value, idx % 8, lag)
-    f, lg, v = tbs._host(grid, small)
+    f, lg, v = tplan._host(grid, small)
     assert np.array_equal(f, grid[(idx % 8).numpy()])
     assert lg.dtype == np.int32 and np.array_equal(lg, lag.numpy())
     assert v.dtype == value.numpy().dtype
     assert np.array_equal(v, value.numpy())
-    for got, want in zip(tbs._host(grid, tbs._pack(small), vdt),
+    for got, want in zip(tplan._host(grid, tplan._pack(small), vdt),
                          (f, lg, v)):
         assert got.dtype == want.dtype and np.array_equal(got, want)
 
@@ -340,7 +341,7 @@ def test_stein_plans_key_as_jax_jits():
     wide = np.arange(-3000.0, 3000.0, 50.0, dtype=np.float32)   # banded
     core, traced, static, grid, _ = tstein._stein_call(
         needle, hay, wide, FS, 64, True, None, "cpu")
-    plan = tstein._plan_bands(FS, wide)
+    plan = tplan._plan_bands(FS, wide)
     assert core is tbs._banded_core
     assert static == (FS, 1024, plan["block_len"], len(wide))
     assert [tuple(t.shape) for t in traced] == [
@@ -563,7 +564,7 @@ def test_os_plans_key_as_jax_jits():
                                                       total, 256)
     assert [tuple(t.shape) for t in traced] == [(2, 256), (2, 3000), (16,)]
     fr, lg, vv = tbs.batched_stein_os_peak(ns, hs, freqs, FS, device="cpu")
-    for got, want in zip(tbs._host(grid, core(*traced, *static), vdt),
+    for got, want in zip(tplan._host(grid, core(*traced, *static), vdt),
                          (fr, lg, vv)):
         assert got.dtype == want.dtype and np.array_equal(got, want)
     assert lg.tolist() == [1500, 1500]
@@ -575,7 +576,7 @@ def test_os_plans_key_as_jax_jits():
     assert core is tbs._banded_os_core and static[-1] == len(wide)
     assert len(traced) == 5 and np.array_equal(grid, traced[2].numpy())
     fr, lg, vv = tbs.batched_stein_os_peak(ns, hs, wide, FS, device="cpu")
-    assert np.array_equal(fr, tbs._host(grid, core(*traced, *static))[0])
+    assert np.array_equal(fr, tplan._host(grid, core(*traced, *static))[0])
 
 
 def test_os_key_ignores_values():

@@ -38,6 +38,7 @@ from caf_cookoff_tpu.parallel import collectives as jcol
 from caf_cookoff_tpu.parallel import mesh as jmesh
 from caf_cookoff_tpu.parallel import sharded as jsh
 import caf_cookoff_tpu_torch.parallel as tpar
+from caf_cookoff_tpu_torch.errors import EligibilityError, SpanError
 from caf_cookoff_tpu_torch.models import batched_stein as tbs
 from caf_cookoff_tpu_torch.models import rate as trate
 from caf_cookoff_tpu_torch.parallel import mesh as tmesh
@@ -629,6 +630,54 @@ def worlds(tmp_path_factory, fixture_pairs):
 # ---------------------------------------------------------------------------
 
 
+@pytest.fixture
+def one_rank_mesh():
+    """A gloo world of this process alone, and its mesh."""
+    import datetime
+
+    import torch.distributed as dist
+
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{tmh.free_port()}",
+        world_size=1, rank=0, timeout=datetime.timedelta(seconds=120))
+    try:
+        yield tmesh.make_mesh(device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+# Past the single-band envelope at 48 kHz and not uniform, so no band
+# plan either: neither windowed route takes it.
+OFF_ROUTE = np.asarray([0.0, 23000.0, 23001.5], np.float32)
+
+
+@pytest.mark.parametrize("engine,error,match", [
+    ("batched_stein_os_peak", SpanError, "does not pay off"),
+    ("batched_stein_os_peaks", EligibilityError,
+     "neither fits .* use batched_overlap_save_peaks_local"),
+    ("sharded_stein_os_peak", EligibilityError,
+     "neither fits .* use sharded_overlap_save_peak for it"),
+])
+def test_windowed_engines_raise_their_own_error_off_both_routes(
+        request, engine, error, match):
+    """Each windowed engine raises its own typed error on a grid neither
+    route takes (``stein_rate_os_peak``'s ``SpanError`` is pinned in
+    ``test_torch_rate.py``); ``sharded_stein_os_peak`` at one gloo
+    rank."""
+    rng = np.random.default_rng(3)
+    nd, hay = _cx(rng, 256), _cx(rng, 2048)
+    if engine.startswith("sharded"):
+        mesh = request.getfixturevalue("one_rank_mesh")
+        call = functools.partial(tsh.sharded_stein_os_peak, nd, hay,
+                                 OFF_ROUTE, FS, mesh)
+    else:
+        call = functools.partial(
+            getattr(tbs, engine), nd[None], hay[None], OFF_ROUTE, FS,
+            *((2,) if engine.endswith("peaks") else ()), device="cpu")
+    with pytest.raises(error, match=match):
+        call()
+
+
 def test_factor_devices_matches_jax():
     for n in range(1, 65):
         for axes in (1, 2, 3, 4):
@@ -937,6 +986,15 @@ def test_sharded_batched_stein_pairs(worlds):
     c = worlds.cases["batched_stein_pairs"]
     same_rows(got, run_jax(c))
     bitwise(got, tbs.batched_stein_peak(*c["args"], device="cpu"))
+    # Every sharded array engine reads its answer back as the
+    # single-device engines do: the grid's dtype, int32 lags, the values'
+    # dtype.
+    for name in ("batched_pd", "os_three_axes", "batched_stein_pairs",
+                 "p1_os_peaks", "p1_batched", "p1_batched_peaks",
+                 "fused_pairs_0", "fused_time_0_t2"):
+        fr, lg, vv = worlds.get(name)[:3]
+        assert (fr.dtype, lg.dtype, vv.dtype) == (
+            np.float32, np.int32, np.float32), name
 
 
 @pytest.mark.parametrize("seed,n,total,lag,f_idx,g0,gs,gk,doppler,time",

@@ -27,8 +27,8 @@ from caf_cookoff_tpu.models import stein as jst
 from caf_cookoff_tpu.ops import pallas_stein as jps
 from caf_cookoff_tpu.ops.splitfft import split_array
 from caf_cookoff_tpu_torch.errors import SpanError
+from caf_cookoff_tpu_torch.models import _stein_plan as tplan
 from caf_cookoff_tpu_torch.models import rate as tr
-from caf_cookoff_tpu_torch.models import stein as tst
 from caf_cookoff_tpu_torch.ops import fused_stein as tfs
 from caf_cookoff_tpu_torch.utils.convert import stein_operands_from_numpy
 
@@ -99,7 +99,7 @@ BAND_CASES = [
 def test_plan_bands_and_routing_match_jax(freqs, margin, d_cap):
     freqs = np.asarray(freqs, np.float32)
     want = jst._plan_bands(FS, freqs, margin_hz=margin, d_cap=d_cap)
-    got = tst._plan_bands(FS, freqs, margin_hz=margin, d_cap=d_cap)
+    got = tplan._plan_bands(FS, freqs, margin_hz=margin, d_cap=d_cap)
     assert (got is None) == (want is None)
     if want is not None:
         assert got.keys() == want.keys()
@@ -108,7 +108,7 @@ def test_plan_bands_and_routing_match_jax(freqs, margin, d_cap):
                                           np.asarray(want[key]))
     for d in (None, 8, 64):
         want = jst._band_routing(FS, freqs, d, margin_hz=margin, d_cap=d_cap)
-        got = tst._band_routing(FS, freqs, d, margin_hz=margin, d_cap=d_cap)
+        got = tplan._band_routing(FS, freqs, d, margin_hz=margin, d_cap=d_cap)
         assert got[:2] == want[:2]
         for g, w in zip(got[2:], want[2:]):
             np.testing.assert_array_equal(g, w)
@@ -338,7 +338,7 @@ def test_stein_rate_os_peak_matches_jax(case):
         freqs = np.arange(20000.0, 22001.0, 500.0, dtype=np.float32)
         rates = np.asarray([0.0], np.float32)
         needle, hay = _swept([(22400.0, 0.0, 3000, 1.0)], seed=3)
-        assert tst._band_routing(FS, freqs, None)[0]
+        assert tplan._band_routing(FS, freqs, None)[0]
     elif case == "banded":
         freqs = np.linspace(-500, 500, 256, endpoint=False).astype(np.float32)
         rates = RATES
@@ -372,7 +372,7 @@ def test_stein_rate_span_error_matches_jax():
     with pytest.raises(JSpanError):
         jr.stein_rate_os_peak(needle, hay, freqs, RATES, FS)
     for fn in (tr.stein_rate_os_peak, tr.stein_rate_os_peaks):
-        with pytest.raises(SpanError):
+        with pytest.raises(SpanError, match="does not pay off"):
             fn(needle, hay, freqs, RATES, FS,
                *(() if fn is tr.stein_rate_os_peak else (2,)), device="cpu")
 

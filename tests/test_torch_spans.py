@@ -152,14 +152,14 @@ def test_hot_paths_open_no_span_when_off(monkeypatch):
     """With no profiler running a public call opens one span site (the
     packed read) and a chunk none: each checks the profiler once and
     takes a branch without spans."""
-    from caf_cookoff_tpu_torch.models import batched_stein, streaming
+    from caf_cookoff_tpu_torch.models import _stein_plan, streaming
 
     opened = []
 
     def counted(name):
         opened.append(name)
         return profiling._NO_SPAN
-    for module in (batched_stein, streaming):
+    for module in (_stein_plan, streaming):
         monkeypatch.setattr(module, "span", counted)
     ns, hs = _pairs(1, 256, 1024, lag=300)
     stein_caf_peak(ns[0], hs[0, :256], FREQS, FS, device="cpu")

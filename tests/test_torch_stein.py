@@ -14,7 +14,7 @@ from caf_cookoff_tpu.models import stein as jstein
 from caf_cookoff_tpu_torch import cli as tcli
 from caf_cookoff_tpu_torch.config import FreqGrid
 from caf_cookoff_tpu_torch.errors import EligibilityError, SpanError
-from caf_cookoff_tpu_torch.models import batched_stein as tbs
+from caf_cookoff_tpu_torch.models import _stein_plan as tplan
 from caf_cookoff_tpu_torch.models import filterbank as tfb
 from caf_cookoff_tpu_torch.models import stein as tstein
 from caf_cookoff_tpu_torch.ops import fused_stein as tfs
@@ -114,9 +114,9 @@ def test_refine_candidates_match_jax(seed):
                                              (1000.0, 64), (0.0, 32)])
 def test_auto_block_len_matches_jax(f_max, requested):
     freqs = np.array([-f_max, 0.0, f_max], np.float32)
-    assert tstein._auto_block_len(FS, freqs, requested) == \
+    assert tplan._auto_block_len(FS, freqs, requested) == \
         jstein._auto_block_len(FS, freqs, requested)
-    assert tbs._pow2_block_len(FS, freqs, requested) == \
+    assert tplan._pow2_block_len(FS, freqs, requested) == \
         jbs._pow2_block_len(FS, freqs, requested)
 
 
@@ -125,7 +125,7 @@ def test_pow2_block_len_raises_like_jax():
     with pytest.raises(JSpanError):
         jbs._pow2_block_len(FS, freqs, 64)
     with pytest.raises(SpanError):
-        tbs._pow2_block_len(FS, freqs, 64)
+        tplan._pow2_block_len(FS, freqs, 64)
 
 
 def test_errors_where_jax_raises():
@@ -139,7 +139,7 @@ def test_errors_where_jax_raises():
         tstein.stein_caf_peak(x, x, freqs, FS, fused=True, device="cpu")
     wide = np.arange(-2000.0, 2000.0, 250.0, dtype=np.float32)
     with pytest.raises(SpanError):
-        tstein._auto_block_len(FS, wide, 64)
+        tplan._auto_block_len(FS, wide, 64)
     y = (rng.standard_normal(4096)
          + 1j * rng.standard_normal(4096)).astype(np.complex64)
     # A wide uniform grid is banded, as in JAX; pinning the single-band
@@ -323,14 +323,14 @@ def test_plan_bands_matches_jax(g, span):
     """Same band plan (block length, bands, arrays) as the JAX package,
     and the cost-optimal pow2 it tests for."""
     freqs = np.arange(-span, span, g, dtype=np.float32)
-    got, want = tstein._plan_bands(FS, freqs), jstein._plan_bands(FS, freqs)
+    got, want = tplan._plan_bands(FS, freqs), jstein._plan_bands(FS, freqs)
     assert got.keys() == want.keys()
     for key in got:
         np.testing.assert_array_equal(got[key], want[key])
     if (g, span) == (100.0, 6000.0):
         assert got["block_len"] == 16
-    assert tstein._plan_bands(FS, freqs[:1]) is None
-    assert tstein._plan_bands(FS, freqs[[0, 1, 3]]) is None
+    assert tplan._plan_bands(FS, freqs[:1]) is None
+    assert tplan._plan_bands(FS, freqs[[0, 1, 3]]) is None
 
 
 def test_segment_spectra_conj_matches_jax():

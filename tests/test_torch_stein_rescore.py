@@ -14,10 +14,10 @@ import torch
 from caf_cookoff_tpu_torch.errors import EligibilityError, VmemBudgetError
 from caf_cookoff_tpu_torch.models import batched_stein as tbs
 from caf_cookoff_tpu_torch.models import stein as tstein
-from caf_cookoff_tpu_torch.models.filterbank import _surface_rows, mag2
 from caf_cookoff_tpu_torch.ops import _graph
 from caf_cookoff_tpu_torch.ops import stein_rescore as rs
 from caf_cookoff_tpu_torch.ops.peak import CafPeak
+from caf_cookoff_tpu_torch.ops.xcor import _surface_rows, mag2
 
 from test_torch_fixtures import chirp, fixture_pairs  # noqa: F401
 
