@@ -38,34 +38,63 @@
 // and so runs on the FMA pipe, at a fifteenth of their rate: on an H100
 // SXM (utils/k1_study.py split) stage A alone takes about half of config
 // 2's time (2K = 800, 2D = 128), three quarters of config 4's (2K = 384,
-// 2D = 256) and a quarter of rate3's (2K = 5508).
+// 2D = 256) and a quarter of rate3's (2K = 5508).  The two pipes are
+// separate units, so the pipelined launch runs them at once.
 //
-// Design.  One launch does the work of modes (a)-(d) and (f): a block
-// per (program, 128-lag tile, bin split).
-//   Stage A (FMA pipe): the block builds its G tile, 2B rows x 128 lags
-//     in bf16, straight into shared memory, laid out [lag][row] so stage
-//     B reads it as the mma B operand.  The haystack window and the taps
-//     of 8 segments at a time arrive by cp.async into a double buffer
-//     (the next 8 segments load while these compute); each warp takes a
+// Design.  Two tile launches share stage A (stage_a: the same fmaf chain,
+// so G is the plain version's bit for bit in both) and the epilogue's
+// (max, lowest lag) rule; the wrapper picks one from the shape
+// (ops/fused_stein.pipelined: 2B, D, top-2, cluster).
+//   Stage A (FMA pipe): 8 warps (a team of the pipelined launch, or the
+//     tile block) build a G tile, 2B rows x 128 lags in bf16, straight
+//     into shared memory.  The haystack window and the taps of a segment
+//     a warp arrive by cp.async into a double buffer (the next chunk of 8
+//     segments loads while this one computes); each warp takes a
 //     segment, each thread 4 consecutive lags, reusing haystack samples
 //     from a 4-slot register ring (one shared load a plane and tap) and
 //     the taps as float4 broadcasts; the window is stored with a skew
 //     (i + i/4) so the ring's loads hit 32 banks.
-//   Stage B (tensor pipe): mma.sync.m16n8k16 bf16 x bf16 -> f32, not yet
-//     wgmma.  2B is padded to a multiple of 16 with zeros (exact).  A
-//     warp owns 8 bins x 128 lags: its A operand interleaves ws1 and ws2
-//     by 8 rows (rows g = ws1[bin g], g + 8 = ws2[bin g]), so Rr and Ri
-//     of one (bin, lag) land in one thread's accumulators (c0/c2, c1/c3)
-//     and |R|^2 (mag2_rn, no fma contraction) needs no shuffle.  The
-//     epilogue masks past the bound and reduces each bin to (max, lowest
+//   The pipelined launch (stein_pipe; the atomic-key modes (a)-(d), (f)
+//     at one block a tile where two G tiles, stage A's buffers and a ring
+//     of 3 weight tiles fit a block: 2B <= 192 at D = 64, so configs 1-4,
+//     the windowed banded engines and the rate engines; not the stream's
+//     2B = 512 at D = 16).  A persistent block a SM of 640 threads walks
+//     its share of the work items (program, lag tile, bin split),
+//     consecutive lag tiles.  Two teams of 8 producer warps take every
+//     other item each and build its G tile by stage A into the team's own
+//     G buffer, in wgmma's K-major layout (no swizzle; rows b and B + b
+//     as G rows 2b, 2b + 1, one 4-byte store); an mbarrier pair a buffer
+//     (full / empty) hands it over.  One warpgroup runs stage B on the
+//     tensor cores while the producers keep the FMA pipe busy with the
+//     next tiles: per 32 bins and the tile's 128 lags, K / 16
+//     wgmma.mma_async m64n128k16 (bf16 x bf16 -> f32, both operands from
+//     shared memory), A the weights, their ws1 / ws2 rows interleaved by
+//     8 so Rr and Ri of one (bin, lag) land in one thread's accumulator
+//     pair; the rounding launch writes each 32-bin m-tile in the layout
+//     the warpgroup reads and a bulk copy brings it, 3 in flight.
+//     setmaxnreg gives the producers 88 registers and the warpgroup 128
+//     (of 96 a thread at launch).  The epilogue masks past the bound
+//     (only in a tile the bound cuts) and reduces each bin to (max,
+//     lowest lag) as below; a G buffer goes back to the producers once
+//     its last wgmma has retired.
+//   The tile launch (stein_tile; the stream's chunk, the cluster split,
+//     mode (e)): a block per (program, 128-lag tile, bin split) runs
+//     stage A, then stage B on mma.sync.m16n8k16 bf16 x bf16 -> f32 over
+//     its G tile, laid out [lag][row] with rows padded to 16 (+ 8), its
+//     A operand the weights read from device memory beside each mma.  A
+//     warp owns 8 bins x 128 lags: rows g = ws1[bin g], g + 8 = ws2[bin
+//     g], so Rr and Ri land in one thread's accumulators (c0/c2, c1/c3)
+//     and |R|^2 (mag2_rn, no fma contraction) needs no shuffle.
+//   Epilogue: lags past the bound read -1.0; each bin's (max, lowest
 //     lag) in ascending lag order, then across the 4 lanes of a group.
 //   Reduce: a 64-bit atomicMax on an order-preserving key (value bits
 //     mapped to unsigned, then ~lag) gives (max, lowest lag) whatever the
 //     order the blocks finish in; a small launch decodes the keys.  No G
 //     and no per-tile partials reach device memory.
 //   Fill: where programs x tiles leave SMs idle (config 1: 64 tiles),
-//     the wrapper splits the bins over blocks (grid y); stage A repeats
-//     per split, ~4 MFLOP a tile.
+//     the wrapper splits the bins over blocks (the tile launch's grid y,
+//     the pipelined launch's work items); stage A repeats per split, ~4
+//     MFLOP a tile.
 // Mode (e) keeps per-tile partials: the same launch writes each tile's
 // (max, lowest lag) instead of the atomic; stein_reduce_top2 takes slot 1
 // from them and slot 2 from the tiles wholly outside [lag1 - sep, lag1 +
@@ -143,12 +172,14 @@ __host__ __device__ constexpr int pad16(int x) { return (x + 15) / 16 * 16; }
 struct TileSmem {
   int g_stride;   // bf16 elements per G lag row: its rows padded to 16, + 8
   int hay_len;    // floats per haystack plane buffer (skewed, mult. of 4)
-  int buf_len;    // floats per stage-A buffer: 2 planes + 8 segments' taps
+  int buf_len;    // floats per stage-A buffer: 2 planes + a chunk's taps
   size_t bytes;
-  __host__ __device__ TileSmem(int rows, int sup, bool split) {
+  // chunk: stage A's segments a buffer (its warps), 8 in a tile block.
+  __host__ __device__ TileSmem(int rows, int sup, bool split,
+                               int chunk = kSegChunk) {
     g_stride = pad16(rows) + 8;
-    hay_len = (skew(kSegChunk * sup + kLagTile - 2) + 1 + 3) / 4 * 4;
-    buf_len = 2 * hay_len + kSegChunk * 4 * sup;
+    hay_len = (skew(chunk * sup + kLagTile - 2) + 1 + 3) / 4 * 4;
+    buf_len = 2 * hay_len + chunk * 4 * sup;
     const size_t stage_a = 2 * static_cast<size_t>(buf_len) * sizeof(float);
     bytes = static_cast<size_t>(kLagTile) * g_stride * 2 +
             (split && kXchgBytes > stage_a ? kXchgBytes : stage_a);
@@ -248,50 +279,50 @@ __device__ __forceinline__ void key_decode(unsigned long long key, float& v,
   lag = static_cast<int>(~static_cast<unsigned>(key & 0xffffffffu));
 }
 
-// Stage A: the G tile of program p, lags [tau0, tau0 + kLagTile), for
-// the nseg segments from seg0 (kSplit; else all B from 0): rows seg0 + b
-// and B + seg0 + b of G into rows b and nseg + b of gs ([lag][row] bf16,
-// row stride g_stride); rows [2*nseg, g_stride - 8) are zero.  All
-// threads of the block take part; ends with a barrier.  lmat and h hold
-// bf16 values in f32.
-template <bool kSplit>
-__device__ void build_g_tile(const float* __restrict__ lmat,
-                             const float* __restrict__ h, int p,
-                             int num_blocks, int seg0_, int nseg_, int sup,
-                             int h_len, int windows, int share_h, int tau0,
-                             const TileSmem& lay, __nv_bfloat16* gs,
-                             float* bufs) {
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+// Stage A's chunk loop for program p, lags [tau0, tau0 + kLagTile): the
+// nseg segments from seg0 (kSplit; else all B from 0), kWarpsA at a time
+// (lay's chunk), by 32 * kWarpsA threads of indices tid whose barrier is
+// sync() (the tile block's 8 warps, or a pipelined block's team of 8).
+// Chunk c's haystack window and taps arrive by cp.async into bufs (two
+// buffers: the next chunk loads while this one computes); warp tid / 32
+// takes a segment b, each lane 4 consecutive lags.  Each chunk calls
+// before_stores(c), then store(lag, b, top, bot) with the f32 sums of G
+// rows seg0 + b (top) and B + seg0 + b (bot) at lag tau0 + lag, for
+// store to round to bf16.  Ends with sync().  lmat and h hold bf16
+// values in f32.
+template <bool kSplit, int kWarpsA, class Sync, class BeforeStores,
+          class Store>
+__device__ __forceinline__ void stage_a(
+    const float* __restrict__ lmat, const float* __restrict__ h, int p,
+    int num_blocks, int seg0_, int nseg_, int sup, int h_len, int windows,
+    int share_h, int tau0, const TileSmem& lay, float* bufs, int tid,
+    Sync sync, BeforeStores before_stores, Store store) {
+  constexpr int kThreadsA = 32 * kWarpsA;
+  const int warp = tid / 32, lane = tid % 32;
   const int seg0 = kSplit ? seg0_ : 0, nseg = kSplit ? nseg_ : num_blocks;
-  const int b2 = 2 * nseg, b2p = kSplit ? lay.g_stride - 8 : pad16(b2);
   // The TPU kernel's BlockSpec index maps.
   const int op = p / windows;
   const int slice = (p / (share_h * windows)) * windows + p % windows;
   const float* hp = h + static_cast<size_t>(slice) * 2 * h_len;
   const float* lp = lmat + static_cast<size_t>(op) * 2 * num_blocks * 2 * sup;
 
-  for (int i = tid; i < kLagTile * (b2p - b2); i += kThreads) {
-    const int lag = i / (b2p - b2), r = b2 + i % (b2p - b2);
-    gs[lag * lay.g_stride + r] = __float2bfloat16_rn(0.f);
-  }
-
-  const int chunks = (nseg + kSegChunk - 1) / kSegChunk;
-  // Chunk c's haystack window: h[tau0 + (seg0 + c*8)*D + i], i < ns*D +
-  // 127, into both planes (skewed); its taps: rows b and B + b, 2D each,
-  // per segment.
+  const int chunks = (nseg + kWarpsA - 1) / kWarpsA;
+  // Chunk c's haystack window: h[tau0 + (seg0 + c*kWarpsA)*D + i], i <
+  // ns*D + 127, into both planes (skewed); its taps: rows b and B + b,
+  // 2D each, per segment.
   auto stage_chunk = [&](int c) {
     float* buf = bufs + (c & 1) * lay.buf_len;
-    const int b0 = c * kSegChunk;
-    const int ns = min(kSegChunk, nseg - b0);
+    const int b0 = c * kWarpsA;
+    const int ns = min(kWarpsA, nseg - b0);
     const int len = ns * sup + kLagTile - 1;
     const float* src = hp + tau0 + (seg0 + b0) * sup;
-    for (int i = tid; i < len; i += kThreads) {
+    for (int i = tid; i < len; i += kThreadsA) {
       cp_async4(buf + skew(i), src + i);
       cp_async4(buf + lay.hay_len + skew(i), src + h_len + i);
     }
     float* taps = buf + 2 * lay.hay_len;
     const int vec = 2 * sup / 4;          // 16-byte pieces a tap row
-    for (int i = tid; i < ns * 2 * vec; i += kThreads) {
+    for (int i = tid; i < ns * 2 * vec; i += kThreadsA) {
       const int s = i / (2 * vec), half = (i / vec) % 2, v = i % vec;
       const int row = half * num_blocks + seg0 + b0 + s;
       cp_async16(taps + (s * 2 + half) * 2 * sup + 4 * v,
@@ -308,9 +339,9 @@ __device__ void build_g_tile(const float* __restrict__ lmat,
     } else {
       cp_async_wait<0>();
     }
-    __syncthreads();
+    sync();
     const float* buf = bufs + (c & 1) * lay.buf_len;
-    const int b = c * kSegChunk + warp;
+    const int b = c * kWarpsA + warp;
     if (b < nseg) {
       const float* t_top = buf + 2 * lay.hay_len + warp * 4 * sup;
       const float* t_bot = t_top + 2 * sup;
@@ -352,15 +383,42 @@ __device__ void build_g_tile(const float* __restrict__ lmat,
           }
         }
       }
+      before_stores(c);
 #pragma unroll
-      for (int j = 0; j < kLagsPerThread; ++j) {
-        __nv_bfloat16* row = gs + (kLagsPerThread * lane + j) * lay.g_stride;
-        row[b] = __float2bfloat16_rn(acc_top[j]);
-        row[nseg + b] = __float2bfloat16_rn(acc_bot[j]);
-      }
+      for (int j = 0; j < kLagsPerThread; ++j)
+        store(kLagsPerThread * lane + j, b, acc_top[j], acc_bot[j]);
     }
-    __syncthreads();   // stage_chunk(c + 2) refills this buffer
+    sync();   // stage_chunk(c + 2) refills this buffer
   }
+}
+
+// Stage A of a tile block: the G tile of program p, lags [tau0, tau0 +
+// kLagTile), for the nseg segments from seg0 (kSplit; else all B from
+// 0): rows seg0 + b and B + seg0 + b of G into rows b and nseg + b of gs
+// ([lag][row] bf16, row stride g_stride); rows [2*nseg, g_stride - 8)
+// are zero.  All threads of the block take part; ends with a barrier.
+template <bool kSplit>
+__device__ void build_g_tile(const float* __restrict__ lmat,
+                             const float* __restrict__ h, int p,
+                             int num_blocks, int seg0_, int nseg_, int sup,
+                             int h_len, int windows, int share_h, int tau0,
+                             const TileSmem& lay, __nv_bfloat16* gs,
+                             float* bufs) {
+  const int tid = threadIdx.x;
+  const int nseg = kSplit ? nseg_ : num_blocks;
+  const int b2 = 2 * nseg, b2p = kSplit ? lay.g_stride - 8 : pad16(b2);
+  for (int i = tid; i < kLagTile * (b2p - b2); i += kThreads) {
+    const int lag = i / (b2p - b2), r = b2 + i % (b2p - b2);
+    gs[lag * lay.g_stride + r] = __float2bfloat16_rn(0.f);
+  }
+  stage_a<kSplit, kSegChunk>(
+      lmat, h, p, num_blocks, seg0_, nseg_, sup, h_len, windows, share_h,
+      tau0, lay, bufs, tid, [] { __syncthreads(); }, [](int) {},
+      [&](int lag, int b, float top, float bot) {
+        __nv_bfloat16* row = gs + lag * lay.g_stride;
+        row[b] = __float2bfloat16_rn(top);
+        row[nseg + b] = __float2bfloat16_rn(bot);
+      });
 }
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], unsigned a0,
@@ -829,6 +887,463 @@ cudaError_t launch_tiles(void (*kernel)(Params...), bool split, dim3 grid,
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------
+// The pipelined tile kernel (atomic-key modes; see the head of the file).
+
+constexpr int kTeams = 2;                   // stage-A producer teams a block
+constexpr int kTeamWarps = 8;               // a team's warps: its chunk
+constexpr int kTeamThreads = 32 * kTeamWarps;
+constexpr int kProducerThreads = kTeams * kTeamThreads;
+constexpr int kWgThreads = 128;             // the stage-B warpgroup
+constexpr int kPipeThreads = kWgThreads + kProducerThreads;    // 640
+constexpr int kRing = 3;                    // weight tiles in shared memory
+constexpr int kMBins = 32;                  // bins a wgmma (64 rows: ws1, ws2)
+// A G buffer in wgmma's K-major layout without swizzle: 8 lags x 8 rows
+// (16 B a lag) make a 128-byte core matrix; a buffer's 8-row groups sit
+// 128 bytes apart (kGLbo) and its 8-lag groups kp * 16 + 16 bytes apart
+// (the 16 past the groups' matrices put the 4-byte stores of a warp's 32
+// lags on 8 banks, not 2).
+constexpr int kGLbo = 128;
+// The weights' m-tile, 64 rows x K: 8-row groups 128 bytes apart, 8-column
+// groups 1 KB apart, as the rounding launch writes it in device memory.
+constexpr int kWSbo = 128;
+constexpr int kWLbo = 64 / 8 * kWSbo;         // 1024
+// setmaxnreg moves registers within the block: the launch gives each of
+// the 640 threads 96 (__launch_bounds__: 65536 / 640, rounded down to 8),
+// the producer warps give 8 each back and the warpgroup takes them.
+constexpr int kLaunchRegs = 96;
+constexpr int kProducerRegs = 88;
+constexpr int kConsumerRegs = 128;
+static_assert(kProducerThreads * (kProducerRegs - kLaunchRegs) +
+                  kWgThreads * (kConsumerRegs - kLaunchRegs) <= 0,
+              "setmaxnreg takes more registers than the block gives back");
+
+// Shared memory of a pipelined block for 2B rows at block length sup:
+// the mbarriers, the weight ring, the teams' G buffers, then each team's
+// two stage-A buffers (TileSmem's).
+struct PipeSmem {
+  TileSmem stage;
+  int kp;          // G rows padded to 16: wgmma's K
+  int g_sbo;       // bytes between a G buffer's 8-lag groups
+  int g_bytes;     // a G buffer
+  int w_bytes;     // a weight m-tile (64 rows x kp bf16)
+  size_t ring, g0, bufs0, bytes;
+  __host__ __device__ PipeSmem(int b2, int sup)
+      : stage(b2, sup, false, kTeamWarps), kp(pad16(b2)) {
+    g_sbo = kp / 8 * kGLbo + 16;
+    g_bytes = kLagTile / 8 * g_sbo;
+    w_bytes = kp / 8 * kWLbo;
+    ring = 128;                              // the barriers: 7 x 8 bytes
+    g0 = ring + static_cast<size_t>(kRing) * w_bytes;
+    bufs0 = g0 + static_cast<size_t>(kTeams) * g_bytes;
+    bytes = bufs0 + kTeams * 2 * static_cast<size_t>(stage.buf_len) *
+                        sizeof(float);
+  }
+};
+
+// Byte offset of G's (lag, row k) in a G buffer.
+__device__ __forceinline__ int g_offset(const PipeSmem& lay, int lag, int k) {
+  return (lag >> 3) * lay.g_sbo + (k >> 3) * kGLbo + (lag & 7) * 16 +
+         (k & 7) * 2;
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar)) : "memory");
+}
+
+// Wait for the completion of bar's phase of parity `parity`.  The hint
+// (ns) lets the hardware suspend a waiting thread until the phase
+// completes rather than return at once, so waiting warps spin less and
+// leave the issue slots to the warps that work.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned addr = smem_u32(bar);
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, 100000;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+  }
+}
+
+// One thread: `bytes` from global src into shared dst by the bulk copy
+// engine, completing on bar (which expects them).
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)), "l"(src), "r"(bytes),
+      "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// A no-swizzle K-major wgmma operand at shared address addr.
+__device__ __forceinline__ uint64_t wgmma_desc(unsigned addr, int lbo,
+                                               int sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+// d (+)= A (64 x 16, desc a) x B (16 x 128, K-major, desc b), bf16 in,
+// f32 accumulators; d[4j + q] is row 16w + lane/4, column 8j + 2(lane%4)
+// + q of warp w of the group, d[4j + 2 + q] the row 8 below.
+__device__ __forceinline__ void wgmma_n(float (&d)[64], uint64_t a,
+                                        uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// setmaxnreg for the calling warpgroup: kRegs registers a thread, from
+// the launch's kLaunchRegs.
+template <int kRegs>
+__device__ __forceinline__ void set_max_regs() {
+  if constexpr (kRegs > kLaunchRegs)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+  else if constexpr (kRegs < kLaunchRegs)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+// A walk over work items (program, lag tile, bin split), split fastest:
+// one division at its start, none a step.
+struct ItemWalk {
+  int p, tile, split;
+  __device__ ItemWalk(long long item, int splits, int n_tiles) {
+    split = static_cast<int>(item % splits);
+    const long long r = item / splits;
+    tile = static_cast<int>(r % n_tiles);
+    p = static_cast<int>(r / n_tiles);
+  }
+  __device__ void next(int splits, int n_tiles) {
+    if (++split == splits) {
+      split = 0;
+      if (++tile == n_tiles) {
+        tile = 0;
+        ++p;
+      }
+    }
+  }
+};
+
+// The warpgroup's epilogue over a G tile: lags lag0 + 8j + q (j < kAcc /
+// 4, q < 2; lag0 = tau0 + 2t) of acc (Rr at 4j + q, Ri at 4j + 2 + q)
+// into (best, arg), in ascending lag order.
+// kMasked: lags at or past bound read -1.0.  |R|^2 takes one fma (within
+// stage_b_error_bound's 2^-22 v, as mag2_rn is; no recompute repeats it).
+template <bool kMasked, int kAcc>
+__device__ __forceinline__ void scan_lags(const float (&acc)[kAcc], int lag0,
+                                          int bound, float& best, int& arg) {
+#pragma unroll
+  for (int j = 0; j < kAcc / 4; ++j) {
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int tau = lag0 + 8 * j + q;
+      const float rr = acc[4 * j + q], ri = acc[4 * j + 2 + q];
+      float v = __fmaf_rn(rr, rr, __fmul_rn(ri, ri));
+      if (kMasked && tau >= bound) v = -1.f;
+      if (v > best) {  // strict: a tie keeps the lower lag
+        best = v;
+        arg = tau;
+      }
+    }
+  }
+}
+
+// The pipelined launch.  A persistent block of kPipeThreads threads takes
+// the work items [i0, i1) of items = programs x lag tiles x bin splits
+// (program-major, then tile, then split; ~items / gridDim.x a block, so
+// consecutive lag tiles).  Warpgroup 0 runs stage B; warps 4-11 (team 0)
+// and 12-19 (team 1) run stage A.  Item i0 + j goes to team j % 2, whose
+// own G buffer j % 2 holds it: full[t] (256 arrivals) hands it to the
+// warpgroup, empty[t] (128) back, so one team's tile is on the tensor
+// cores while both teams' FMAs run.  The warpgroup walks the items in
+// order and, per 32-bin m-tile of the item's bins,
+// waits for that weight tile in the ring (wfull, one bulk copy each,
+// issued a ring ahead by thread 0), runs K / 16 wgmma over the tile's
+// 128 lags (ws1 / ws2 rows interleaved by 8), and reduces each
+// bin to (max, lowest lag) as stein_tile does, into keys by atomicMax.
+__global__ void __launch_bounds__(kPipeThreads, 1) stein_pipe(
+    const __nv_bfloat16* __restrict__ wt, const float* __restrict__ lmat,
+    const float* __restrict__ h, const int* __restrict__ num_valid,
+    unsigned long long* __restrict__ keys, int num_programs, int num_bins,
+    int num_blocks, int sup, int h_len, int m_pad, int num_lags,
+    int windows, int share_h, int bins_per_split, long long items) {
+  extern __shared__ __align__(128) unsigned char pipe_smem[];
+  const PipeSmem lay(2 * num_blocks, sup);
+  uint64_t* full = reinterpret_cast<uint64_t*>(pipe_smem);
+  uint64_t* empty = full + kTeams;
+  uint64_t* wfull = empty + kTeams;
+  const int splits = (num_bins + bins_per_split - 1) / bins_per_split;
+  const int n_tiles = m_pad / kLagTile;
+  const long long i0 = items * blockIdx.x / gridDim.x;
+  const long long i1 = items * (blockIdx.x + 1) / gridDim.x;
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < kTeams; ++b) {
+      mbar_init(full + b, kTeamThreads);
+      mbar_init(empty + b, kWgThreads);
+    }
+    for (int r = 0; r < kRing; ++r) mbar_init(wfull + r, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kWgThreads) {
+    // Stage A: a team builds its items' G tiles in its own buffer.
+    set_max_regs<kProducerRegs>();
+    const int team = (threadIdx.x - kWgThreads) / kTeamThreads;
+    const int tid = threadIdx.x - kWgThreads - team * kTeamThreads;
+    unsigned char* gb = pipe_smem + lay.g0 + team * lay.g_bytes;
+    float* bufs = reinterpret_cast<float*>(pipe_smem + lay.bufs0) +
+                  team * 2 * lay.stage.buf_len;
+    // Rows [2B, kp) of G: zeros that stage A never writes.
+    const int b2 = 2 * num_blocks, pad = lay.kp - b2;
+    for (int i = tid; i < kLagTile * pad; i += kTeamThreads)
+      *reinterpret_cast<__nv_bfloat16*>(
+          gb + g_offset(lay, i / pad, b2 + i % pad)) = __float2bfloat16_rn(0.f);
+    ItemWalk w(i0 + team, splits, n_tiles);
+    int use = 0;
+    for (long long it = i0 + team; it < i1; it += kTeams, ++use) {
+      stage_a<false, kTeamWarps>(
+          lmat, h, w.p, num_blocks, 0, num_blocks, sup, h_len, windows,
+          share_h, w.tile * kLagTile, lay.stage, bufs, tid,
+          [=] { named_sync(1 + team, kTeamThreads); },
+          // The buffer's last tile must be off the tensor cores before
+          // the first chunk's stores: chunk 0's sums overlap that wait.
+          [&](int c) {
+            if (c == 0 && use > 0) mbar_wait(empty + team, (use - 1) & 1);
+          },
+          // Rows b and B + b as G rows 2b, 2b + 1: one 4-byte store.
+          [&](int lag, int b, float top, float bot) {
+            *reinterpret_cast<__nv_bfloat162*>(
+                gb + g_offset(lay, lag, 2 * b)) =
+                __floats2bfloat162_rn(top, bot);
+          });
+      // The stores, made by the generic proxy, before wgmma reads them.
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_arrive(full + team);
+      for (int n = 0; n < kTeams; ++n) w.next(splits, n_tiles);
+    }
+  } else {
+    // Stage B: the warpgroup.
+    set_max_regs<kConsumerRegs>();
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int ksteps = lay.kp / 16;
+    unsigned char* ring = pipe_smem + lay.ring;
+    // Thread 0's cursor over the sequence of weight m-tiles: the bin
+    // split of the item it is in, the m-tile in it, the ring slot.
+    long long f_left = i1 - i0;
+    int f_split = static_cast<int>(i0 % splits), f_m = 0, f_slot = 0;
+    auto fetch = [&] {
+      if (f_left == 0) return;
+      const int k_lo = f_split * bins_per_split;
+      const int nm =
+          (min(num_bins, k_lo + bins_per_split) - k_lo + kMBins - 1) / kMBins;
+      bulk_load(ring + f_slot * lay.w_bytes,
+                wt + static_cast<size_t>(k_lo / kMBins + f_m) * 64 * lay.kp,
+                lay.w_bytes, wfull + f_slot);
+      if (++f_slot == kRing) f_slot = 0;
+      if (++f_m == nm) {
+        f_m = 0;
+        --f_left;
+        if (++f_split == splits) f_split = 0;
+      }
+    };
+    if (threadIdx.x == 0)
+      for (int r = 0; r < kRing; ++r) fetch();
+    float acc[kLagTile / 2];
+    int slot = 0;
+    unsigned phase = 0;
+    ItemWalk w(i0, splits, n_tiles);
+    for (long long j = 0; j < i1 - i0; ++j, w.next(splits, n_tiles)) {
+      const int buf = static_cast<int>(j % kTeams);
+      const int k_lo = w.split * bins_per_split;
+      const int k_hi = min(num_bins, k_lo + bins_per_split);
+      const int nm = (k_hi - k_lo + kMBins - 1) / kMBins;
+      const int tau0 = w.tile * kLagTile;
+      const int bound = num_valid ? min(num_valid[w.p], num_lags) : num_lags;
+      const bool whole = tau0 + kLagTile <= bound;       // no lag masked
+      mbar_wait(full + buf, static_cast<unsigned>((j / kTeams) & 1));
+      const unsigned gaddr = smem_u32(pipe_smem + lay.g0 + buf * lay.g_bytes);
+      for (int m = 0; m < nm; ++m) {
+        mbar_wait(wfull + slot, phase);
+        const unsigned waddr = smem_u32(ring + slot * lay.w_bytes);
+        wgmma_fence();
+        for (int s = 0; s < ksteps; ++s) {
+          wgmma_n(acc, wgmma_desc(waddr + s * 2 * kWLbo, kWLbo, kWSbo),
+                  wgmma_desc(gaddr + s * 2 * kGLbo, kGLbo, lay.g_sbo), s);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        if (m == nm - 1) mbar_arrive(empty + buf);   // G back to its team
+        named_sync(1 + kTeams, kWgThreads);          // the slot read
+        if (threadIdx.x == 0) fetch();
+        float best = -INFINITY;
+        int arg = 0;
+        if (whole)
+          scan_lags<false>(acc, tau0 + 2 * t, bound, best, arg);
+        else
+          scan_lags<true>(acc, tau0 + 2 * t, bound, best, arg);
+        if (++slot == kRing) {
+          slot = 0;
+          phase ^= 1;
+        }
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          const float ov = __shfl_xor_sync(0xffffffffu, best, off);
+          const int ol = __shfl_xor_sync(0xffffffffu, arg, off);
+          keep_better(ov, ol, best, arg);
+        }
+        const int k = k_lo + m * kMBins + warp * kBinGroup + g;
+        if (t == 0 && k < k_hi)
+          atomicMax(keys + static_cast<size_t>(k) * num_programs + w.p,
+                    rank_key(best, arg));
+      }
+    }
+  }
+}
+
+// The pipelined launch's rounding: ws1 / ws2 into wt (ceil(K / 32)
+// m-tiles of 64 rows x kp columns, each in the shared-memory image the
+// warpgroup reads: row 16w + r of an m-tile is ws1 of bin 32m + 8w + r,
+// row 16w + 8 + r ws2's; column 2b is weight column b, 2b + 1 column B +
+// b, zero past 2B and past K), lmat and h into f32 copies holding bf16
+// values.
+__global__ void stein_round_pipe(const float* __restrict__ ws1,
+                                 const float* __restrict__ ws2,
+                                 const float* __restrict__ lmat,
+                                 const float* __restrict__ h,
+                                 __nv_bfloat16* __restrict__ wt,
+                                 float* __restrict__ lmat_r,
+                                 float* __restrict__ h_r, size_t n_wt,
+                                 size_t n_lmat, size_t n_h, int num_bins,
+                                 int num_blocks, int kp) {
+  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
+  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n_wt + n_lmat + n_h; i += stride) {
+    if (i < n_wt) {
+      const size_t tile = i / (64 * static_cast<size_t>(kp));
+      const int e = static_cast<int>(i % (64 * static_cast<size_t>(kp)));
+      // e = (k/8)*512 + (row/8)*64 + (row%8)*8 + k%8
+      const int k = (e / 512) * 8 + e % 8;
+      const int row = ((e % 512) / 64) * 8 + (e % 64) / 8;
+      const size_t bin = tile * kMBins + (row / 16) * kBinGroup + row % 8;
+      const int col = k < 2 * num_blocks
+          ? (k % 2 ? num_blocks + k / 2 : k / 2) : -1;
+      const float* w = row % 16 < 8 ? ws1 : ws2;
+      wt[i] = __float2bfloat16_rn(
+          col < 0 || bin >= static_cast<size_t>(num_bins)
+              ? 0.f : w[bin * 2 * num_blocks + col]);
+    } else if (i < n_wt + n_lmat) {
+      const size_t j = i - n_wt;
+      lmat_r[j] = __bfloat162float(__float2bfloat16_rn(lmat[j]));
+    } else {
+      const size_t j = i - n_wt - n_lmat;
+      h_r[j] = __bfloat162float(__float2bfloat16_rn(h[j]));
+    }
+  }
+}
+
+// The pipelined path of caf_fused_stein_rank: its rounding launch, the
+// keys' reset, the persistent tile launch and the decode launch.
+cudaError_t pipe_rank(const void* ws1, const void* ws2, const void* lmat,
+                      const void* h, void* wt, void* lmat_r, void* h_r,
+                      const void* num_valid, void* keys, void* vals,
+                      void* lags, bool refused, int num_programs,
+                      int num_bins, int num_blocks, int sup, int h_len,
+                      int num_lags, int m_pad, int windows, int share_h,
+                      int bins_per_split, int blocks, cudaStream_t s) {
+  const PipeSmem lay(2 * num_blocks, sup);
+  if (refused || lay.bytes > kSmemPerBlock) return cudaErrorInvalidValue;
+  const size_t n_wt = static_cast<size_t>((num_bins + kMBins - 1) / kMBins) *
+                      64 * lay.kp;
+  const size_t n_lmat = static_cast<size_t>(num_programs / windows) * 2 *
+                        num_blocks * 2 * sup;
+  const size_t n_h =
+      static_cast<size_t>(num_programs / share_h) * 2 * h_len;
+  const size_t n_round = n_wt + n_lmat + n_h;
+  stein_round_pipe<<<static_cast<unsigned>(
+                         std::min<size_t>((n_round + 255) / 256, 4096)),
+                     256, 0, s>>>(
+      static_cast<const float*>(ws1), static_cast<const float*>(ws2),
+      static_cast<const float*>(lmat), static_cast<const float*>(h),
+      static_cast<__nv_bfloat16*>(wt), static_cast<float*>(lmat_r),
+      static_cast<float*>(h_r), n_wt, n_lmat, n_h, num_bins, num_blocks,
+      lay.kp);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t total = static_cast<size_t>(num_programs) * num_bins;
+  err = cudaMemsetAsync(keys, 0, total * sizeof(unsigned long long), s);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(stein_pipe,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(lay.bytes));
+  if (err != cudaSuccess) return err;
+  const int splits = (num_bins + bins_per_split - 1) / bins_per_split;
+  const long long items =
+      static_cast<long long>(num_programs) * (m_pad / kLagTile) * splits;
+  auto* ks = static_cast<unsigned long long*>(keys);
+  stein_pipe<<<blocks, kPipeThreads, lay.bytes, s>>>(
+      static_cast<const __nv_bfloat16*>(wt),
+      static_cast<const float*>(lmat_r), static_cast<const float*>(h_r),
+      static_cast<const int*>(num_valid), ks, num_programs, num_bins,
+      num_blocks, sup, h_len, m_pad, num_lags, windows, share_h,
+      bins_per_split, items);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  stein_decode_keys<<<static_cast<unsigned>((total + 255) / 256), 256, 0,
+                      s>>>(ks, static_cast<float*>(vals),
+                           static_cast<int*>(lags), total);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -883,6 +1398,12 @@ int caf_fused_stein_occupancy(int b2, int sup, int* blocks, int* clusters) {
   return cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
 }
 
+// The pipelined launch's dynamic shared memory for 2B rows at block
+// length sup (bytes; it takes the shape when at most kSmemPerBlock).
+long long caf_fused_stein_pipe_smem(int b2, int sup) {
+  return static_cast<long long>(PipeSmem(b2, sup).bytes);
+}
+
 const char* caf_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
@@ -897,10 +1418,14 @@ const char* caf_cuda_error_string(int code) {
 // out; vals2/lags2 (K, P_eff) f32/int32 out, or both null (no top-2
 // mode; then sep is unused).  m_pad is a multiple of kLagTile, D a
 // multiple of 4, h_len >= (B - 1) * D + m_pad + D - 1, sep <= m_pad and
-// bins_per_split a multiple of kBinPass.  Enqueues the work on `stream`,
-// on the calling thread's current device (the operands' card); returns
-// the first CUDA error (0 on success; cudaErrorInvalidValue for 2B past
-// the ceiling).
+// bins_per_split a multiple of kBinPass.  pipe_blocks > 0 takes the
+// pipelined launch on that many persistent blocks (no top-2, one block a
+// tile, caf_fused_stein_pipe_smem within a block's shared memory; ws_b
+// then holds ceil(K / 32) x 64 x pad16(2B) bf16), 0 the tile launch.
+// Enqueues the work on `stream`, on the calling thread's current device
+// (the operands' card); returns the first CUDA error (0 on success;
+// cudaErrorInvalidValue for 2B past the ceiling or a pipelined launch of
+// a shape it does not take).
 int caf_fused_stein_rank(const void* ws1, const void* ws2, const void* lmat,
                          const void* h, void* ws_b, void* lmat_r, void* h_r,
                          const void* num_valid, void* keys, void* part_val,
@@ -908,12 +1433,17 @@ int caf_fused_stein_rank(const void* ws1, const void* ws2, const void* lmat,
                          void* lags2, int num_programs, int num_bins,
                          int num_blocks, int sup, int h_len, int num_lags,
                          int m_pad, int windows, int share_h, int sep,
-                         int bins_per_split, void* stream) {
+                         int bins_per_split, int pipe_blocks, void* stream) {
   cudaError_t err = cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   size_t smem = 0;
   const Share sh = row_plan(num_blocks, sup, smem);
   if (sh.c == 0) return cudaErrorInvalidValue;
+  if (pipe_blocks > 0)
+    return pipe_rank(ws1, ws2, lmat, h, ws_b, lmat_r, h_r, num_valid, keys,
+                     vals, lags, vals2 != nullptr || sh.c != 1, num_programs,
+                     num_bins, num_blocks, sup, h_len, num_lags, m_pad,
+                     windows, share_h, bins_per_split, pipe_blocks, s);
   const bool split = sh.c > 1;
   const int n_tiles = m_pad / kLagTile;
   const int splits = (num_bins + bins_per_split - 1) / bins_per_split;

@@ -109,9 +109,13 @@ def load_library() -> ctypes.CDLL:
     # ws1, ws2, lmat, h, ws_b, lmat_r, h_r, num_valid (may be null),
     # keys, part_val, part_lag (both null without top-2), vals, lags,
     # vals2, lags2 (both null without top-2); programs, K, B, D, h_len,
-    # num_lags, m_pad, windows, share_h, sep, bins_per_split; stream
-    lib.caf_fused_stein_rank.argtypes = [vp] * 15 + [ci] * 11 + [vp]
+    # num_lags, m_pad, windows, share_h, sep, bins_per_split, pipelined
+    # blocks (0: the tile launch); stream
+    lib.caf_fused_stein_rank.argtypes = [vp] * 15 + [ci] * 12 + [vp]
     lib.caf_fused_stein_rank.restype = ci
+    # 2B, D: the pipelined launch's shared memory a block
+    lib.caf_fused_stein_pipe_smem.argtypes = [ci, ci]
+    lib.caf_fused_stein_pipe_smem.restype = ctypes.c_longlong
     for fn in (lib.caf_fused_stein_lag_tile, lib.caf_fused_stein_bin_pass):
         fn.argtypes = []
         fn.restype = ci

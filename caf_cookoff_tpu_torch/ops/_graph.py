@@ -85,6 +85,7 @@ COPY_OUT_BYTES = 0
 
 # The kernel launch counters a replay adds to: (module, counter name).
 _COUNTERS = ((fused_stein, "LAUNCHES"), (fused_stein, "SPLIT_LAUNCHES"),
+             (fused_stein, "PIPELINED_LAUNCHES"),
              (pallas_caf, "PEAK_LAUNCHES"), (pallas_caf, "SURFACE_LAUNCHES"),
              (stein_rescore, "RESCORE_LAUNCHES"))
 _LOCK = threading.Lock()

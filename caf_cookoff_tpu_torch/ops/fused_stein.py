@@ -31,12 +31,16 @@ bounds each program's lags.
   value -1.0 and lag 0 when there is none) — exact for any separation
   past ``sep``, where the TPU kernel's tile merge guarantees only past
   ``2*sep``.
+* Two tile launches: the pipelined one (persistent blocks whose
+  producer warps build G tiles while a warpgroup runs their products on
+  ``wgmma``) wherever :func:`pipelined` takes the shape, else the tile
+  launch of one block a (program, lag tile, bin split).
 * ``LAUNCHES`` counts kernel launches, so a run can show that its main
   path went through the kernel; ``SPLIT_LAUNCHES`` those among them
   whose G rows were shared over a cluster of blocks (2B past one
-  block's shared memory, :func:`kernel_plan`).  A launch captured into
-  a CUDA graph counts at each replay, not at its capture
-  (``ops/_graph``).
+  block's shared memory, :func:`kernel_plan`), ``PIPELINED_LAUNCHES``
+  those that took the pipelined launch.  A launch captured into a CUDA
+  graph counts at each replay, not at its capture (``ops/_graph``).
 """
 
 from __future__ import annotations
@@ -70,6 +74,15 @@ CLUSTER_MAX = 16  # blocks a lag tile may share G's rows over (csrc kClusterMax)
 # 64 bins x 64 lag pairs as float4s, each bin's row padded by 4.
 _XCHG_BYTES = 16 * BIN_PASS * (LAG_TILE // 2 + 4)
 _GRID_YZ_MAX = 65_535
+# The pipelined launch (csrc ``PipeSmem``): two stage-A teams of 8 warps
+# a block, each with its G buffer (``LAG_TILE`` lags x 2B rows padded to
+# 16, bf16, each 8-lag group of rows 16 bytes past its core matrices) and
+# two stage-A buffers, and a ring of 3 weight tiles of 32 bins (64 rows x
+# the padded 2B, bf16).
+TEAMS = 2
+TEAM_WARPS = 8
+M_BINS = 32
+_PIPE_RING = 3
 # Programs per step of the plain version: bounds its (programs, K, lags)
 # intermediates.
 _PLAIN_CHUNK = 8
@@ -80,6 +93,7 @@ _BIG_IDX = 2 ** 30  # "no lag" in the top-2 argmins
 
 LAUNCHES = 0
 SPLIT_LAUNCHES = 0
+PIPELINED_LAUNCHES = 0
 
 
 def fused_span(num_blocks: int, sup: int, num_lags: int) -> int:
@@ -496,11 +510,40 @@ def _tile_smem_bytes(rows: int, sup: int, split: bool = False) -> int:
     of 8 segments in both planes and their 8 x 2 tap rows, f32; with
     ``split`` the exchange overlays the buffers, so the larger counts."""
     rows_p = -(-rows // 16) * 16
-    last = 8 * sup + LAG_TILE - 2
+    return LAG_TILE * (rows_p + 8) * 2 + (
+        max(_stage_a_bytes(sup), _XCHG_BYTES) if split
+        else _stage_a_bytes(sup))
+
+
+def _stage_a_bytes(sup: int, chunk: int = 8) -> int:
+    """Stage A's two buffers (csrc ``TileSmem``): each the skewed
+    haystack window of a chunk of segments (8 in a tile block) in both
+    planes and their chunk x 2 tap rows, f32."""
+    last = chunk * sup + LAG_TILE - 2
     hay = -(-(last + (last >> 2) + 1) // 4) * 4
-    stage_a = 2 * (2 * hay + 32 * sup) * 4
-    return LAG_TILE * (rows_p + 8) * 2 + (max(stage_a, _XCHG_BYTES) if split
-                                          else stage_a)
+    return 2 * (2 * hay + 4 * chunk * sup) * 4
+
+
+def _pipe_smem_bytes(b2: int, sup: int) -> int:
+    """Dynamic shared memory of a pipelined block (csrc ``PipeSmem``):
+    128 bytes of barriers, the weight ring, the teams' G buffers and
+    their stage-A buffers."""
+    kp = -(-b2 // 16) * 16
+    return (128 + _PIPE_RING * 64 * kp * 2
+            + TEAMS * (LAG_TILE // 8 * (kp // 8 * 128 + 16)
+                       + _stage_a_bytes(sup, TEAM_WARPS)))
+
+
+def pipelined(b2: int, sup: int, want_top2: bool, cluster: int) -> bool:
+    """Whether K1 takes its pipelined launch at 2B rows, block length
+    ``sup``, the top-2 mode or not and ``cluster`` blocks a lag tile
+    (:func:`kernel_plan`): only in the atomic-key modes (not top-2, whose
+    recompute must repeat the tile pass's |R|^2 with the tile launch's
+    device functions), at one block a tile, and where two G tiles, the
+    teams' stage-A buffers and the weight ring fit a block's shared
+    memory (2B <= 192 at D = 64; not the stream's 2B = 512)."""
+    return (not want_top2 and cluster == 1
+            and _pipe_smem_bytes(b2, sup) <= _SMEM_PER_BLOCK)
 
 
 class KernelPlan(NamedTuple):
@@ -589,10 +632,21 @@ def _bins_per_split(k: int, tiles: int, sms: int) -> int:
     return -(-passes // splits) * BIN_PASS
 
 
+def _pipe_geometry(k: int, tiles: int, sms: int):
+    """The pipelined launch's (bins per split, persistent blocks) for K
+    bins and ``tiles`` (program, lag tile)s on ``sms`` SMs: the bins
+    split (:func:`_bins_per_split`) where the tiles leave SMs idle, and a
+    block a SM takes ~items / blocks consecutive work items (program, lag
+    tile, bin split), one G tile at a time."""
+    per_split = _bins_per_split(k, tiles, sms)
+    items = tiles * -(-k // per_split)
+    return per_split, min(sms, items)
+
+
 def _launch(ws1, ws2, lmat, h_ext, num_blocks, sup, num_lags, windows,
             share_h, num_valid, sep):
     """Launch the kernel; ``sep`` is None without the top-2 mode."""
-    global LAUNCHES, SPLIT_LAUNCHES
+    global LAUNCHES, SPLIT_LAUNCHES, PIPELINED_LAUNCHES
     from caf_cookoff_tpu_torch.ops import _build
 
     b2 = lmat.shape[1]
@@ -608,23 +662,34 @@ def _launch(ws1, ws2, lmat, h_ext, num_blocks, sup, num_lags, windows,
     c_smem = lib.caf_fused_stein_plan(b2, sup, ctypes.byref(c_cluster),
                                       ctypes.byref(c_rows))
     if (lib.caf_fused_stein_lag_tile(), lib.caf_fused_stein_bin_pass(),
-            c_cluster.value, c_rows.value, c_smem) != (
-                LAG_TILE, BIN_PASS, plan.cluster, plan.rows, plan.smem):
+            c_cluster.value, c_rows.value, c_smem,
+            lib.caf_fused_stein_pipe_smem(b2, sup)) != (
+                LAG_TILE, BIN_PASS, plan.cluster, plan.rows, plan.smem,
+                _pipe_smem_bytes(b2, sup)):
         raise RuntimeError("csrc tile plan disagrees with the wrapper's")
     dev = ws1.device
     f32 = torch.float32
     ws1, ws2, lmat, h = (t.to(f32).contiguous()
                          for t in (ws1, ws2, lmat, h_ext))
-    # The kernel's first launch writes the operands' bf16 roundings here,
-    # the weights' columns in the ranks' row order when G is split.
-    ld = b2 if plan.cluster == 1 else plan.cluster * plan.rows
-    ws_b = torch.empty((2, k, ld), dtype=torch.bfloat16, device=dev)
-    lmat_r, h_r = torch.empty_like(lmat), torch.empty_like(h)
     n_tiles = m_pad // LAG_TILE
-    # The program axis (grid z) goes out in chunks of 65535 programs; a
-    # lag tile takes plan.cluster blocks.
-    per_split = _bins_per_split(
-        k, min(p_eff, _GRID_YZ_MAX) * n_tiles * plan.cluster, _sm_count(dev))
+    sms = _sm_count(dev)
+    pipe = pipelined(b2, sup, sep is not None, plan.cluster)
+    # The kernel's first launch writes the operands' bf16 roundings here:
+    # the weights as 32-bin m-tiles in the warpgroup's layout when
+    # pipelined, else in the ranks' row order when G is split.
+    if pipe:
+        ws_b = torch.empty((-(-k // M_BINS), 64, -(-b2 // 16) * 16),
+                           dtype=torch.bfloat16, device=dev)
+        per_split, pipe_blocks = _pipe_geometry(k, p_eff * n_tiles, sms)
+    else:
+        ld = b2 if plan.cluster == 1 else plan.cluster * plan.rows
+        ws_b = torch.empty((2, k, ld), dtype=torch.bfloat16, device=dev)
+        # The program axis (grid z) goes out in chunks of 65535 programs;
+        # a lag tile takes plan.cluster blocks.
+        per_split = _bins_per_split(
+            k, min(p_eff, _GRID_YZ_MAX) * n_tiles * plan.cluster, sms)
+        pipe_blocks = 0
+    lmat_r, h_r = torch.empty_like(lmat), torch.empty_like(h)
     keys = torch.empty((k, p_eff), dtype=torch.int64, device=dev)
     part_val = part_lag = None
     if sep is not None:
@@ -650,11 +715,13 @@ def _launch(ws1, ws2, lmat, h_ext, num_blocks, sup, num_lags, windows,
             share_h,
             # |lag - lag1| <= sep means the same for every sep >= m_pad.
             0 if sep is None else min(int(sep), m_pad), per_split,
-            torch.cuda.current_stream(dev).cuda_stream)
+            pipe_blocks, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused Stein kernel launch failed: "
                            f"{lib.caf_cuda_error_string(rc).decode()}")
     LAUNCHES += 1
     if plan.cluster > 1:
         SPLIT_LAUNCHES += 1
+    if pipe:
+        PIPELINED_LAUNCHES += 1
     return tuple(outs)

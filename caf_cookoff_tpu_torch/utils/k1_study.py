@@ -10,10 +10,15 @@ directory):
 ``mutants``: each mutant is the package with one edit to
 ``fused_stein.cu``; ``chip_smoke.py`` and the K1 card tests run on it
 and must fail (the first failed check is printed, logs go to
-``chiprun_out/``).  ``split``: K1's device time (``torch.profiler``) at
-configs 2 and 4 and rate3's shapes as it is, with stage B skipped and
-with stage A skipped, and for each extra ``NAME=FILE.cu`` source, which
-is also held to ``rank_bound_check`` at configs 2 and 4.  ``compare``:
+``chiprun_out/``).  M1-M5 edit the tile launch's device functions (M1
+stage A, which the pipelined launch shares), M6-M8 the pipelined
+launch.  ``split``: K1's device time (``torch.profiler``) at configs 2,
+3 and 4 and rate3's shapes as it is, with stage B skipped and with
+stage A skipped (in both launches: each variant's edits apply where
+their site is in the source, so it runs on a checkout that lacks the
+pipelined launch too), and for each extra ``NAME=FILE.cu`` source,
+which is also held to ``rank_bound_check`` at configs 2, 3 and 4.
+``compare``:
 K1's wrapper ms (CUDA-event medians) and device ms (``torch.profiler``)
 at config 1's, config 2's and a stream3 chunk's shapes, and config 1's
 whole ``caf_peak(backend="stein")`` call, in OTHER_CHECKOUT and in this
@@ -67,6 +72,11 @@ _FMA_LOOP = """        {
 """ + _RECOMPUTE
 _CLOSE = """  for (int r = 1; r < c; ++r) {
     const float4* xr"""
+_FULL_WAIT = ("      mbar_wait(full + buf, static_cast<unsigned>((j / kTeams) "
+              "& 1));")
+_WGMMA = """          wgmma_n(acc, wgmma_desc(waddr + s * 2 * kWLbo, kWLbo, kWSbo),
+                  wgmma_desc(gaddr + s * 2 * kGLbo, kGLbo, lay.g_sbo), s);"""
+_PIPE_TIE = "      if (v > best) {  // strict: a tie keeps the lower lag"
 
 MUTANTS = {
     # stage A: the imaginary plane's tap summed before the real plane's
@@ -88,20 +98,51 @@ MUTANTS = {
     # row split: the last rank's partials left out of every sum
     "M5_split_rank_dropped": (_CLOSE, """  for (int r = 1; r < c - 1; ++r) {
     const float4* xr"""),
+    # pipelined: the warpgroup waits on the wrong phase of its G buffer's
+    # full barrier, so it reads the buffer while stage A still writes it
+    "M6_pipe_buffer_parity": (_FULL_WAIT, _FULL_WAIT.replace(
+        "(j / kTeams) & 1", "((j / kTeams) & 1) ^ 1")),
+    # pipelined: the accumulators rounded to bf16 after every k step
+    "M7_pipe_bf16_accumulator": (_WGMMA, _WGMMA + """
+          wgmma_commit();
+          wgmma_wait_all();
+          for (int q = 0; q < kLagTile / 2; ++q)
+            acc[q] = __bfloat162float(__float2bfloat16_rn(acc[q]));
+          wgmma_fence();"""),
+    # pipelined: a tie inside a thread's lags goes to the higher lag
+    "M8_pipe_tie_to_higher_lag": (_PIPE_TIE, _PIPE_TIE.replace(
+        "v > best", "v >= best")),
 }
 
 _TILE_A = """  build_g_tile<kSplit>(lmat, h, p, num_blocks, seg0, nseg, sup, h_len,
                        windows, share_h, tau0, lay, gs, bufs);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;"""
+_PIPE_B = """        wgmma_fence();
+        for (int s = 0; s < ksteps; ++s) {"""
+_PIPE_EPILOGUE = "        if (whole)\n          scan_lags<false>"
+_PIPE_A = """      stage_a<false, kTeamWarps>(
+          lmat, h, w.p, num_blocks, 0, num_blocks, sup, h_len, windows,"""
+# Each variant: (site, replacement) edits, applied where the site is.
 SPLITS = {
     "full": None,
-    "stage_a_only": (_TILE_A, _TILE_A + "\n  if (num_bins > 0) return;"),
-    "stage_b_only": (_TILE_A, _TILE_A.replace(
-        "  build_g_tile<kSplit>(lmat, h, p, num_blocks, seg0, nseg, sup, "
-        "h_len,\n                       windows, share_h, tau0, lay, gs, "
-        "bufs);",
-        "  (void)bufs;")),
+    "stage_a_only": [
+        (_TILE_A, _TILE_A + "\n  if (num_bins > 0) return;"),
+        # the warpgroup keeps its waits and hand-backs, runs no product
+        (_PIPE_B, """        if (num_bins < 0) wgmma_fence();
+        for (int s = 0; s < ksteps && num_bins < 0; ++s) {"""),
+        (_PIPE_EPILOGUE, "        if (num_bins < 0)\n          ;\n"
+         "        else if (whole)\n          scan_lags<false>")],
+    "stage_b_only": [
+        (_TILE_A, _TILE_A.replace(
+            "  build_g_tile<kSplit>(lmat, h, p, num_blocks, seg0, nseg, sup, "
+            "h_len,\n                       windows, share_h, tau0, lay, gs, "
+            "bufs);",
+            "  (void)bufs;")),
+        # the teams keep their hand-offs, build no G
+        (_PIPE_A, """      if (use > 0) mbar_wait(empty + team, (use - 1) & 1);
+      if (num_bins < 0) stage_a<false, kTeamWarps>(
+          lmat, h, w.p, num_blocks, 0, num_blocks, sup, h_len, windows,""")],
 }
 
 _SPLIT_CODE = """
@@ -112,17 +153,22 @@ import chip_smoke as cs
 from caf_cookoff_tpu_torch.ops import fused_stein as fs
 torch.backends.cuda.matmul.allow_tf32 = False
 cfgs = cs.config_inputs()
-shapes = {{n: cs.config_operands(cfgs[n]) for n in ("config2", "config4")}}
+shapes = {{n: cs.config_operands(cfgs[n])
+          for n in ("config2", "config3", "config4")}}
 shapes["rate3"] = cs.rate_operands(cs.rate_inputs()["rate3"])
 for n, (ops, b, sup, m, modes, _) in shapes.items():
+    before = getattr(fs, "PIPELINED_LAUNCHES", 0)
     ms = cs.device_ms(lambda: fs.fused_stein_rank(*ops, b, sup, m, **modes),
                       10)
+    path = ("pipelined" if getattr(fs, "PIPELINED_LAUNCHES", 0) > before
+            else "tile")
     chk = ""
     if {check} and n != "rate3":
         r = fs.rank_bound_check(fs.fused_stein_rank(*ops, b, sup, m, **modes),
                                 *ops, b, sup, m, **modes)
         chk = f" bound ok={{r['ok']}} ratio={{r['ratio']:.3e}}"
-    print(f"{name:14s} {{n}}: device {{ms:.4f}} ms{{chk}}", flush=True)
+    print(f"{name:14s} {{n}}: device {{ms:.4f}} ms ({{path}} launch){{chk}}",
+          flush=True)
 """
 
 
@@ -140,7 +186,7 @@ n0, h0 = cs.load_pair(ensure_fixtures(cs.ROOT / "data"), 0)
 head = cs.headline_operands(n0, h0, "cuda")
 cfgs = cs.config_inputs()
 c2 = cs.config_operands(cfgs["config2"])
-sin = cs.stream_inputs(cfgs["config3"])
+sin = cs.stream_inputs()
 s, _ = cs.stream_through(sin[1][:cs.STREAM_CHUNK], sin[0], sin[3],
                          backend="stein")
 ops3, b3, sup3, m3, nv3 = cs.stream_k1_operands(s, sin[1], 0)
@@ -191,9 +237,13 @@ def _copy(root: Path, dst: Path, edit) -> None:
         shutil.copy(edit, dst / CU)
         return
     src = (dst / CU).read_text()
-    if src.count(edit[0]) != 1:
+    edits = [edit] if isinstance(edit, tuple) else edit
+    found = [e for e in edits if src.count(e[0]) == 1]
+    if not found or any(src.count(e[0]) > 1 for e in edits):
         raise SystemExit(f"k1_study: edit site not found once in {CU}")
-    (dst / CU).write_text(src.replace(*edit))
+    for old, new in found:
+        src = src.replace(old, new)
+    (dst / CU).write_text(src)
 
 
 def _run(cmd, cwd, limit):

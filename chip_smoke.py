@@ -60,7 +60,9 @@ Phases, each reported on its own line:
    configs 3 (2000 bins x 65536 lags, 6 bands x 8 windows) and 4 (16
    pairs x 1024 bins x 32768 lags, 6 bands x 4 windows) through
    ``batched_stein_os_peak`` must recover every injected (freq, lag).
-   K1's launch count, set to 0 before each config, must rise.
+   K1's launch count, set to 0 before each config, must rise, every
+   launch through K1's pipelined launch (``PIPELINED_LAUNCHES``); the
+   stream3 phase checks that the Stein stream takes none.
 6a. graph — the compiled calls (``ops/_graph``: one CUDA graph per
    static key, as ``jax.jit`` compiles one program) against their eager
    cores, bit for bit (value bits, bin, lag): the goldens, config1,
@@ -156,7 +158,8 @@ Phases, each reported on its own line:
    its plain version and its library yardstick at the main path's
    shape (K1's: stage B alone as one bf16 ``torch.matmul``, at every K1
    shape; K1's device time from ``torch.profiler`` too), of K1 at each
-   config's shape (where it is first held to its bound as in phase 3),
+   config's shape (where it is first held to its bound as in phase 3;
+   its device time and the launch it took, pipelined or tile),
    of K1(e) at both lattice shapes, of K1 (f) and (e+f) at rate3's, of
    K4 (bound: its non-fma operations at half the f32 peak), and of
    K2/K3's launches alone (ten back to back from Python) and as device
@@ -894,6 +897,7 @@ def run_config(name, cfg):
 
     needles, hays, freqs, lags, truths = cfg
     fs.LAUNCHES = 0
+    fs.PIPELINED_LAUNCHES = 0
     reset_rescore()
     t0 = time.perf_counter()
     if lags is None:
@@ -904,12 +908,17 @@ def run_config(name, cfg):
                                            num_lags=lags, device=DEVICE)
     seconds = time.perf_counter() - t0
     launches = fs.LAUNCHES
+    pipelined = fs.PIPELINED_LAUNCHES
     rescore_calls(name, 1)
     got = [(float(f), int(l)) for f, l in zip(fr, lg)]
     print(f"[configs] {name}: {len(got)} pairs in {seconds:.2f} s (first "
-          f"call), K1 launches {launches}; values finite and > 0: "
+          f"call), K1 launches {launches} ({pipelined} pipelined); values "
+          f"finite and > 0: "
           f"{bool(np.all(np.isfinite(vv)) and np.all(vv > 0))}")
     check(launches > 0, f"{name} did not launch K1")
+    # Configs 2-4 give K1 2B = 128 at D = 64 or 64 at D = 128: the
+    # pipelined launch's shapes.
+    check(pipelined == launches, f"{name}: K1 left the pipelined launch")
     check(bool(np.all(np.isfinite(vv)) and np.all(vv > 0)),
           f"{name} values")
     if truths is None:
@@ -1460,8 +1469,10 @@ def phase_times(head, fb_head, inputs, card):
     t = {}
     t["k1"] = cuda_median_ms(
         lambda: fs.fused_stein_rank(*ops, b, sup, m, want_idxs=False), 100)
+    before = fs.PIPELINED_LAUNCHES
     t["k1_device"] = device_ms(
         lambda: fs.fused_stein_rank(*ops, b, sup, m, want_idxs=False))
+    launch = "pipelined" if fs.PIPELINED_LAUNCHES > before else "tile"
     t["k1_plain"] = cuda_median_ms(
         lambda: surface_plain(ops, b, sup, m).max(dim=-1), 20)
     # Stage B's product alone, [ws1; ws2] (2K, 2B) @ G (2B, m_pad), bf16.
@@ -1526,8 +1537,8 @@ def phase_times(head, fb_head, inputs, card):
     for what, ms in (
             (f"K1 fused_stein_rank wrapper (rounding, tile and decode "
              f"launches), {shape}", t["k1"]),
-            (f"K1 device time a call (torch.profiler, its launches and "
-             f"memset), {shape}", t["k1_device"]),
+            (f"K1 device time a call ({launch} launch; torch.profiler, its "
+             f"launches and memset), {shape}", t["k1_device"]),
             (f"K1 plain version (surface with the kernel's roundings and "
              f"sums + max), {shape}", t["k1_plain"]),
             (f"K1 reference: stage B's product alone, bf16 torch.matmul "
@@ -1583,6 +1594,11 @@ def phase_config_times(cfgs, launches, card):
         bound, by, gflop = stein_bound_ms(ops, m, modes)
         k1 = cuda_median_ms(lambda: fs.fused_stein_rank(
             *ops, b, sup, m, want_idxs=lags is not None, **modes), 10, 3)
+        before = fs.PIPELINED_LAUNCHES
+        k1_device = device_ms(lambda: fs.fused_stein_rank(
+            *ops, b, sup, m, want_idxs=lags is not None, **modes), 10)
+        launch = ("pipelined" if fs.PIPELINED_LAUNCHES > before
+                  else "tile")
         plain = cuda_median_ms(lambda: surface_plain(
             ops, b, sup, m, **modes).max(dim=-1), 3, 1)
         if lags is None:
@@ -1593,12 +1609,15 @@ def phase_config_times(cfgs, launches, card):
                 needles, hays, freqs, FS, num_lags=lags, device=DEVICE), 5, 1)
         library = stage_b_matmul_ms(ops, m, modes)
         rows[name] = {"shape": shape, "launches": launches[name],
+                      "launch": launch, "device_ms": k1_device,
                       "max_abs_err": err, "ms": k1, "plain_ms": plain,
                       "bound_ms": bound, "bound_by": by, "gflop": gflop,
                       "library_ms": library, "call_ms": call,
                       "pairs": needles.shape[0]}
         for what, ms in ((f"K1 fused_stein_rank wrapper, {name}: {shape}",
                           k1),
+                         (f"K1 device time a call ({launch} launch; "
+                          f"torch.profiler), {name}", k1_device),
                          (f"K1 plain version (surface with the kernel's "
                           f"roundings and sums + max), {name}", plain),
                          (f"K1 bound ({by}, {gflop:.1f} GFLOP), {name}",
@@ -2148,12 +2167,16 @@ def phase_stream(sin):
     needle, hay, two, freqs, truth, truths2 = sin
     chunks = -(-len(hay) // STREAM_CHUNK)
     fs.LAUNCHES = 0
+    fs.PIPELINED_LAUNCHES = 0
     reset_rescore()
     t0 = time.perf_counter()
     s, _ = stream_through(hay, needle, freqs, backend="stein")
     best = s.best()
     seconds = time.perf_counter() - t0
     launches = fs.LAUNCHES
+    # 2B = 512 at D = 16: two G tiles pass a block's shared memory.
+    check(fs.PIPELINED_LAUNCHES == 0,
+          "the Stein stream's K1 took the pipelined launch")
     rescore_calls("stream3", 0)
     want = stein_overlap_save_peak(needle, hay, freqs, FS, device=DEVICE)
     print(f"[stream] stream3 Stein stream, {chunks} chunks of "
@@ -2237,6 +2260,8 @@ def phase_stream_times(sin, card):
     t = {}
     t["k1"] = cuda_median_ms(lambda: fs.fused_stein_rank(
         *ops, b, sup, m, num_valid=nv), 20, 3)
+    t["k1_device"] = device_ms(lambda: fs.fused_stein_rank(
+        *ops, b, sup, m, num_valid=nv), 10)
     t["k1_last"] = cuda_median_ms(lambda: fs.fused_stein_rank(
         *last[0], b, sup, m, num_valid=last[4]), 20, 3)
     t["k1_top2"] = cuda_median_ms(lambda: fs.fused_stein_rank(
@@ -2274,6 +2299,8 @@ def phase_stream_times(sin, card):
     for what, ms in (
             (f"K1 fused_stein_rank wrapper, a stream3 chunk: {shape}",
              t["k1"]),
+            ("K1 device time a call (tile launch; torch.profiler), a "
+             "stream3 chunk", t["k1_device"]),
             (f"K1 at the short last chunk (num_valid {int(last[4][0])})",
              t["k1_last"]),
             (f"K1 (e) top-2 at a stream3 chunk, sep={sep}", t["k1_top2"]),
@@ -2304,7 +2331,8 @@ def phase_stream_times(sin, card):
     print(f"[times] stream3 Stein stream: {rate:.4g} samples/s of capture "
           f"({len(hay) / FS * 1e3:.1f} ms of capture in {t['whole']:.4f} "
           f"ms)  [{card}]")
-    return {"shape": shape, "ms": t["k1"], "ms_last_chunk": t["k1_last"],
+    return {"shape": shape, "ms": t["k1"], "device_ms": t["k1_device"],
+            "ms_last_chunk": t["k1_last"],
             "top2_ms": t["k1_top2"], "plain_ms": t["plain"],
             "bound_ms": bound, "bound_by": by, "gflop": gflop,
             "library_ms": t["library"], "chunk_ms": t["chunk"],

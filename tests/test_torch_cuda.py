@@ -686,6 +686,148 @@ def test_top2_programs_past_one_launch_on_card(card):
                       b, sup, v, 3)
 
 
+def _pipelined_call(*args, **kw):
+    """``fused_stein_rank`` that must take the pipelined launch: its
+    answer, after checking that the launch and the pipelined counter
+    both rose by one."""
+    before = fs.LAUNCHES, fs.PIPELINED_LAUNCHES
+    got = fs.fused_stein_rank(*args, **kw)
+    torch.cuda.synchronize()
+    assert (fs.LAUNCHES, fs.PIPELINED_LAUNCHES) == (before[0] + 1,
+                                                    before[1] + 1)
+    return got
+
+
+@pytest.mark.parametrize("shape", ["config2", "config3"])
+def test_pipelined_kernel_at_the_cells_shapes_on_card(card, shape):
+    """The pipelined launch at config 2's shape (64 pairs, 2B = 128, D =
+    64, 400 bins, 8192 lags; ``cookoff.batch64``) and config 3's (c+d)
+    (6 bands x 8 windows, 2B = 64, D = 128, 375 bins; ``widearea.capture``),
+    each with a ``num_valid`` mask on every program: within the error
+    bound of ``rank_bound_check``, no lag at or past its bound."""
+    rng = np.random.default_rng(50)
+    if shape == "config2":
+        needles, hays = _pairs(rng, 64, 4096)
+        freqs = np.arange(-100.0, 100.0, 0.5).astype(np.float32)
+        ops, b, sup = _operands(needles, hays, freqs, 8192, 64)
+        m, modes = 8192, {}
+        nv = torch.as_tensor(rng.integers(0, 8193, 64), dtype=torch.int32,
+                             device="cuda")
+    else:
+        ops, b, sup, nv = _modes_operands(rng, 1, 6, 8, 4096, 128, 375, 8192)
+        m, modes = 8192, dict(windows=8, share_h=6)
+        nv = torch.minimum(nv, torch.as_tensor(
+            rng.integers(1, 8193, nv.shape[0]), dtype=torch.int32,
+            device="cuda"))
+    kv, ki = _pipelined_call(*ops, b, sup, m, num_valid=nv, **modes)
+    assert bool((ki < nv.clamp(min=1)[None, :]).all())
+    _assert_bound((kv, ki), ops, b, sup, m, num_valid=nv, **modes)
+
+
+@pytest.mark.parametrize("k", [45, 400, 1000])
+@pytest.mark.parametrize("sms", [1, 7, 132, 100_000])
+def test_pipelined_kernel_bins_and_splits_on_card(card, monkeypatch, k,
+                                                  sms):
+    """Bin counts off a multiple of 32 (the last m-tile part empty) and
+    every geometry the SM count gives: one block walking every item,
+    blocks of odd item counts, bins split over a tile's items.  Every
+    split count gives the same values and lags bit for bit (each bin's
+    sums are the same), within the error bound."""
+    needles, hays = _pairs(np.random.default_rng(51), 2, 1024)
+    freqs = np.linspace(-100, 100, k).astype(np.float32)
+    ops, b, sup = _operands(needles, hays, freqs, 2100, 32)
+    want = _pipelined_call(*ops, b, sup, 2100)
+    monkeypatch.setattr(fs, "_sm_count", lambda dev: sms)
+    got = _pipelined_call(*ops, b, sup, 2100)
+    for a, z in zip(got, want):
+        assert torch.equal(a, z)
+    _assert_bound(got, ops, b, sup, 2100)
+
+
+@pytest.mark.parametrize("lags,sms", [((300, 340), 1),    # one thread's lags
+                                      ((300, 400), 1),    # tiles 2, 3
+                                      ((200, 300), 1),    # tiles 1, 2
+                                      ((300, 400), 132)])
+def test_pipelined_kernel_ties_go_to_the_lowest_lag_on_card(
+        card, monkeypatch, lags, sms):
+    """Bit-identical needle copies at two lags tie exactly in every bin.
+    With one block a launch its items run back to back, tile t in G
+    buffer t % 2: the tie within one thread's lags of a tile, and across
+    two consecutive tiles (buffers 0 then 1, and 1 then 0), goes to the
+    lower lag at the zero-doppler bin, and every bin is in its bound."""
+    rng = np.random.default_rng(52)
+    n, d, k, m = 32, 8, 17, 1024
+    needle = (rng.standard_normal(n)
+              + 1j * rng.standard_normal(n)).astype(np.complex64)
+    hay = np.zeros((1, m), np.complex64)
+    for lag in lags:
+        hay[0, lag:lag + n] = needle
+    freqs = np.linspace(-100, 100, k).astype(np.float32)
+    ops, b, sup = _operands(needle[None], hay, freqs, m, d)
+    monkeypatch.setattr(fs, "_sm_count", lambda dev: sms)
+    kv, ki = _pipelined_call(*ops, b, sup, m)
+    assert int(ki[k // 2, 0]) == min(lags)
+    _assert_bound((kv, ki), ops, b, sup, m)
+
+
+def test_pipelined_launches_only_where_the_plan_takes_them_on_card(card):
+    """``PIPELINED_LAUNCHES`` stays put at the stream's shape (2B = 512,
+    D = 16), in mode (e) and on the cluster split (2B = 1024, D = 8),
+    while ``LAUNCHES`` counts each call."""
+    rng = np.random.default_rng(53)
+    cases = [(4096, 16, {}), (512, 64, dict(want_top2=True, sep=5)),
+             (8192, 8, {})]
+    for n, d, kw in cases:
+        needles, hays = _pairs(rng, 1, n, hay_len=1024)
+        freqs = np.linspace(-2, 2, 24).astype(np.float32)
+        ops, b, sup = _operands(needles, hays, freqs, 1024, d)
+        before = fs.LAUNCHES, fs.PIPELINED_LAUNCHES
+        got = fs.fused_stein_rank(*ops, b, sup, 1024, **kw)
+        torch.cuda.synchronize()
+        assert (fs.LAUNCHES, fs.PIPELINED_LAUNCHES) == (before[0] + 1,
+                                                        before[1])
+        _assert_bound(got, ops, b, sup, 1024, kw.get("sep"))
+
+
+def test_top2_recompute_repeats_its_tile_pass_beside_pipelined_on_card(
+        card):
+    """Where the single-slot call takes the pipelined launch, mode (e)
+    keeps the tile launch for its tile pass and its recompute: the
+    recompute repeats the tile pass's |R|^2 bit for bit, so copies tied
+    across a recomputed tile still give the lower lag in slot 2 in every
+    bin (``test_top2_tie_across_a_recomputed_tile_on_card``'s first
+    scene)."""
+    from caf_cookoff_tpu_torch.models.batched_stein import (
+        _os_window_extensions)
+
+    rng = np.random.default_rng(21)
+    n, d, strong, tied, partner, sep, k, v = 128, 32, 1000, 1310, 5000, \
+        300, 64, 8192
+    needle = (rng.standard_normal(n)
+              + 1j * rng.standard_normal(n)).astype(np.complex64)
+    hay = np.zeros(v + n, np.complex64)
+    for lag, amp in ((strong, 2.0), (tied, 1.0), (partner, 1.0)):
+        hay[lag:lag + n] = amp * needle
+    nt = torch.from_numpy(needle).cuda()[None]
+    ht = torch.from_numpy(hay).cuda()[None]
+    b = n // d
+    lmat, sup = _needle_operator(nt.real, nt.imag, d)
+    h_ext = _os_window_extensions(ht.real, ht.imag, v, 1,
+                                  fs.fused_span(b, sup, v))
+    ws1, ws2 = fs.stein_synthesis_weights(
+        torch.linspace(-100.0, 100.0, k, device="cuda"), FS, b, d)
+    ops = (ws1, ws2, lmat, h_ext)
+    one = _pipelined_call(*ops, b, sup, v)
+    assert one[1].unique().tolist() == [strong]
+    before = fs.PIPELINED_LAUNCHES
+    got = fs.fused_stein_rank(*ops, b, sup, v, want_top2=True, sep=sep)
+    torch.cuda.synchronize()
+    assert fs.PIPELINED_LAUNCHES == before
+    assert got[1].unique().tolist() == [strong]
+    assert got[3].unique().tolist() == [min(tied, partner)]
+    _assert_bound(got, ops, b, sup, v, sep)
+
+
 # Needle lengths at D = 8 whose 2B rows K1 shares over a cluster of c
 # blocks a lag tile: 2B = 1024, 2048 and 4608.
 SPLIT_NEEDLE = {2: 4096, 4: 8192, 8: 18432}

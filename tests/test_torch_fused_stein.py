@@ -483,14 +483,15 @@ def test_kernel_plan_takes_every_shape_jax_grants(d, lags, k, top2):
 def test_k1_study_edits_find_their_sites():
     """Every mutant and stage-split edit of ``utils/k1_study`` finds its
     site in ``csrc/fused_stein.cu`` exactly once, so the studies edit the
-    kernel they name."""
+    kernel they name: eight mutants (M6-M8 of the pipelined launch) and
+    each split's edits of both tile launches."""
     from caf_cookoff_tpu_torch.utils import k1_study
 
     src = (pathlib.Path(tfs.__file__).resolve().parents[1] / "csrc"
            / "fused_stein.cu").read_text()
     edits = list(k1_study.MUTANTS.values()) + [
-        e for e in k1_study.SPLITS.values() if e is not None]
-    assert len(edits) == 7
+        e for v in k1_study.SPLITS.values() if v is not None for e in v]
+    assert len(edits) == 13
     for old, new in edits:
         assert src.count(old) == 1
         assert src.replace(old, new) != src
